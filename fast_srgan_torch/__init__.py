@@ -1,0 +1,38 @@
+"""fast_srgan_torch: the Fast-SRGAN generator and inference engine on PyTorch/CUDA.
+
+The PyTorch port of ``fast_srgan_tpu`` for one NVIDIA H100. It mirrors the
+JAX package's module layout (``models/generator.py``, ``ops/lr_tail.py``,
+``inference.py`` ...) so each counterpart is found by path, and it never
+imports JAX or ``fast_srgan_tpu``: the JAX package is the numerical
+reference that ``tests/test_torch_*.py`` hold this one to.
+
+Activations are NCHW tensors in ``torch.channels_last`` memory (physically
+NHWC, the JAX package's layout). The one hand-written kernel on the serving
+path is the fused instance norm + PReLU (``kernels/instance_norm.py``, CUDA
+C++ in ``csrc/``); convolutions run through cuDNN.
+"""
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "Generator",
+    "SRInferenceEngine",
+    "arch_from_params",
+    "load_npz_params",
+]
+
+
+def __getattr__(name):  # lazy top-level API (keeps bare import light)
+    if name == "Generator":
+        from fast_srgan_torch.models.generator import Generator
+
+        return Generator
+    if name in ("SRInferenceEngine", "arch_from_params"):
+        import fast_srgan_torch.inference as inference
+
+        return getattr(inference, name)
+    if name == "load_npz_params":
+        from fast_srgan_torch.checkpoints.npz_io import load_npz_params
+
+        return load_npz_params
+    raise AttributeError(name)

@@ -1,0 +1,106 @@
+"""The Fast-SRGAN generator as an ``nn.Module`` (NCHW, channels_last).
+
+The port of ``fast_srgan_tpu/models/generator.py``:
+
+  neck:       Conv 3->F (k3, p1) + PReLU
+  stem:       n_layers x ResidualBlock
+                Conv(k3, no bias) -> InstanceNorm+PReLU (fused kernel)
+                -> Conv(no bias) -> InstanceNorm -> + x
+  bottleneck: Conv(no bias) -> InstanceNorm, + long skip
+  upsampling: log2(scale) x [Conv F->4F (k3) -> PixelShuffle(2) -> PReLU]
+  head:       Conv F->3 (k3) + tanh (in fp32) -> output in [-1, 1]
+
+Module names are the original Fast-SRGAN PyTorch ones (``neck.0``,
+``stem.{i}.conv1``, ``upsampling.{j}.relu`` ...), so its state_dicts load
+as they are. The default (n_filters=64, n_layers=8, scale 4) has 925,646
+parameters. The compute dtype is the parameters' dtype: cast the module
+(``.to(torch.bfloat16)``) to run in bf16; norm statistics stay fp32.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from fast_srgan_torch.kernels.instance_norm import instance_norm_prelu
+from fast_srgan_torch.ops.norm import instance_norm
+
+_STAGES = {2: 1, 4: 2, 8: 3}
+
+
+def _conv3x3(cin: int, cout: int, bias: bool = True) -> nn.Conv2d:
+    return nn.Conv2d(cin, cout, 3, padding=1, bias=bias)
+
+
+class ResidualBlock(nn.Module):
+    """conv -> IN+PReLU -> conv -> IN, identity skip after the 2nd norm."""
+
+    def __init__(self, n_filters: int):
+        super().__init__()
+        self.conv1 = _conv3x3(n_filters, n_filters, bias=False)
+        self.relu1 = nn.PReLU(1)  # its slope feeds the fused kernel
+        self.conv2 = _conv3x3(n_filters, n_filters, bias=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = instance_norm_prelu(self.conv1(x), self.relu1.weight)
+        return instance_norm(self.conv2(y)) + x
+
+
+class UpSamplingBlock(nn.Module):
+    """Conv F->4F (k3) -> PixelShuffle(2) -> PReLU: one 2x stage."""
+
+    def __init__(self, n_filters: int):
+        super().__init__()
+        self.conv = _conv3x3(n_filters, 4 * n_filters)
+        self.relu = nn.PReLU(1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.relu(F.pixel_shuffle(self.conv(x), 2))
+
+
+class Generator(nn.Module):
+    """Fully-convolutional SR generator; [B, 3, H, W] in [-1, 1] ->
+    [B, 3, sH, sW] fp32 in [-1, 1], s = scale_factor (2, 4 or 8)."""
+
+    def __init__(
+        self, n_filters: int = 64, n_layers: int = 8, scale_factor: int = 4
+    ):
+        super().__init__()
+        if scale_factor not in _STAGES:
+            raise ValueError(
+                f"scale_factor must be 2, 4, or 8; got {scale_factor}"
+            )
+        self.n_filters = n_filters
+        self.n_layers = n_layers
+        self.scale_factor = scale_factor
+        self.neck = nn.Sequential(_conv3x3(3, n_filters), nn.PReLU(1))
+        self.stem = nn.ModuleList(
+            ResidualBlock(n_filters) for _ in range(n_layers)
+        )
+        self.bottleneck = nn.Sequential(
+            _conv3x3(n_filters, n_filters, bias=False)
+        )
+        self.upsampling = nn.ModuleList(
+            UpSamplingBlock(n_filters) for _ in range(_STAGES[scale_factor])
+        )
+        self.head = nn.Sequential(_conv3x3(n_filters, 3))
+
+    def trunk(self, x: torch.Tensor) -> torch.Tensor:
+        """neck -> stem -> bottleneck (+ long skip): the LR feature map."""
+        x = x.to(self.neck[0].weight.dtype)
+        residual = self.neck(x)
+        y = residual
+        for block in self.stem:
+            y = block(y)
+        return instance_norm(self.bottleneck(y)) + residual
+
+    def tail(self, y: torch.Tensor) -> torch.Tensor:
+        """The canonical upsampling tail and head on a trunk output."""
+        for stage in self.upsampling:
+            y = stage(y)
+        return torch.tanh(self.head(y).float())
+
+    def forward(self, x: torch.Tensor, trunk_only: bool = False) -> torch.Tensor:
+        y = self.trunk(x)
+        return y if trunk_only else self.tail(y)
