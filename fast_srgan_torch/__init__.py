@@ -1,4 +1,4 @@
-"""fast_srgan_torch: the Fast-SRGAN generator and inference engine on PyTorch/CUDA.
+"""fast_srgan_torch: Fast-SRGAN's inference engine and training steps on PyTorch/CUDA.
 
 The PyTorch port of ``fast_srgan_tpu`` for one NVIDIA H100. It mirrors the
 JAX package's module layout (``models/generator.py``, ``ops/lr_tail.py``,
@@ -7,9 +7,10 @@ imports JAX or ``fast_srgan_tpu``: the JAX package is the numerical
 reference that ``tests/test_torch_*.py`` hold this one to.
 
 Activations are NCHW tensors in ``torch.channels_last`` memory (physically
-NHWC, the JAX package's layout). The one hand-written kernel on the serving
-path is the fused instance norm + PReLU (``kernels/instance_norm.py``, CUDA
-C++ in ``csrc/``); convolutions run through cuDNN.
+NHWC, the JAX package's layout). The hand-written kernels (``kernels/``,
+CUDA C++ in ``csrc/``) are the fused instance norm + PReLU, the fused
+upsample stage and the phase-major pixel shuffle; convolutions run through
+cuDNN. The training steps are in ``train/steps.py``.
 """
 
 __version__ = "0.1.0"

@@ -1,4 +1,7 @@
-"""JAX param tree -> the port's state_dict: the one place names are mapped.
+"""JAX param trees -> the port's state_dicts: the one place names are mapped.
+
+The generator's map is below; the discriminator's and VGG19's are in their
+functions at the end of the file.
 
 The port's modules carry the original Fast-SRGAN PyTorch names, so an
 original ``.pt`` generator state_dict (with torch.compile's ``_orig_mod.``
@@ -62,4 +65,37 @@ def state_dict_from_jax_params(
         sd[f"upsampling.{j}.conv.weight"] = _oihw(blk["conv"]["kernel"])
         sd[f"upsampling.{j}.conv.bias"] = _vec(blk["conv"]["bias"])
         sd[f"upsampling.{j}.relu.weight"] = _vec(blk["relu"]["alpha"])
+    return sd
+
+
+def discriminator_state_dict_from_jax_params(
+    params: Mapping[str, Any],
+) -> Dict[str, torch.Tensor]:
+    """Map a JAX discriminator param tree to the port's (the reference's)
+    names: neck_conv -> neck.0, stem_{i}.conv -> stem.{i}.conv, head_conv ->
+    stem.7 (the 1x1 conv)."""
+    p = params["params"] if "params" in params else params
+    sd = {
+        "neck.0.weight": _oihw(p["neck_conv"]["kernel"]),
+        "neck.0.bias": _vec(p["neck_conv"]["bias"]),
+        "stem.7.weight": _oihw(p["head_conv"]["kernel"]),
+        "stem.7.bias": _vec(p["head_conv"]["bias"]),
+    }
+    for i in range(7):
+        sd[f"stem.{i}.conv.weight"] = _oihw(p[f"stem_{i}"]["conv"]["kernel"])
+    return sd
+
+
+def vgg_state_dict_from_jax_params(
+    params: Mapping[str, Any],
+) -> Dict[str, torch.Tensor]:
+    """Map a JAX VGG19Features param tree (conv_0 .. conv_14) to torchvision's
+    ``features.{idx}`` names."""
+    from fast_srgan_torch.models.vgg import conv_indices
+
+    p = params["params"] if "params" in params else params
+    sd: Dict[str, torch.Tensor] = {}
+    for n, idx in enumerate(conv_indices()):
+        sd[f"features.{idx}.weight"] = _oihw(p[f"conv_{n}"]["kernel"])
+        sd[f"features.{idx}.bias"] = _vec(p[f"conv_{n}"]["bias"])
     return sd

@@ -1,8 +1,9 @@
 """Build the CUDA kernels with nvcc at first use and load them with ctypes.
 
-Every ``fast_srgan_torch/csrc/*.cu`` file is compiled by one nvcc call into
-one shared library with a plain C interface (no PyTorch headers, so the
-build takes seconds), for ``sm_90a`` (Hopper). The library lands in
+Every ``fast_srgan_torch/csrc/*.cu`` file is compiled by its own nvcc
+process, all started together, and the objects are linked into one shared
+library with a plain C interface (no PyTorch headers, so the build takes
+seconds), for ``sm_90a`` (Hopper). The library lands in
 ``fast_srgan_torch/_build/`` under a name that carries a hash of the sources
 and flags, so an edited source builds anew and an unchanged one loads the
 existing file. Importing this module builds nothing.
@@ -23,16 +24,30 @@ _PKG = Path(__file__).resolve().parent.parent
 SOURCE_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
+#: nvcc's flags for each source's object (the link adds only -shared).
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas=-v",
 ]
 
-# Entry points and their one signature: (x, alpha, out, partial, B, HW, C,
-# tile_px, eps, stream) -> cudaError_t as int.
-_ENTRY_POINTS = ("fsr_instance_norm_prelu_bf16", "fsr_instance_norm_prelu_f32")
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# (x, alpha, out, partial, B, HW, C, tile_px, eps, stream)
+_IN_PRELU = [_P] * 4 + [_I] * 4 + [_F, _P]
+# (x, weight, bias, alpha, out, B, H, W, C, stream)
+_FUSED_UPSAMPLE = [_P] * 5 + [_I] * 4 + [_P]
+
+#: Every ``extern "C"`` entry point of csrc/*.cu and its argument types, in
+#: order: a pointer (and the stream) is c_void_p, or ctypes would pass it as
+#: a 32-bit int. Each returns its launches' cudaError_t as an int.
+ENTRY_POINTS = {
+    "fsr_instance_norm_prelu_bf16": _IN_PRELU,
+    "fsr_instance_norm_prelu_f32": _IN_PRELU,
+    "fsr_fused_upsample_bf16": _FUSED_UPSAMPLE,
+    "fsr_fused_upsample_f32": _FUSED_UPSAMPLE,
+    # (x, out, B, H, W, C in bytes, stream)
+    "fsr_pixel_shuffle_phase_major": [_P, _P] + [_I] * 4 + [_P],
+}
 
 _lock = threading.Lock()
 _library: Optional[ctypes.CDLL] = None
@@ -81,16 +96,31 @@ def build() -> Path:
         return lib_path
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib_path.with_name(f"{lib_path.stem}.{os.getpid()}.tmp.so")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
+    tag = f"{lib_path.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in srcs]
+    jobs = [
+        subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
-    os.replace(tmp, lib_path)  # atomic: a concurrent loader sees all or none
-    build_log = proc.stdout + proc.stderr
+        for src, obj in zip(srcs, objs)
+    ]
+    logs = [job.communicate()[0] for job in jobs]
+    tmp = BUILD_DIR / f"{tag}.tmp.so"
+    try:
+        for src, job, log in zip(srcs, jobs, logs):
+            if job.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({job.returncode}) on {src.name}:\n{log}")
+        cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed: {' '.join(cmd)}\n{proc.stderr}")
+        os.replace(tmp, lib_path)  # atomic: a concurrent loader sees all or none
+    finally:
+        tmp.unlink(missing_ok=True)
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    build_log = "".join(logs)
     return lib_path
 
 
@@ -100,9 +130,9 @@ def load_library() -> ctypes.CDLL:
     with _lock:
         if _library is None:
             lib = ctypes.CDLL(str(build()))
-            for name in _ENTRY_POINTS:
+            for name, argtypes in ENTRY_POINTS.items():
                 fn = getattr(lib, name)
-                fn.argtypes = _ARGTYPES
+                fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
             _library = lib
         return _library

@@ -8,13 +8,20 @@ The port of ``fast_srgan_tpu/models/generator.py``:
                 -> Conv(no bias) -> InstanceNorm -> + x
   bottleneck: Conv(no bias) -> InstanceNorm, + long skip
   upsampling: log2(scale) x [Conv F->4F (k3) -> PixelShuffle(2) -> PReLU]
+                (fused_upsample=True: one kernel, kernels/fused_upsample.py;
+                else the conv's output channels come out phase-major and the
+                shuffle is the copy kernel of kernels/pixel_shuffle.py)
   head:       Conv F->3 (k3) + tanh (in fp32) -> output in [-1, 1]
 
 Module names are the original Fast-SRGAN PyTorch ones (``neck.0``,
 ``stem.{i}.conv1``, ``upsampling.{j}.relu`` ...), so its state_dicts load
 as they are. The default (n_filters=64, n_layers=8, scale 4) has 925,646
 parameters. The compute dtype is the parameters' dtype: cast the module
-(``.to(torch.bfloat16)``) to run in bf16; norm statistics stay fp32.
+(``.to(torch.bfloat16)``) to run in bf16, or keep fp32 parameters under
+``torch.autocast`` (training); every PReLU slope is cast to the activation
+dtype, and norm statistics stay fp32. Each kernel's wrapper picks its path
+from the tensor's device (the kernel on CUDA, the plain version on the
+CPU); there is no switch for it, as the JAX package's ``use_pallas`` is.
 """
 
 from __future__ import annotations
@@ -23,7 +30,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from fast_srgan_torch.kernels.fused_upsample import fused_upsample
 from fast_srgan_torch.kernels.instance_norm import instance_norm_prelu
+from fast_srgan_torch.kernels.pixel_shuffle import (
+    phase_major_index,
+    pixel_shuffle_phase_major,
+)
 from fast_srgan_torch.ops.norm import instance_norm
 
 _STAGES = {2: 1, 4: 2, 8: 3}
@@ -31,6 +43,11 @@ _STAGES = {2: 1, 4: 2, 8: 3}
 
 def _conv3x3(cin: int, cout: int, bias: bool = True) -> nn.Conv2d:
     return nn.Conv2d(cin, cout, 3, padding=1, bias=bias)
+
+
+def prelu(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """Single-slope PReLU with the slope cast to x's dtype (JAX ``PReLU``)."""
+    return torch.where(x >= 0, x, weight.to(x.dtype) * x)
 
 
 class ResidualBlock(nn.Module):
@@ -48,15 +65,26 @@ class ResidualBlock(nn.Module):
 
 
 class UpSamplingBlock(nn.Module):
-    """Conv F->4F (k3) -> PixelShuffle(2) -> PReLU: one 2x stage."""
+    """Conv F->4F (k3) -> PixelShuffle(2) -> PReLU: one 2x stage.
 
-    def __init__(self, n_filters: int):
+    Fused: the whole stage is one kernel. Unfused: the conv runs with its
+    output channels permuted to phase-major order (a gather of weight and
+    bias, not of the activation), so the shuffle is a plain copy. The parameters are
+    the same either way, in torch channel order."""
+
+    def __init__(self, n_filters: int, fused: bool = False):
         super().__init__()
         self.conv = _conv3x3(n_filters, 4 * n_filters)
         self.relu = nn.PReLU(1)
+        self.fused = fused
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.relu(F.pixel_shuffle(self.conv(x), 2))
+        if self.fused:
+            return fused_upsample(x, self.conv.weight, self.conv.bias, self.relu.weight)
+        perm = phase_major_index(self.conv.out_channels, x.device)
+        y = F.conv2d(x, self.conv.weight[perm], self.conv.bias[perm], padding=1)
+        y = pixel_shuffle_phase_major(y.contiguous(memory_format=torch.channels_last))
+        return prelu(y, self.relu.weight)
 
 
 class Generator(nn.Module):
@@ -64,7 +92,11 @@ class Generator(nn.Module):
     [B, 3, sH, sW] fp32 in [-1, 1], s = scale_factor (2, 4 or 8)."""
 
     def __init__(
-        self, n_filters: int = 64, n_layers: int = 8, scale_factor: int = 4
+        self,
+        n_filters: int = 64,
+        n_layers: int = 8,
+        scale_factor: int = 4,
+        fused_upsample: bool = False,
     ):
         super().__init__()
         if scale_factor not in _STAGES:
@@ -82,14 +114,15 @@ class Generator(nn.Module):
             _conv3x3(n_filters, n_filters, bias=False)
         )
         self.upsampling = nn.ModuleList(
-            UpSamplingBlock(n_filters) for _ in range(_STAGES[scale_factor])
+            UpSamplingBlock(n_filters, fused_upsample)
+            for _ in range(_STAGES[scale_factor])
         )
         self.head = nn.Sequential(_conv3x3(n_filters, 3))
 
     def trunk(self, x: torch.Tensor) -> torch.Tensor:
         """neck -> stem -> bottleneck (+ long skip): the LR feature map."""
         x = x.to(self.neck[0].weight.dtype)
-        residual = self.neck(x)
+        residual = prelu(self.neck[0](x), self.neck[1].weight)
         y = residual
         for block in self.stem:
             y = block(y)

@@ -1,1 +1,1 @@
-"""Plain PyTorch ops of the generator: instance norm and the LR-domain tail."""
+"""Plain PyTorch ops: instance norm, the LR-domain tail, bicubic resize."""
