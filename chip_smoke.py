@@ -34,9 +34,20 @@ own line; any failure exits non-zero and prints no result:
      (finite metrics), once with the fused upsample and once unfused (conv +
      the shuffle kernel); exact launch counts; ms per step and peak memory;
      and one fp32 pretrain step from the same state with the kernels on the
-     card against the plain path on the CPU, losses within 1e-5.
+     card against the plain path on the CPU, losses within 1e-5;
+ 10. int8: the activation-quantize and s8 x s8 -> s32 conv kernels, bitwise
+     against their plain versions in bf16 and fp32 glue at stage 1, at each
+     stage-2 phase and at ragged shapes, timed beside the bf16 cuDNN conv the
+     float tier runs; the int8 engine (pretrained 4x, ups mode, bf16 glue,
+     calibrated on the frames) answers the frames with exact launch counts;
+     every mode in both glue dtypes on the PSNR bar's own input (2x48x64,
+     tests/test_quant.py), at least its bar against the card's fp32, and
+     against the CPU port on the same scales (the bounded-flip contract for
+     ups in fp32 glue); int8 against bf16 frames/s at batch 8, 16 and 32
+     (indicative).
 
-Phases 7 and 8 run right after phase 3, phase 9 last.
+Phases 7 and 8 run right after phase 3, phase 10 after phase 6, phase 9
+last.
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -62,6 +73,10 @@ UPSAMPLE_SOURCE = "fast_srgan_torch/csrc/fused_upsample.cu"
 UPSAMPLE_REPLACES = "fast_srgan_tpu/kernels/fused_upsample.py:255"
 SHUFFLE_SOURCE = "fast_srgan_torch/csrc/pixel_shuffle.cu"
 SHUFFLE_REPLACES = "fast_srgan_tpu/kernels/pixel_shuffle.py:64"
+INT8_CONV_SOURCE = "fast_srgan_torch/csrc/int8_conv.cu"
+INT8_CONV_REPLACES = "fast_srgan_tpu/quant.py:216"
+QUANTIZE_SOURCE = "fast_srgan_torch/csrc/quantize.cu"
+QUANTIZE_REPLACES = "fast_srgan_tpu/quant.py:184"
 
 FP32_TOL = 2e-5
 BF16_TOL = 2e-2
@@ -73,6 +88,12 @@ UPSAMPLE_BF16_TOL = 3e-2
 GRAD_RTOL = 1e-5
 PARITY_RTOL = 1e-5
 PRETRAIN_STEPS, GAN_STEPS = 20, 10
+# int8 against fp32, uint8 PSNR on tests/test_quant.py's input (the
+# synthetic batch 2x48x64, seed 3): ups is its bar, full its full-int8 bar;
+# tail (fewer int8 layers than full, no trunk ones) takes ups's, trunk
+# full's. The smoke's own frames are held to the lowest of them.
+INT8_PSNR_MIN_DB = {"ups": 37.0, "tail": 37.0, "full": 33.0, "trunk": 33.0}
+SWEEP_BATCHES = (8, 16, 32)
 
 
 def fail(msg: str) -> None:
@@ -125,12 +146,13 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _timed_pair(kernel, plain, iters: int = 20) -> tuple:
+def _timed_pair(kernel, plain, iters: int = 20, plain_iters: int = 0) -> tuple:
     """(kernel ms, plain ms), measured plain, kernel, kernel, plain."""
-    p1 = cuda_ms(plain, iters)
+    plain_iters = plain_iters or iters
+    p1 = cuda_ms(plain, plain_iters)
     k1 = cuda_ms(kernel, iters)
     k2 = cuda_ms(kernel, iters)
-    p2 = cuda_ms(plain, iters)
+    p2 = cuda_ms(plain, plain_iters)
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
@@ -323,12 +345,17 @@ def phase_fidelity(params, frames, replies) -> None:
     check(min(values) >= PSNR_MIN_DB, f"bf16 PSNR {min(values):.2f} < {PSNR_MIN_DB}")
 
 
-def phase_throughput(engine, frames, card: str) -> None:
+def _stage_frames(frames) -> torch.Tensor:
+    """200 uint8 180x320 frames on the card, cycling the 180x320 ones."""
     base = [f for f in frames if f.shape[:2] == (180, 320)]
     staged = torch.from_numpy(np.stack([base[i % len(base)] for i in range(200)]))
-    staged = staged.to("cuda")
-    bs = engine.effective_batch_size(180, 320, 8)
-    n = (200 // bs) * bs
+    return staged.to("cuda")
+
+
+def _frames_per_s(engine, staged: torch.Tensor, bs: int) -> tuple:
+    """(frames, ms): forward_u8 over the staged frames in batches of bs,
+    after two warm-up batches, CUDA events around the timed loop."""
+    n = (len(staged) // bs) * bs
     batches = [staged[i:i + bs] for i in range(0, n, bs)]
     for x in batches[:2]:
         engine.forward_u8(x)
@@ -341,7 +368,12 @@ def phase_throughput(engine, frames, card: str) -> None:
     end.record()
     torch.cuda.synchronize()
     check(out.shape == (bs, 720, 1280, 3), "throughput output shape")
-    ms = start.elapsed_time(end)
+    return n, start.elapsed_time(end)
+
+
+def phase_throughput(engine, frames, card: str) -> None:
+    bs = engine.effective_batch_size(180, 320, 8)
+    n, ms = _frames_per_s(engine, _stage_frames(frames), bs)
     print(
         f"[6 throughput] 180x320 -> 720p bf16, batch {bs}: {n} frames in"
         f" {ms:.1f} ms = {1000 * n / ms:.1f} frames/s ({card}; indicative)",
@@ -351,6 +383,194 @@ def phase_throughput(engine, frames, card: str) -> None:
 
 def _no_tf32():
     return torch.backends.cudnn.flags(enabled=True, allow_tf32=False)
+
+
+def _int8_conv_args(gen, b, cin, h, w, k, dtype):
+    """Random int8 activations and weights, a per-channel weight scale, an
+    activation scale, a bias and a slope, as stage 1 and the phases run."""
+    from fast_srgan_torch.kernels.int8_conv import pack_int8_weight
+
+    dev = torch.device("cuda")
+    q = torch.randint(-127, 128, (k, k, cin, 256), device=dev, generator=gen)
+    xq = torch.randint(-127, 128, (b, h, w, cin), device=dev, generator=gen)
+    weight = pack_int8_weight(q.to(torch.int8), dev)
+    wscale = torch.rand(256, device=dev, generator=gen) * 1e-2 + 1e-3
+    bias = (torch.rand(256, device=dev, generator=gen) - 0.5).to(dtype)
+    alpha = torch.tensor([0.173], device=dev).to(dtype)
+    scale = torch.tensor(2.3, device=dev)
+    return xq.to(torch.int8).permute(0, 3, 1, 2), weight, wscale, scale, bias, alpha
+
+
+def phase_int8_kernels() -> tuple:
+    import torch.nn.functional as F
+
+    from fast_srgan_torch.kernels.int8_conv import int8_conv, int8_conv_reference
+    from fast_srgan_torch.kernels.quantize import quantize_act, quantize_act_reference
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    quant_row = conv_row = None
+    for label, shape in (("stage-2 input", (8, 256, 180, 320)), ("ragged", (3, 3, 37, 53))):
+        for dtype in (torch.bfloat16, torch.float32):
+            x = (torch.randn(shape, device=dev, generator=gen) * 2).to(dtype)
+            x = x.contiguous(memory_format=torch.channels_last)
+            s = torch.tensor(3.7, device=dev)
+            got = quantize_act(x, s)
+            want = quantize_act_reference(x, s)
+            torch.cuda.synchronize()
+            equal = torch.equal(got, want) and got.stride() == x.stride()
+            ms = plain_ms = None
+            if shape[0] == 8 and dtype == torch.bfloat16:
+                ms, plain_ms = _timed_pair(lambda: quantize_act(x, s),
+                                           lambda: quantize_act_reference(x, s))
+                quant_row = {"max_abs_err": (got.float() - want.float()).abs().max().item(),
+                             "ms": ms, "plain_ms": plain_ms}
+            print(
+                f"[10 kernel] quantize {label} {dtype} {list(shape)}: bitwise equal {equal}"
+                + (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms" if ms else ""),
+                flush=True,
+            )
+            check(equal, f"quantize {label} {dtype} differs from its plain version")
+
+    cases = [("stage 1", 8, 64, 180, 320, 3, (1, 1))]
+    cases += [(f"phase ({p},{q})", 8, 256, 180, 320, 2, (1 - p, 1 - q))
+              for p in (0, 1) for q in (0, 1)]
+    cases += [("ragged stage 1", 3, 64, 37, 53, 3, (1, 1)),
+              ("ragged phase (1,1)", 3, 256, 37, 53, 2, (0, 0))]
+    for label, b, cin, h, w, k, pad in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            xq, weight, ws, s, bias, alpha = _int8_conv_args(gen, b, cin, h, w, k, dtype)
+            args = (xq, weight, ws, s, pad, bias, alpha, dtype)
+            got = int8_conv(*args)
+            want = int8_conv_reference(*args)
+            torch.cuda.synchronize()
+            equal = torch.equal(got, want)
+            check(got.is_contiguous(memory_format=torch.channels_last), f"{label}: layout")
+            line = (f"[10 kernel] int8 conv {label} {dtype} [{b},{cin},{h},{w}] -> 256,"
+                    f" {k}x{k} pad {pad}: bitwise equal {equal}")
+            if label in ("stage 1", "phase (0,0)") and dtype == torch.bfloat16:
+                ms, plain_ms = _timed_pair(lambda: int8_conv(*args),
+                                           lambda: int8_conv_reference(*args), 20, 3)
+                # the bf16 cuDNN conv the float tier runs at this shape
+                # (ops/lr_tail.py: 3x3 pad 1, or 2x2 valid on the one-padded input)
+                xb = torch.randn((b, cin, h, w), device=dev, generator=gen).to(dtype)
+                xb = xb.contiguous(memory_format=torch.channels_last)
+                if k == 2:
+                    xb = F.pad(xb, (1, 1, 1, 1))
+                wb = (torch.randn((256, cin, k, k), device=dev, generator=gen) * 0.05).to(dtype)
+                wb = wb.contiguous(memory_format=torch.channels_last)
+                conv_ms = cuda_ms(lambda: F.conv2d(xb, wb, bias, padding=1 if k == 3 else 0), 20)
+                ops = 2 * b * h * w * cin * k * k * 256
+                line += (f"; kernel {ms:.4f} ms ({ops / ms / 1e9:.1f} TOP/s), plain (float64)"
+                         f" {plain_ms:.4f} ms, bf16 cuDNN conv {conv_ms:.4f} ms")
+                if label == "phase (0,0)":
+                    conv_row = {"max_abs_err": (got.float() - want.float()).abs().max().item(),
+                                "ms": ms, "plain_ms": plain_ms}
+            print(line, flush=True)
+            check(equal, f"int8 conv {label} {dtype} differs from its plain version")
+    return conv_row, quant_row
+
+
+def _u8_compare(a: np.ndarray, b: np.ndarray) -> tuple:
+    d = np.abs(a.astype(np.int16) - b.astype(np.int16))
+    return int(d.max()), float((d > 1).mean()), psnr(a, b)
+
+
+def phase_int8_engine(params, frames) -> list:
+    """The int8 engine on the card: the main path's launches and fidelity,
+    then every mode on the fidelity bar's own input, against the card's fp32
+    and against the CPU port. Returns the launches of (int8 conv, quantize)."""
+    from fast_srgan_torch import quant
+    from fast_srgan_torch.inference import SRInferenceEngine
+    from fast_srgan_torch.kernels.instance_norm import instance_norm_prelu
+    from fast_srgan_torch.kernels.int8_conv import int8_conv
+    from fast_srgan_torch.kernels.quantize import quantize_act
+
+    calib = np.stack([f for f in frames if f.shape[:2] == (180, 320)])
+    engine = SRInferenceEngine(params, device="cuda", dtype=torch.bfloat16,
+                               quantize=True, calib_batches=[calib])
+    counters = (int8_conv, quantize_act, instance_norm_prelu)
+    for f in counters:
+        f.launches = 0
+    engine.forward_calls = 0
+    replies = engine.upscale_images(frames)
+    launches = [f.launches for f in counters]
+    forwards = engine.forward_calls
+    want = [5 * forwards, 2 * forwards, engine.model.n_layers * forwards]
+    print(
+        f"[10 int8] ups bf16 engine: {len(frames)} frames in {forwards} forwards; launches"
+        f" int8 conv {launches[0]}, quantize {launches[1]}, IN+PReLU {launches[2]}"
+        f" (want {want})",
+        flush=True,
+    )
+    check(forwards > 0 and launches == want, "int8 launch count mismatch")
+    card32 = SRInferenceEngine(params, device="cuda", dtype=torch.float32)
+    values = [psnr(a, b) for a, b in zip(replies, card32.upscale_images(frames))]
+    floor = min(INT8_PSNR_MIN_DB.values())
+    print(f"[10 int8] ups bf16 vs card fp32 on these frames, calibrated on them: PSNR min"
+          f" {min(values):.2f} dB, mean {np.mean(values):.2f} dB (floor {floor})", flush=True)
+    check(min(values) >= floor, f"int8 ups PSNR {min(values):.2f} on the smoke's frames")
+
+    # the float bf16 engine, card against CPU: the scale of bf16's own spread
+    rng = np.random.default_rng(7)
+    small = np.stack([make_frame(rng, 64, 96) for _ in range(2)])
+    a = SRInferenceEngine(params, device="cuda").upscale_batch(small)
+    b = SRInferenceEngine(params, device="cpu").upscale_batch(small)
+    mx, frac, db = _u8_compare(a, b)
+    print(f"[10 int8] float bf16 engine, card vs CPU at 64x96: max {mx}, >1: {100 * frac:.2f}%,"
+          f" PSNR {db:.2f} dB", flush=True)
+
+    # every mode on the bar's own input (tests/test_quant.py
+    # TestPretrainedBound: the synthetic batch 2x48x64, seed 3, calibrated on
+    # itself), against the card's fp32 and the CPU port on the same scales
+    x = ((quant.default_calibration_batch(h=48, w=64, n=2, seed=3) + 1) * 127.5)
+    x = np.clip(x, 0, 255).astype(np.uint8)
+    ref32 = card32.upscale_batch(x)
+    for mode in ("ups", "tail", "full", "trunk"):
+        for dtype in (torch.float32, torch.bfloat16):
+            card_e = SRInferenceEngine(params, device="cuda", dtype=dtype, quantize=mode,
+                                       calib_batches=[x])
+            cpu_e = SRInferenceEngine(params, device="cpu", dtype=dtype, quantize=mode,
+                                      act_scales={k: v.cpu() for k, v in card_e.act_scales.items()})
+            a = card_e.upscale_batch(x)
+            mx, frac, db = _u8_compare(a, cpu_e.upscale_batch(x))
+            fid = psnr(a, ref32)
+            name = "fp32" if dtype == torch.float32 else "bf16"
+            print(f"[10 int8] {mode} {name} glue, 2x48x64: vs card fp32 {fid:.2f} dB (bar"
+                  f" {INT8_PSNR_MIN_DB[mode]}); card vs CPU port max {mx}, >1:"
+                  f" {100 * frac:.2f}%, PSNR {db:.2f} dB", flush=True)
+            check(fid >= INT8_PSNR_MIN_DB[mode], f"int8 {mode} {name}: PSNR {fid:.2f}")
+            if mode == "ups" and dtype == torch.float32:
+                check(mx <= 3 and frac < 0.02, "int8 ups fp32: card vs CPU off the contract")
+    return launches[:2]
+
+
+def phase_int8_throughput(params, frames, card: str) -> None:
+    from fast_srgan_torch.inference import SRInferenceEngine
+
+    staged = _stage_frames(frames)
+    calib = np.stack([f for f in frames if f.shape[:2] == (180, 320)])
+    budget = max(SWEEP_BATCHES) * 180 * 320
+    engines = {
+        "bf16": SRInferenceEngine(params, device="cuda", pixel_budget=budget),
+        "int8": SRInferenceEngine(params, device="cuda", pixel_budget=budget,
+                                  quantize=True, calib_batches=[calib]),
+    }
+    for bs in SWEEP_BATCHES:
+        fps = {"bf16": [], "int8": []}
+        for name in ("bf16", "int8", "int8", "bf16"):
+            torch.cuda.reset_peak_memory_stats()
+            n, ms = _frames_per_s(engines[name], staged, bs)
+            fps[name].append(1000 * n / ms)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        b, q = np.mean(fps["bf16"]), np.mean(fps["int8"])
+        print(
+            f"[10 throughput] 180x320 -> 720p, batch {bs}: bf16 {b:.1f} frames/s"
+            f" ({fps['bf16'][0]:.1f}, {fps['bf16'][1]:.1f}); int8 ups {q:.1f}"
+            f" ({fps['int8'][0]:.1f}, {fps['int8'][1]:.1f}); int8/bf16 {q / b:.3f};"
+            f" peak {peak:.2f} GiB ({card}; indicative)",
+            flush=True,
+        )
 
 
 def phase_upsample_kernel() -> dict:
@@ -625,6 +845,9 @@ def main() -> None:
     engine, replies, launches = phase_serving(params, frames)
     phase_fidelity(params, frames, replies)
     phase_throughput(engine, frames, card)
+    conv_row, quant_row = phase_int8_kernels()
+    int8_launches = phase_int8_engine(params, frames)
+    phase_int8_throughput(params, frames, card)
     fused, unfused = phase_training(card)
 
     check("jax" not in sys.modules, "jax was imported")
@@ -632,8 +855,9 @@ def main() -> None:
         not any(m.startswith("fast_srgan_tpu") for m in sys.modules),
         "the JAX package was imported",
     )
-    # launches: IN+PReLU from the serving path (phase 4), the fused upsample
-    # from the fused training arm, the shuffle from the unfused arm (phase 9)
+    # launches: IN+PReLU from the serving path (phase 4), the int8 conv and
+    # the quantize from the int8 engine (phase 10), the fused upsample from
+    # the fused training arm, the shuffle from the unfused arm (phase 9)
     print(json.dumps({"kernels": [
         {"name": "instance_norm_prelu", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": KERNEL_REPLACES, "launches": launches, **row},
@@ -642,6 +866,10 @@ def main() -> None:
         {"name": "pixel_shuffle_phase_major", "route": "cuda",
          "source": SHUFFLE_SOURCE, "replaces": SHUFFLE_REPLACES,
          "launches": unfused[2], **shuffle_row},
+        {"name": "int8_conv", "route": "cuda", "source": INT8_CONV_SOURCE,
+         "replaces": INT8_CONV_REPLACES, "launches": int8_launches[0], **conv_row},
+        {"name": "quantize_act", "route": "cuda", "source": QUANTIZE_SOURCE,
+         "replaces": QUANTIZE_REPLACES, "launches": int8_launches[1], **quant_row},
     ]}))
     print(json.dumps({
         "ok": True,

@@ -9,8 +9,9 @@ reference that ``tests/test_torch_*.py`` hold this one to.
 Activations are NCHW tensors in ``torch.channels_last`` memory (physically
 NHWC, the JAX package's layout). The hand-written kernels (``kernels/``,
 CUDA C++ in ``csrc/``) are the fused instance norm + PReLU, the fused
-upsample stage and the phase-major pixel shuffle; convolutions run through
-cuDNN. The training steps are in ``train/steps.py``.
+upsample stage, the phase-major pixel shuffle, and the int8 tier's
+activation quantize and s8 conv (``quant.py``); float convolutions run
+through cuDNN. The training steps are in ``train/steps.py``.
 """
 
 __version__ = "0.1.0"

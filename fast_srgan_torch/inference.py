@@ -5,23 +5,31 @@ out, with the reference normalization (in: x/127.5 - 1; out: (y+1)*127.5
 clamped to [0, 255], truncated to uint8). Images are grouped by shape and
 batched under a per-batch LR-pixel budget.
 
+``quantize=`` selects the int8 PTQ tier (``quant.py``; True is the ``ups``
+mode, the JAX package's production policy): the upsampling convs run int8
+on the card's tensor cores (``kernels/int8_conv.py``) at activation scales
+calibrated on sample inputs, the trunk and head stay float.
+
 What the JAX engine does only for XLA's compiled shapes on the TPU is not
 here: eager PyTorch compiles nothing per shape, so batches are never padded
-to a compiled size and there is no "never batch 2..7" rule. Bucketing,
-int8, multi-device and video streaming are not ported yet.
+to a compiled size and there is no "never batch 2..7" rule. Bucketing (and
+so the masked int8 forward), multi-device and video streaming are not
+ported yet.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from fast_srgan_torch import quant
 from fast_srgan_torch.checkpoints.convert import state_dict_from_jax_params
 from fast_srgan_torch.models.generator import Generator
 from fast_srgan_torch.ops.lr_tail import generator_apply_lr_tail, prepare_lr_tail
+from fast_srgan_torch.ops.precision import cudnn_without_tf32
 
 
 def sr_forward_u8(
@@ -57,16 +65,12 @@ def arch_from_params(params: Dict[str, Any]) -> Dict[str, int]:
     }
 
 
-@contextlib.contextmanager
-def _cudnn_without_tf32():
-    """cuDNN runs fp32 convolutions in TF32 by default; fp32 mode means fp32."""
-    with torch.backends.cudnn.flags(
-        enabled=torch.backends.cudnn.enabled,
-        benchmark=torch.backends.cudnn.benchmark,
-        deterministic=torch.backends.cudnn.deterministic,
-        allow_tf32=False,
-    ):
-        yield
+def load_image(path: str) -> np.ndarray:
+    """An image file decoded to uint8 RGB [H, W, 3]."""
+    from PIL import Image
+
+    with Image.open(path) as im:
+        return np.asarray(im.convert("RGB"), dtype=np.uint8)
 
 
 class SRInferenceEngine:
@@ -80,7 +84,20 @@ class SRInferenceEngine:
         engine never falls back to the CPU.
       pixel_budget: most LR pixels per batch (see :meth:`effective_batch_size`).
       lr_tail: run the upsampling tail at LR resolution (``ops/lr_tail.py``);
-        False runs the canonical tail.
+        False runs the canonical tail. The int8 tier always runs it.
+      quantize: False, or the int8 mode: True (= ``"ups"``), ``"tail"``,
+        ``"full"`` or ``"trunk"`` (``quant.MODES``). ``dtype`` is then the
+        glue dtype between the int8 convs.
+      act_scales: int8 activation scales (``quant.calibrate_scales``'s
+        dict); None calibrates on ``calib_batches``, or else on
+        ``quant.default_calibration_batch()``.
+      calib_batches: sample batches ([-1, 1] float NHWC or uint8) to
+        calibrate on.
+
+    ``default_calibration`` is True when the scales came from the synthetic
+    batch (neither ``act_scales`` nor ``calib_batches`` given): the signal
+    for a caller to recalibrate on real inputs without overwriting scales
+    that were chosen on purpose. :meth:`recalibrate` clears it.
     """
 
     #: Default LR-pixel budget per batch: 16 frames of 180x320. Not an H100
@@ -97,6 +114,9 @@ class SRInferenceEngine:
         device: Any = "cuda",
         pixel_budget: Optional[int] = None,
         lr_tail: bool = True,
+        quantize: bool | str = False,
+        act_scales: Optional[Dict[str, Any]] = None,
+        calib_batches: Optional[Iterable[Any]] = None,
     ):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -115,21 +135,53 @@ class SRInferenceEngine:
         self.SCALE = arch["scale_factor"]
         self.dtype = dtype
         self.pixel_budget = pixel_budget or self.PIXEL_BUDGET
+        mode = "ups" if quantize is True else (quantize or None)
+        if mode is not None and mode not in quant.MODES:
+            raise ValueError(f"quantize must be True/'tail'/'ups'/'full'/'trunk': {mode!r}")
+        self.quantize = mode is not None
+        self.quantize_mode = mode
         model = Generator(**arch)
         model.load_state_dict(state_dict_from_jax_params(params))
-        self._tail = prepare_lr_tail(model, dtype, self.device) if lr_tail else None
+        use_lr_tail = lr_tail and not self.quantize
+        self._tail = prepare_lr_tail(model, dtype, self.device) if use_lr_tail else None
         self.model = model.to(
             device=self.device, dtype=dtype, memory_format=torch.channels_last
         ).eval()
         #: Generator forwards run so far (one per batch).
         self.forward_calls = 0
+        if self.quantize:
+            # the fp32 float form, kept for recalibrate()
+            self._calib_plan = quant.prepare_generator(params, None, torch.float32, self.device)
+            self.default_calibration = act_scales is None and calib_batches is None
+            if act_scales is None:
+                act_scales = quant.calibrate_scales(
+                    self._calib_plan, calib_batches or [quant.default_calibration_batch()]
+                )
+            self.act_scales = {
+                k: torch.as_tensor(v, dtype=torch.float32, device=self.device)
+                for k, v in act_scales.items()
+            }
+            self._plan = quant.prepare_generator(
+                params, mode, dtype, self.device, model=self.model
+            )
+
+    def recalibrate(self, batches: Iterable[Any]) -> None:
+        """Recompute the int8 activation scales from sample inputs and swap
+        them in on the device; nothing else is rebuilt. Clears
+        ``default_calibration``: the scales are now the caller's choice."""
+        if not self.quantize:
+            raise ValueError("recalibrate() requires quantize=True")
+        self.default_calibration = False
+        self.act_scales = quant.calibrate_scales(self._calib_plan, batches)
 
     def _precision(self):
         if self.dtype == torch.float32 and self.device.type == "cuda":
-            return _cudnn_without_tf32()
+            return cudnn_without_tf32()
         return contextlib.nullcontext()
 
     def _apply(self, x: torch.Tensor) -> torch.Tensor:
+        if self.quantize:
+            return quant.sr_quant_forward(self._plan, self.act_scales, x)
         if self._tail is None:
             return self.model(x)
         return generator_apply_lr_tail(self.model, self._tail, x)
@@ -208,11 +260,7 @@ class SRInferenceEngine:
                 w, h = im.size
             sizes.append((h, w))
 
-        def load(i: int) -> np.ndarray:
-            with Image.open(paths[i]) as im:
-                return np.asarray(im.convert("RGB"), dtype=np.uint8)
-
-        yield from self._grouped_upscale(sizes, load, batch_size)
+        yield from self._grouped_upscale(sizes, lambda i: load_image(paths[i]), batch_size)
 
     def _grouped_upscale(
         self, sizes, take: Callable[[int], np.ndarray], batch_size: int

@@ -8,16 +8,22 @@ from fast_srgan_torch.kernels.instance_norm import (
     instance_norm_prelu,
     instance_norm_prelu_reference,
 )
+from fast_srgan_torch.kernels.int8_conv import int8_conv, int8_conv_reference
 from fast_srgan_torch.kernels.pixel_shuffle import (
     pixel_shuffle_phase_major,
     pixel_shuffle_phase_major_reference,
 )
+from fast_srgan_torch.kernels.quantize import quantize_act, quantize_act_reference
 
 __all__ = [
     "fused_upsample",
     "fused_upsample_reference",
     "instance_norm_prelu",
     "instance_norm_prelu_reference",
+    "int8_conv",
+    "int8_conv_reference",
     "pixel_shuffle_phase_major",
     "pixel_shuffle_phase_major_reference",
+    "quantize_act",
+    "quantize_act_reference",
 ]

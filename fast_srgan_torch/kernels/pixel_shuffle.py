@@ -38,9 +38,12 @@ def phase_major_permutation(c4: int) -> np.ndarray:
 @functools.lru_cache(maxsize=64)
 def phase_major_index(c4: int, device: torch.device, inverse: bool = False) -> torch.Tensor:
     """The permutation (or its inverse) as an index tensor on ``device``,
-    made once: a host-to-device copy per call would stall the host."""
+    made once: a host-to-device copy per call would stall the host. Made
+    outside inference mode, so a first call under ``torch.inference_mode``
+    does not cache a tensor that autograd then refuses."""
     perm = phase_major_permutation(c4)
-    return torch.from_numpy(np.argsort(perm) if inverse else perm).to(device)
+    with torch.inference_mode(False):
+        return torch.from_numpy(np.argsort(perm) if inverse else perm).to(device)
 
 
 def pixel_shuffle_phase_major_reference(x: torch.Tensor) -> torch.Tensor:

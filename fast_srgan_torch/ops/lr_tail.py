@@ -191,8 +191,11 @@ def _conv_prelu(y: torch.Tensor, st: Dict[str, torch.Tensor]) -> torch.Tensor:
     return F.prelu(F.conv2d(y, st["w"], st["b"], padding=1), st["a"])
 
 
-def _phase_outputs(a1: torch.Tensor, w: Dict[str, Any]) -> List[torch.Tensor]:
-    """The four stage-2 phases, PReLU applied, each [B, 4F, H, W].
+def _phase_outputs(
+    a1: torch.Tensor, phases, bias: torch.Tensor, alpha: torch.Tensor
+) -> List[torch.Tensor]:
+    """The four stage-2 phases, PReLU applied, each [B, 4F, H, W];
+    ``phases`` is the ``[((p, q), kernel)]`` list of :func:`prepare_lr_tail`.
 
     One zero pad of 1 on every side serves all four: a valid 2x2 conv over
     it gives (H+1)x(W+1) outputs, and phase (p, q) (padding ((1-p, p),
@@ -200,10 +203,23 @@ def _phase_outputs(a1: torch.Tensor, w: Dict[str, Any]) -> List[torch.Tensor]:
     h, wd = a1.shape[2], a1.shape[3]
     a1p = F.pad(a1, (1, 1, 1, 1))
     out = []
-    for (p, q), kp in w["phases"]:
-        full = F.conv2d(a1p, kp, w["up1_b"])
-        out.append(F.prelu(full[:, :, p:p + h, q:q + wd], w["up1_a"]))
+    for (p, q), kp in phases:
+        full = F.conv2d(a1p, kp, bias)
+        out.append(F.prelu(full[:, :, p:p + h, q:q + wd], alpha))
     return out
+
+
+def _summed_head(
+    phases: List[torch.Tensor], parts: List[torch.Tensor], bias32: torch.Tensor
+) -> torch.Tensor:
+    """The 4x head as four partial convs, one per phase, summed in fp32 with
+    the fp32 bias: the [B, 16F, H, W] concat never exists. cuDNN accumulates
+    each partial in fp32 and returns it in the compute dtype."""
+    z = None
+    for ph, kp in zip(phases, parts):
+        part = F.conv2d(ph, kp, padding=1).float()
+        z = part if z is None else z + part
+    return z + bias32.view(1, -1, 1, 1)
 
 
 def lr_tail(y: torch.Tensor, w: Dict[str, Any], head: str = "auto") -> torch.Tensor:
@@ -219,18 +235,12 @@ def lr_tail(y: torch.Tensor, w: Dict[str, Any], head: str = "auto") -> torch.Ten
     if head not in ("summed", "concat"):
         raise ValueError(f"head must be 'summed'/'concat'/'auto': {head!r}")
     a1 = _conv_prelu(y.to(w["head_w"].dtype), w["up0"])  # [B, 4F, H, W]
-    phases = _phase_outputs(a1, w)
+    phases = _phase_outputs(a1, w["phases"], w["up1_b"], w["up1_a"])
     if head == "concat":
         a2 = torch.cat(phases, dim=1)  # [B, 16F, H, W], phase-major
         z = F.conv2d(a2, w["head_w"], padding=1).float() + w["head_b"].view(1, -1, 1, 1)
     else:
-        # cuDNN accumulates each partial in fp32 and returns it in the
-        # compute dtype; the four partials and the bias are summed in fp32.
-        z = None
-        for ph, kp in zip(phases, w["head_parts"]):
-            part = F.conv2d(ph, kp, padding=1).float()
-            z = part if z is None else z + part
-        z = z + w["head_b"].view(1, -1, 1, 1)
+        z = _summed_head(phases, w["head_parts"], w["head_b"])
     return F.pixel_shuffle(torch.tanh(z), 4)
 
 

@@ -63,8 +63,10 @@ def bicubic_resize_matrix(
 
 @functools.lru_cache(maxsize=64)
 def _matrix(in_size: int, out_size: int, antialias: bool, device: torch.device):
-    """bicubic_resize_matrix on ``device``, copied there once."""
-    return torch.from_numpy(bicubic_resize_matrix(in_size, out_size, antialias)).to(device)
+    """bicubic_resize_matrix on ``device``, copied there once (outside
+    inference mode, so the cached tensor also serves autograd)."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(bicubic_resize_matrix(in_size, out_size, antialias)).to(device)
 
 
 def resize_bicubic(

@@ -46,7 +46,7 @@ def reference_config(fused: bool):
     )
 
 
-def _host_ms(fn, n: int) -> float:
+def host_ms_per_call(fn, n: int) -> float:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(n):
@@ -119,7 +119,7 @@ def main(argv=None) -> None:
             for _ in range(3):
                 fn()
         for kind, fn in steps.items():
-            host_ms = _host_ms(fn, args.steps)
+            host_ms = host_ms_per_call(fn, args.steps)
             rec = {"fused": fused, "kind": kind, "host_ms": host_ms,
                    **profile_kind(fn, args.profiled)}
             records.append(rec)

@@ -10,7 +10,10 @@ Tolerances are chip_smoke.py's. IN+PReLU: fp32 max-abs 2e-5, bf16 max-abs
 exceeds one bf16 ulp), and finite outputs for the near-constant clamp case.
 Fused upsample: fp32 5e-5 with TF32 off; bf16 3e-2 with |y| < 4 (1.5 bf16
 ulps: the plain version rounds after the conv and again after the bias).
-Pixel shuffle: bitwise.
+Pixel shuffle: bitwise. int8 activation quantize and s8 x s8 -> s32 conv
+(with its dequantize + bias + PReLU epilogue, bf16 and fp32 glue): bitwise;
+the int8 engine (fp32 glue) against the CPU port on the same scales: the
+bounded-flip contract (at most 3 uint8 counts, under 2% off by more than 1).
 """
 
 import numpy as np
@@ -253,3 +256,123 @@ def test_generator_launch_counts(device, fused):
     got = [f.launches - b for f, b in zip(counters, before)]
     assert got == ([8, 2, 0] if fused else [8, 0, 2])
     assert out.shape == (2, 3, 96, 96) and torch.isfinite(out).all()
+
+
+# --- int8 tier: activation quantize, s8 x s8 -> s32 conv -------------------
+
+@pytest.mark.parametrize("shape", [(8, 256, 180, 320), (3, 3, 37, 53), (1, 64, 5, 7)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_quantize_is_bitwise_plain(device, shape, dtype):
+    from fast_srgan_torch.kernels.quantize import quantize_act, quantize_act_reference
+
+    gen = torch.Generator(device=device).manual_seed(sum(shape))
+    x = (torch.randn(shape, device=device, generator=gen) * 2).to(dtype)
+    x = x.contiguous(memory_format=torch.channels_last)
+    s = torch.tensor(3.7, device=device)
+    before = quantize_act.launches
+    got = quantize_act(x, s)
+    want = quantize_act_reference(x, s)
+    torch.cuda.synchronize()
+    assert quantize_act.launches == before + 1
+    assert got.dtype == torch.int8 and got.stride() == x.stride()
+    assert torch.equal(got, want)
+
+
+def test_quantize_rejects(device):
+    from fast_srgan_torch.kernels.quantize import quantize_act
+
+    s = torch.tensor(1.0, device=device)
+    with pytest.raises(ValueError, match="bf16 or fp32"):
+        quantize_act(torch.zeros((1, 8, 4, 4), device=device, dtype=torch.float16), s)
+    with pytest.raises(ValueError, match="contiguous"):
+        quantize_act(torch.zeros((1, 8, 4, 6), device=device)[..., ::2], s)
+    with pytest.raises(ValueError, match="one value"):
+        quantize_act(torch.zeros((1, 8, 4, 4), device=device), torch.tensor(1.0))
+
+
+_INT8_CONV_SHAPES = [
+    ((8, 64, 180, 320), 3, (1, 1)),  # stage 1
+    ((8, 256, 180, 320), 2, (1, 1)),  # the four stage-2 phases
+    ((8, 256, 180, 320), 2, (1, 0)),
+    ((8, 256, 180, 320), 2, (0, 1)),
+    ((8, 256, 180, 320), 2, (0, 0)),
+    ((3, 64, 37, 53), 3, (1, 1)),  # ragged
+    ((3, 256, 37, 53), 2, (0, 1)),
+]
+
+
+def _int8_case(device, shape, k, cout, seed):
+    from fast_srgan_torch.kernels.int8_conv import pack_int8_weight
+
+    gen = torch.Generator().manual_seed(seed)
+    b, cin, h, w = shape
+    q = torch.randint(-127, 128, (k, k, cin, cout), generator=gen).to(torch.int8)
+    xq = torch.randint(-127, 128, (b, h, w, cin), generator=gen).to(torch.int8)
+    wscale = torch.rand(cout, generator=gen) * 1e-2 + 1e-3
+    return (xq.to(device).permute(0, 3, 1, 2), pack_int8_weight(q, device),
+            wscale.to(device), torch.tensor(2.3, device=device))
+
+
+@pytest.mark.parametrize("shape,k,pad", _INT8_CONV_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_int8_conv_is_bitwise_plain(device, shape, k, pad, dtype):
+    from fast_srgan_torch.kernels.int8_conv import int8_conv, int8_conv_reference
+
+    xq, weight, ws, s = _int8_case(device, shape, k, 256, seed=sum(shape) + k)
+    bias = (torch.rand(256, device=device) - 0.5).to(dtype)
+    alpha = torch.tensor([0.173], device=device).to(dtype)
+    before = int8_conv.launches
+    got = int8_conv(xq, weight, ws, s, pad, bias, alpha, dtype)
+    want = int8_conv_reference(xq, weight, ws, s, pad, bias, alpha, dtype)
+    torch.cuda.synchronize()
+    assert int8_conv.launches == before + 1
+    assert got.dtype == dtype and got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("cin,cout", [(3, 64), (64, 64), (1024, 48), (256, 12)])
+def test_int8_conv_other_widths_bitwise(device, cin, cout):
+    """The neck (Cin=3, K zero-padded), the trunk, and the int8 4x and 2x
+    heads (Cout below the 64-channel tile), without an epilogue."""
+    from fast_srgan_torch.kernels.int8_conv import int8_conv, int8_conv_reference
+
+    xq, weight, ws, s = _int8_case(device, (2, cin, 37, 53), 3, cout, seed=cin + cout)
+    for dtype in (torch.bfloat16, torch.float32):
+        got = int8_conv(xq, weight, ws, s, out_dtype=dtype)
+        want = int8_conv_reference(xq, weight, ws, s, out_dtype=dtype)
+        assert torch.equal(got, want)
+
+
+def test_int8_conv_rejects(device):
+    from fast_srgan_torch.kernels.int8_conv import int8_conv
+
+    xq, weight, ws, s = _int8_case(device, (1, 64, 6, 8), 3, 256, seed=0)
+    with pytest.raises(ValueError, match="bf16 or fp32"):
+        int8_conv(xq, weight, ws, s, out_dtype=torch.float16)
+    with pytest.raises(ValueError, match="channels_last"):
+        int8_conv(xq.contiguous(), weight, ws, s)
+    with pytest.raises(ValueError, match="int8"):
+        int8_conv(xq.float(), weight, ws, s)
+    with pytest.raises(ValueError, match="padding"):
+        int8_conv(xq, weight, ws, s, padding=(3, 1))
+
+
+def test_int8_engine_launches_and_matches_cpu(device):
+    from fast_srgan_torch.checkpoints.npz_io import load_npz_params
+    from fast_srgan_torch.inference import SRInferenceEngine
+    from fast_srgan_torch.kernels.int8_conv import int8_conv
+    from fast_srgan_torch.kernels.quantize import quantize_act
+
+    params = load_npz_params("models/generator_pretrained.npz")
+    images = np.random.default_rng(2).integers(0, 256, (2, 40, 48, 3), dtype=np.uint8)
+    card = SRInferenceEngine(params, device=device, dtype=torch.float32, quantize=True,
+                             calib_batches=[images])
+    cpu = SRInferenceEngine(params, device="cpu", dtype=torch.float32, quantize=True,
+                            act_scales={k: v.cpu() for k, v in card.act_scales.items()})
+    counters = (int8_conv, quantize_act, instance_norm_prelu)
+    before = [f.launches for f in counters]
+    a = card.upscale_batch(images).astype(np.int16)
+    assert [f.launches - n for f, n in zip(counters, before)] == [5, 2, 8]
+    b = cpu.upscale_batch(images).astype(np.int16)
+    diff = np.abs(a - b)  # the bounded-flip contract, fp32 glue
+    assert diff.max() <= 3 and (diff > 1).mean() < 0.02

@@ -70,6 +70,15 @@ def test_backward_is_the_inverse_copy():
     assert torch.equal(xp.grad, xr.grad)
 
 
+def test_index_cached_under_inference_mode_serves_autograd():
+    # an engine's forward (inference mode) may make the cached index first
+    with torch.inference_mode():
+        pixel_shuffle_phase_major_reference(torch.zeros((1, 44, 2, 2)))
+    x = torch.randn((1, 44, 2, 2), dtype=torch.float64).requires_grad_(True)
+    pixel_shuffle_phase_major_reference(x).sum().backward()
+    assert torch.equal(x.grad, torch.ones_like(x))
+
+
 class TestKernelContract:
     def test_accepts(self):
         check_kernel_inputs(torch.zeros((2, 256, 3, 5), dtype=torch.bfloat16)
