@@ -36,10 +36,14 @@ own line; any failure exits non-zero and prints no result:
      and one fp32 pretrain step from the same state with the kernels on the
      card against the plain path on the CPU, losses within 1e-5;
  10. int8: the activation-quantize and s8 x s8 -> s32 conv kernels, bitwise
-     against their plain versions in bf16 and fp32 glue at stage 1, at each
-     stage-2 phase and at ragged shapes, timed beside the bf16 cuDNN conv the
-     float tier runs; the int8 engine (pretrained 4x, ups mode, bf16 glue,
-     calibrated on the frames) answers the frames with exact launch counts;
+     against their plain versions in bf16 and fp32 glue: stage 1 with and
+     without the next conv's quantize in its epilogue, the four stage-2
+     phases in one launch, a single phase, ragged shapes and the narrow
+     widths (Cin 16, Cout 12 and 48); the fused stage 1 and the four-phase
+     launch timed beside the bf16 cuDNN convs the float tier runs, with
+     TOP/s and share of bound; the int8 engine (pretrained 4x, ups mode,
+     bf16 glue, calibrated on the frames) answers the frames with exact
+     launch counts (two s8 launches and one quantize a forward);
      every mode in both glue dtypes on the PSNR bar's own input (2x48x64,
      tests/test_quant.py), at least its bar against the card's fp32, and
      against the CPU port on the same scales (the bounded-flip contract for
@@ -49,8 +53,9 @@ own line; any failure exits non-zero and prints no result:
 Phases 7 and 8 run right after phase 3, phase 10 after phase 6, phase 9
 last.
 
-The line before the last is a JSON object describing each kernel; the last
-line is {"ok": true, "device": {...}}.
+The line before the last is a JSON object describing each kernel (its
+bound: the larger of its bytes over 3.35 TB/s and its operations over the
+peak rate of their type); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -94,6 +99,20 @@ PRETRAIN_STEPS, GAN_STEPS = 20, 10
 # full's. The smoke's own frames are held to the lowest of them.
 INT8_PSNR_MIN_DB = {"ups": 37.0, "tail": 37.0, "full": 33.0, "trunk": 33.0}
 SWEEP_BATCHES = (8, 16, 32)
+# H100 SXM peaks (NVIDIA's data sheet, dense): the bound of a kernel is the
+# larger of its bytes over HBM_BPS and its operations over the peak rate.
+HBM_BPS = 3.35e12
+BF16_FLOPS = 989e12
+INT8_OPS = 1979e12
+FP32_FLOPS = 67e12  # outside the tensor cores
+
+
+def bound(nbytes: float, ops: float, peak: float) -> dict:
+    """bound_ms and bound_by of a kernel that moves nbytes and does ops."""
+    by_bytes, by_ops = 1e3 * nbytes / HBM_BPS, 1e3 * ops / peak
+    if by_bytes >= by_ops:
+        return {"bound_ms": by_bytes, "bound_by": "bytes"}
+    return {"bound_ms": by_ops, "bound_by": "operations"}
 
 
 def fail(msg: str) -> None:
@@ -183,15 +202,15 @@ def phase_build() -> None:
 
     t0 = time.perf_counter()
     _build.load_library()
-    info = [
-        line.strip() for line in (_build.build_log or "").splitlines()
-        if "registers" in line or "spill" in line
-    ]
-    print(
-        f"[2 build] nvcc {' '.join(_build.NVCC_FLAGS)}: "
-        f"{time.perf_counter() - t0:.1f} s; ptxas: {' | '.join(info)}",
-        flush=True,
-    )
+    print(f"[2 build] nvcc {' '.join(_build.NVCC_FLAGS)}: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    # ptxas -v, one line a kernel: its name, registers and spills
+    kernel = None
+    for line in (_build.build_log or "").splitlines():
+        if "Compiling entry function" in line:
+            kernel = line.split("'")[1]
+        elif kernel and ("registers" in line or "spill" in line or "C7513" in line):
+            print(f"[2 build] ptxas {kernel}: {line.strip()}", flush=True)
 
 
 def phase_kernel() -> dict:
@@ -248,7 +267,10 @@ def phase_kernel() -> dict:
         )
         check(err <= tol, f"{name}: max_abs_err {err} > {tol}")
         if name == "serving bf16":
-            row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            # one read, one write; ~6 fp32 operations an element (sums,
+            # normalize, PReLU); no one PyTorch call is this function
+            row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                   **bound(2 * x.numel() * x.element_size(), 6 * x.numel(), FP32_FLOPS)}
 
     # The clamp case: a near-constant input makes the one-pass variance
     # cancel in fp32 (it can come out negative); the output must stay finite.
@@ -385,26 +407,56 @@ def _no_tf32():
     return torch.backends.cudnn.flags(enabled=True, allow_tf32=False)
 
 
-def _int8_conv_args(gen, b, cin, h, w, k, dtype):
+def _int8_conv_args(gen, b, cin, h, w, k, dtype, cout=256):
     """Random int8 activations and weights, a per-channel weight scale, an
     activation scale, a bias and a slope, as stage 1 and the phases run."""
     from fast_srgan_torch.kernels.int8_conv import pack_int8_weight
 
     dev = torch.device("cuda")
-    q = torch.randint(-127, 128, (k, k, cin, 256), device=dev, generator=gen)
+    q = torch.randint(-127, 128, (k, k, cin, cout), device=dev, generator=gen)
     xq = torch.randint(-127, 128, (b, h, w, cin), device=dev, generator=gen)
-    weight = pack_int8_weight(q.to(torch.int8), dev)
-    wscale = torch.rand(256, device=dev, generator=gen) * 1e-2 + 1e-3
-    bias = (torch.rand(256, device=dev, generator=gen) - 0.5).to(dtype)
+    weight = pack_int8_weight(q.to(torch.int8).cpu(), dev)
+    wscale = torch.rand(cout, device=dev, generator=gen) * 1e-2 + 1e-3
+    bias = (torch.rand(cout, device=dev, generator=gen) - 0.5).to(dtype)
     alpha = torch.tensor([0.173], device=dev).to(dtype)
     scale = torch.tensor(2.3, device=dev)
     return xq.to(torch.int8).permute(0, 3, 1, 2), weight, wscale, scale, bias, alpha
 
 
-def phase_int8_kernels() -> tuple:
+def _int8_phases_args(gen, b, cin, h, w, dtype):
+    """The four 2x2 phase kernels of a random 3x3 stage-2 kernel, prepared as
+    the executor prepares them, and an int8 input with 4x its channels."""
+    from fast_srgan_torch.kernels.int8_conv import pack_int8_phases, pack_int8_weight
+    from fast_srgan_torch.ops.lr_tail import _phase_kernels_2x
+
+    dev = torch.device("cuda")
+    k = torch.randint(-127, 128, (3, 3, cin // 4, 256), device=dev, generator=gen)
+    phases = pack_int8_phases([
+        (pq, pack_int8_weight(kp, dev))
+        for pq, kp in _phase_kernels_2x(k.to(torch.int8).cpu()).items()
+    ])
+    xq = torch.randint(-127, 128, (b, h, w, cin), device=dev, generator=gen)
+    wscale = torch.rand(256, device=dev, generator=gen) * 1e-2 + 1e-3
+    bias = (torch.rand(256, device=dev, generator=gen) - 0.5).to(dtype)
+    alpha = torch.tensor([0.173], device=dev).to(dtype)
+    return (xq.to(torch.int8).permute(0, 3, 1, 2), phases, wscale,
+            torch.tensor(2.3, device=dev), bias, alpha, dtype)
+
+
+def _rate(label, ms, ops, bnd) -> str:
+    return (f"{label} {ms:.4f} ms ({ops / ms / 1e9:.1f} TOP/s,"
+            f" {100 * bnd['bound_ms'] / ms:.1f}% of its {bnd['bound_ms']:.4f} ms bound)")
+
+
+def phase_int8_kernels(card: str) -> tuple:
     import torch.nn.functional as F
 
-    from fast_srgan_torch.kernels.int8_conv import int8_conv, int8_conv_reference
+    from fast_srgan_torch.kernels.int8_conv import (
+        int8_conv,
+        int8_conv_phases,
+        int8_conv_phases_reference,
+        int8_conv_reference,
+    )
     from fast_srgan_torch.kernels.quantize import quantize_act, quantize_act_reference
 
     dev = torch.device("cuda")
@@ -424,7 +476,8 @@ def phase_int8_kernels() -> tuple:
                 ms, plain_ms = _timed_pair(lambda: quantize_act(x, s),
                                            lambda: quantize_act_reference(x, s))
                 quant_row = {"max_abs_err": (got.float() - want.float()).abs().max().item(),
-                             "ms": ms, "plain_ms": plain_ms}
+                             "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                             **bound(x.numel() * (x.element_size() + 1), 0, INT8_OPS)}
             print(
                 f"[10 kernel] quantize {label} {dtype} {list(shape)}: bitwise equal {equal}"
                 + (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms" if ms else ""),
@@ -432,42 +485,89 @@ def phase_int8_kernels() -> tuple:
             )
             check(equal, f"quantize {label} {dtype} differs from its plain version")
 
-    cases = [("stage 1", 8, 64, 180, 320, 3, (1, 1))]
-    cases += [(f"phase ({p},{q})", 8, 256, 180, 320, 2, (1 - p, 1 - q))
-              for p in (0, 1) for q in (0, 1)]
-    cases += [("ragged stage 1", 3, 64, 37, 53, 3, (1, 1)),
-              ("ragged phase (1,1)", 3, 256, 37, 53, 2, (0, 0))]
-    for label, b, cin, h, w, k, pad in cases:
+    # single convs: (label, B, Cin, H, W, k, padding, Cout, fused quantize)
+    s_next = torch.tensor(5.1, device=dev)
+    cases = [("stage 1", 8, 64, 180, 320, 3, (1, 1), 256, False),
+             ("stage 1 + quantize", 8, 64, 180, 320, 3, (1, 1), 256, True),
+             ("ragged stage 1", 3, 64, 37, 53, 3, (1, 1), 256, False),
+             ("ragged stage 1 + quantize", 3, 64, 37, 53, 3, (1, 1), 256, True),
+             ("ragged phase (1,1) alone", 3, 256, 37, 53, 2, (0, 0), 256, False),
+             ("neck Cin 16", 2, 16, 37, 53, 3, (1, 1), 64, True),
+             ("trunk", 2, 64, 37, 53, 3, (1, 1), 64, True),
+             ("2x head Cout 12", 2, 256, 37, 53, 3, (1, 1), 12, False),
+             ("4x head Cout 48", 2, 1024, 37, 53, 3, (1, 1), 48, False)]
+    times = {}
+    for label, b, cin, h, w, k, pad, cout, fused in cases:
         for dtype in (torch.bfloat16, torch.float32):
-            xq, weight, ws, s, bias, alpha = _int8_conv_args(gen, b, cin, h, w, k, dtype)
-            args = (xq, weight, ws, s, pad, bias, alpha, dtype)
+            xq, weight, ws, s, bias, alpha = _int8_conv_args(gen, b, cin, h, w, k, dtype, cout)
+            args = (xq, weight, ws, s, pad, bias, alpha, dtype, s_next if fused else None)
             got = int8_conv(*args)
             want = int8_conv_reference(*args)
             torch.cuda.synchronize()
             equal = torch.equal(got, want)
             check(got.is_contiguous(memory_format=torch.channels_last), f"{label}: layout")
-            line = (f"[10 kernel] int8 conv {label} {dtype} [{b},{cin},{h},{w}] -> 256,"
-                    f" {k}x{k} pad {pad}: bitwise equal {equal}")
-            if label in ("stage 1", "phase (0,0)") and dtype == torch.bfloat16:
-                ms, plain_ms = _timed_pair(lambda: int8_conv(*args),
-                                           lambda: int8_conv_reference(*args), 20, 3)
-                # the bf16 cuDNN conv the float tier runs at this shape
-                # (ops/lr_tail.py: 3x3 pad 1, or 2x2 valid on the one-padded input)
-                xb = torch.randn((b, cin, h, w), device=dev, generator=gen).to(dtype)
-                xb = xb.contiguous(memory_format=torch.channels_last)
-                if k == 2:
-                    xb = F.pad(xb, (1, 1, 1, 1))
-                wb = (torch.randn((256, cin, k, k), device=dev, generator=gen) * 0.05).to(dtype)
-                wb = wb.contiguous(memory_format=torch.channels_last)
-                conv_ms = cuda_ms(lambda: F.conv2d(xb, wb, bias, padding=1 if k == 3 else 0), 20)
-                ops = 2 * b * h * w * cin * k * k * 256
-                line += (f"; kernel {ms:.4f} ms ({ops / ms / 1e9:.1f} TOP/s), plain (float64)"
-                         f" {plain_ms:.4f} ms, bf16 cuDNN conv {conv_ms:.4f} ms")
-                if label == "phase (0,0)":
-                    conv_row = {"max_abs_err": (got.float() - want.float()).abs().max().item(),
-                                "ms": ms, "plain_ms": plain_ms}
-            print(line, flush=True)
+            print(f"[10 kernel] int8 conv {label} {dtype} [{b},{cin},{h},{w}] -> {cout},"
+                  f" {k}x{k} pad {pad}: bitwise equal {equal}", flush=True)
             check(equal, f"int8 conv {label} {dtype} differs from its plain version")
+            if b == 8 and dtype == torch.bfloat16:
+                ops = 2 * b * h * w * cin * k * k * cout
+                nbytes = xq.numel() + weight.packed.numel() + got.numel() * got.element_size()
+                times[label] = (*_timed_pair(lambda: int8_conv(*args),
+                                             lambda: int8_conv_reference(*args), 20, 3),
+                                ops, bound(nbytes, ops, INT8_OPS))
+
+    # the four phases in one launch
+    for label, b, cin, h, w in (("phases", 8, 256, 180, 320), ("ragged phases", 3, 256, 37, 53)):
+        for dtype in (torch.bfloat16, torch.float32):
+            args = _int8_phases_args(gen, b, cin, h, w, dtype)
+            got = int8_conv_phases(*args)
+            want = int8_conv_phases_reference(*args)
+            torch.cuda.synchronize()
+            equal = all(torch.equal(a, c) for a, c in zip(got, want))
+            check(all(a.is_contiguous(memory_format=torch.channels_last) for a in got),
+                  f"{label}: layout")
+            print(f"[10 kernel] int8 conv, four phases in one launch, {dtype} [{b},{cin},{h},{w}]"
+                  f" -> 4 x 256, 2x2: bitwise equal {equal}", flush=True)
+            check(equal, f"int8 {label} {dtype} differs from its plain version")
+            if b == 8 and dtype == torch.bfloat16:
+                ops = 4 * 2 * b * h * w * cin * 4 * 256
+                nbytes = (args[0].numel() + args[1].tiled.numel()
+                          + sum(a.numel() * a.element_size() for a in got))
+                err = max((a.float() - c.float()).abs().max().item() for a, c in zip(got, want))
+                times["phases"] = (*_timed_pair(lambda: int8_conv_phases(*args),
+                                                lambda: int8_conv_phases_reference(*args), 20, 2),
+                                   ops, bound(nbytes, ops, INT8_OPS))
+
+    # the bf16 cuDNN convs (+ bias) the float tier runs at these shapes
+    # (ops/lr_tail.py: 3x3 pad 1; 2x2 valid on the one-padded input), the
+    # yardstick: they are not the same function, and the port never calls
+    # them in the int8 tier
+    bias = (torch.rand(256, device=dev, generator=gen) - 0.5).to(torch.bfloat16)
+    x1 = torch.randn((8, 64, 180, 320), device=dev, generator=gen).to(torch.bfloat16)
+    x1 = x1.contiguous(memory_format=torch.channels_last)
+    w1 = (torch.randn((256, 64, 3, 3), device=dev, generator=gen) * 0.05).to(torch.bfloat16)
+    w1 = w1.contiguous(memory_format=torch.channels_last)
+    x2 = torch.randn((8, 256, 182, 322), device=dev, generator=gen).to(torch.bfloat16)
+    x2 = x2.contiguous(memory_format=torch.channels_last)
+    w2 = [(torch.randn((256, 256, 2, 2), device=dev, generator=gen) * 0.05)
+          .to(torch.bfloat16).contiguous(memory_format=torch.channels_last) for _ in range(4)]
+    cudnn = {
+        "stage 1": cuda_ms(lambda: F.conv2d(x1, w1, bias, padding=1), 20),
+        "phases": cuda_ms(lambda: [F.conv2d(x2, wp, bias) for wp in w2], 20),
+    }
+    for label, (ms, plain_ms, ops, bnd) in times.items():
+        yard = cudnn.get("phases" if label == "phases" else "stage 1")
+        print(f"[10 time] int8 conv {label} bf16, batch 8 of 180x320: "
+              + _rate("kernel", ms, ops, bnd)
+              + f"; plain (float64) {plain_ms:.4f} ms; bf16 cuDNN conv + bias {yard:.4f} ms"
+              + f" ({card})", flush=True)
+    ms, plain_ms, ops, bnd = times["phases"]
+    check(ms < cudnn["phases"],
+          f"four-phase launch {ms:.4f} ms not faster than four cuDNN convs {cudnn['phases']:.4f}")
+    conv_row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bnd, "library_ms": None,
+                "cudnn_bf16_ms": cudnn["phases"],
+                "stage1_quantize_ms": times["stage 1 + quantize"][0],
+                "stage1_quantize_bound_ms": times["stage 1 + quantize"][3]["bound_ms"]}
     return conv_row, quant_row
 
 
@@ -479,28 +579,31 @@ def _u8_compare(a: np.ndarray, b: np.ndarray) -> tuple:
 def phase_int8_engine(params, frames) -> list:
     """The int8 engine on the card: the main path's launches and fidelity,
     then every mode on the fidelity bar's own input, against the card's fp32
-    and against the CPU port. Returns the launches of (int8 conv, quantize)."""
+    and against the CPU port. Returns the launches of (int8 conv, the four
+    phases, quantize)."""
     from fast_srgan_torch import quant
     from fast_srgan_torch.inference import SRInferenceEngine
     from fast_srgan_torch.kernels.instance_norm import instance_norm_prelu
-    from fast_srgan_torch.kernels.int8_conv import int8_conv
+    from fast_srgan_torch.kernels.int8_conv import int8_conv, int8_conv_phases
     from fast_srgan_torch.kernels.quantize import quantize_act
 
     calib = np.stack([f for f in frames if f.shape[:2] == (180, 320)])
     engine = SRInferenceEngine(params, device="cuda", dtype=torch.bfloat16,
                                quantize=True, calib_batches=[calib])
-    counters = (int8_conv, quantize_act, instance_norm_prelu)
+    counters = (int8_conv, int8_conv_phases, quantize_act, instance_norm_prelu)
     for f in counters:
         f.launches = 0
     engine.forward_calls = 0
     replies = engine.upscale_images(frames)
     launches = [f.launches for f in counters]
     forwards = engine.forward_calls
-    want = [5 * forwards, 2 * forwards, engine.model.n_layers * forwards]
+    # a 4x forward: stage 1 (quantizing stage 2's input in its epilogue) and
+    # the four phases in one launch, so 2 s8 launches, and 1 quantize
+    want = [forwards, forwards, forwards, engine.model.n_layers * forwards]
     print(
         f"[10 int8] ups bf16 engine: {len(frames)} frames in {forwards} forwards; launches"
-        f" int8 conv {launches[0]}, quantize {launches[1]}, IN+PReLU {launches[2]}"
-        f" (want {want})",
+        f" s8 conv {launches[0] + launches[1]} (stage 1 {launches[0]}, four phases"
+        f" {launches[1]}), quantize {launches[2]}, IN+PReLU {launches[3]} (want {want})",
         flush=True,
     )
     check(forwards > 0 and launches == want, "int8 launch count mismatch")
@@ -542,7 +645,7 @@ def phase_int8_engine(params, frames) -> list:
             check(fid >= INT8_PSNR_MIN_DB[mode], f"int8 {mode} {name}: PSNR {fid:.2f}")
             if mode == "ups" and dtype == torch.float32:
                 check(mx <= 3 and frac < 0.02, "int8 ups fp32: card vs CPU off the contract")
-    return launches[:2]
+    return launches[:3]
 
 
 def phase_int8_throughput(params, frames, card: str) -> None:
@@ -625,7 +728,10 @@ def phase_upsample_kernel() -> dict:
             )
             check(err <= tol, f"upsample {label} {name}: max_abs_err {err} > {tol}")
             if label == "train stage 2" and dtype == torch.bfloat16:
-                row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+                b, c, h, w = shape
+                nbytes = sum(t.numel() * t.element_size() for t in (*a, got))
+                row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                       **bound(nbytes, 2 * b * h * w * c * 9 * 256, BF16_FLOPS)}
 
     # gradients through the Function against the plain composition's (fp32)
     base = args((2, 64, 24, 24), torch.float32)
@@ -668,7 +774,8 @@ def phase_shuffle_kernel() -> dict:
                 lambda: pixel_shuffle_phase_major_reference(x),
             )
             row = {"max_abs_err": (got.float() - want.float()).abs().max().item(),
-                   "ms": ms, "plain_ms": plain_ms}
+                   "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                   **bound(2 * x.numel() * x.element_size(), 0, BF16_FLOPS)}
         print(
             f"[8 kernel] pixel shuffle bf16 {list(shape)}: bitwise equal {equal}"
             + (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms" if ms else ""),
@@ -845,7 +952,7 @@ def main() -> None:
     engine, replies, launches = phase_serving(params, frames)
     phase_fidelity(params, frames, replies)
     phase_throughput(engine, frames, card)
-    conv_row, quant_row = phase_int8_kernels()
+    conv_row, quant_row = phase_int8_kernels(card)
     int8_launches = phase_int8_engine(params, frames)
     phase_int8_throughput(params, frames, card)
     fused, unfused = phase_training(card)
@@ -855,9 +962,12 @@ def main() -> None:
         not any(m.startswith("fast_srgan_tpu") for m in sys.modules),
         "the JAX package was imported",
     )
-    # launches: IN+PReLU from the serving path (phase 4), the int8 conv and
-    # the quantize from the int8 engine (phase 10), the fused upsample from
-    # the fused training arm, the shuffle from the unfused arm (phase 9)
+    # launches: IN+PReLU from the serving path (phase 4), the s8 conv (stage
+    # 1 and the four-phase launch) and the quantize from the int8 engine
+    # (phase 10), the fused upsample from the fused training arm, the
+    # shuffle from the unfused arm (phase 9). The s8 conv's times are the
+    # four-phase launch's; library_ms is null where no one PyTorch call
+    # computes the kernel's function (cudnn_bf16_ms is a yardstick only)
     print(json.dumps({"kernels": [
         {"name": "instance_norm_prelu", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": KERNEL_REPLACES, "launches": launches, **row},
@@ -867,9 +977,11 @@ def main() -> None:
          "source": SHUFFLE_SOURCE, "replaces": SHUFFLE_REPLACES,
          "launches": unfused[2], **shuffle_row},
         {"name": "int8_conv", "route": "cuda", "source": INT8_CONV_SOURCE,
-         "replaces": INT8_CONV_REPLACES, "launches": int8_launches[0], **conv_row},
+         "replaces": INT8_CONV_REPLACES, "launches": int8_launches[0] + int8_launches[1],
+         "launches_stage1": int8_launches[0], "launches_phases": int8_launches[1],
+         **conv_row},
         {"name": "quantize_act", "route": "cuda", "source": QUANTIZE_SOURCE,
-         "replaces": QUANTIZE_REPLACES, "launches": int8_launches[1], **quant_row},
+         "replaces": QUANTIZE_REPLACES, "launches": int8_launches[2], **quant_row},
     ]}))
     print(json.dumps({
         "ok": True,

@@ -8,7 +8,12 @@ from fast_srgan_torch.kernels.instance_norm import (
     instance_norm_prelu,
     instance_norm_prelu_reference,
 )
-from fast_srgan_torch.kernels.int8_conv import int8_conv, int8_conv_reference
+from fast_srgan_torch.kernels.int8_conv import (
+    int8_conv,
+    int8_conv_phases,
+    int8_conv_phases_reference,
+    int8_conv_reference,
+)
 from fast_srgan_torch.kernels.pixel_shuffle import (
     pixel_shuffle_phase_major,
     pixel_shuffle_phase_major_reference,
@@ -21,6 +26,8 @@ __all__ = [
     "instance_norm_prelu",
     "instance_norm_prelu_reference",
     "int8_conv",
+    "int8_conv_phases",
+    "int8_conv_phases_reference",
     "int8_conv_reference",
     "pixel_shuffle_phase_major",
     "pixel_shuffle_phase_major_reference",

@@ -36,9 +36,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _IN_PRELU = [_P] * 4 + [_I] * 4 + [_F, _P]
 # (x, weight, bias, alpha, out, B, H, W, C, stream)
 _FUSED_UPSAMPLE = [_P] * 5 + [_I] * 4 + [_P]
-# (x, weight, mult, bias, alpha, out, B, H, W, Cin, Cout, KH, KW, pad_top,
-#  pad_left, stream)
-_INT8_CONV = [_P] * 6 + [_I] * 9 + [_P]
+# (x, weight, mult, bias, alpha, rscale, out, B, H, W, Cin, Cout, n_tile, KH,
+#  pad_top, pad_left, stream)
+_INT8_CONV = [_P] * 7 + [_I] * 9 + [_P]
+# (x, weight, mult, bias, alpha, out, B, H, W, Cin, Cout, n_tile, stream)
+_INT8_PHASES = [_P] * 6 + [_I] * 6 + [_P]
 # (x, scale, out, n, stream)
 _QUANTIZE = [_P] * 3 + [_I, _P]
 
@@ -54,6 +56,8 @@ ENTRY_POINTS = {
     "fsr_pixel_shuffle_phase_major": [_P, _P] + [_I] * 4 + [_P],
     "fsr_int8_conv_bf16": _INT8_CONV,
     "fsr_int8_conv_f32": _INT8_CONV,
+    "fsr_int8_conv_phases_bf16": _INT8_PHASES,
+    "fsr_int8_conv_phases_f32": _INT8_PHASES,
     "fsr_quantize_bf16": _QUANTIZE,
     "fsr_quantize_f32": _QUANTIZE,
 }

@@ -10,10 +10,15 @@ each step one rounding:
     y   = glue(float(acc) * m),  m = wscale * (s / 127)   (fp32)
     y   = glue(y + bias)                    optional, bias in glue
     y   = y >= 0 ? y : glue(alpha * y)      optional, alpha in glue
+    q   = clip(round(y * (127 / s_next)))   optional (``out_scale``): int8
+
+The last step is ``quantize_act`` of the next conv's input, fused into
+this conv's epilogue.
 
 Every conv of the int8 tier is "same"-sized: 3x3 with padding (1, 1), or
 2x2 with padding (1 - p, 1 - q) top and left for stage-2 phase (p, q)
 (``ops/lr_tail.py``'s window at (p, q) of the one-padded input).
+:func:`int8_conv_phases` runs the four phases of one input in one launch.
 
 The plain version runs the conv in float64 on the int8 values, which is
 exact (|acc| <= 9 * 1024 * 127^2 < 2^53; fp32 is not, a 3x3x256 sum
@@ -25,25 +30,76 @@ take. There is no fallback between the two.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from fast_srgan_torch.kernels.quantize import quantize_act_reference, quantize_reciprocal
+
 _DTYPES = (torch.bfloat16, torch.float32)
-#: The kernel's N tile and K granule (csrc/int8_conv.cu kTileN, 16-byte loads).
+#: Output rows of the packed weight are a multiple of N_TILE; its input
+#: channels a multiple of K_GRANULE (the kernel's 16-byte copies).
 N_TILE = 64
 K_GRANULE = 16
+#: Input channels of one K step of the kernel (csrc/int8_conv.cu kChunk).
+K_CHUNK = 32
+#: The stage-2 phases (p, q) in the order of the kernel's output.
+PHASES = ((0, 0), (0, 1), (1, 0), (1, 1))
 
 
 class Int8Weight(NamedTuple):
-    """A quantized conv kernel in the layout the kernel reads:
-    ``packed`` int8 [Npad, KH, KW, Cin_pad] (Cout rounded up to a multiple of
-    N_TILE, Cin to a multiple of K_GRANULE, zeros in the padding)."""
+    """A quantized conv kernel: ``packed`` int8 [Npad, KH, KW, Cin_pad]
+    (Cout rounded up to a multiple of N_TILE, Cin to a multiple of
+    K_GRANULE, zeros in the padding), which the plain version reads, and
+    ``tiled``, the same values in the layout the CUDA kernel copies
+    (:func:`tile_weights`, ``n_tile`` output channels a tile)."""
 
     packed: torch.Tensor
     cout: int
     cin: int
+    tiled: torch.Tensor
+    n_tile: int
+
+
+class Int8Phases(NamedTuple):
+    """The four 2x2 phase kernels of stage 2, each an :class:`Int8Weight`
+    in :data:`PHASES` order, and the four tiled together (slot
+    ``(2p + q) * 4 + 2 gi + gj``) for :func:`int8_conv_phases`."""
+
+    phases: Tuple[Int8Weight, ...]
+    cout: int
+    cin: int
+    tiled: torch.Tensor
+    n_tile: int
+
+
+#: The N tiles the kernel takes for a single conv, by kernel height.
+SINGLE_N_TILES = {3: (128, 64), 2: (64,)}
+#: The phases' N tile: four phases' m64n32 accumulators a thread.
+PHASES_N_TILE = 32
+
+
+def kernel_n_tile(kh: int, npad: int) -> int:
+    """The kernel's N tile for a single conv: 128 for a 3x3 conv of a
+    multiple of 128 outputs (stage 1: two tiles), else 64."""
+    return 128 if kh == 3 and npad % 128 == 0 else N_TILE
+
+
+def tile_weights(packed: Sequence[torch.Tensor], n_tile: int) -> torch.Tensor:
+    """[Npad, KH, KW, Cpad] int8 kernels (one, or the four phases) -> the
+    kernel's layout [Npad / n_tile][ceil(Cpad / 32)][slots][2][n_tile][16]:
+    for each N tile and 32-channel K chunk, every (kernel, tap) slot as two
+    16-byte K columns of n_tile rows (wgmma's no-swizzle K-major core
+    matrices), zero past Cpad."""
+    w = torch.stack(list(packed))  # [P, Npad, KH, KW, Cpad]
+    n_k, npad, kh, kw, cpad = w.shape
+    chunks = -(-cpad // K_CHUNK)
+    w = F.pad(w, (0, chunks * K_CHUNK - cpad))
+    w = w.reshape(n_k, npad // n_tile, n_tile, kh * kw, chunks, 2, 16)
+    # -> [ntile, chunk, kernel, tap, kcol, n, 16]
+    w = w.permute(1, 4, 0, 3, 5, 2, 6)
+    return w.reshape(npad // n_tile, chunks, n_k * kh * kw, 2, n_tile, 16).contiguous()
 
 
 def pack_int8_weight(q_hwio: torch.Tensor, device=None) -> Int8Weight:
@@ -54,7 +110,23 @@ def pack_int8_weight(q_hwio: torch.Tensor, device=None) -> Int8Weight:
     cpad = -(-cin // K_GRANULE) * K_GRANULE
     packed = torch.zeros((npad, kh, kw, cpad), dtype=torch.int8)
     packed[:cout, :, :, :cin] = q_hwio.to(torch.int8).permute(3, 0, 1, 2)
-    return Int8Weight(packed.to(device), cout, cin)
+    n_tile = kernel_n_tile(kh, npad)
+    tiled = tile_weights([packed], n_tile)
+    return Int8Weight(packed.to(device), cout, cin, tiled.to(device), n_tile)
+
+
+def pack_int8_phases(phases: Sequence[Tuple[Tuple[int, int], Int8Weight]]) -> Int8Phases:
+    """The four ``((p, q), Int8Weight)`` 2x2 phase kernels of one stage ->
+    Int8Phases on their device. Done once, when the weights load."""
+    by_pq = dict(phases)
+    if sorted(by_pq) != sorted(PHASES):
+        raise ValueError(f"need the phases {PHASES}, got {sorted(by_pq)}")
+    ws = tuple(by_pq[pq] for pq in PHASES)
+    shapes = {tuple(w.packed.shape) for w in ws}
+    if len(shapes) != 1 or next(iter(shapes))[1:3] != (2, 2):
+        raise ValueError(f"the phases must be 2x2 kernels of one shape, got {shapes}")
+    tiled = tile_weights([w.packed.cpu() for w in ws], PHASES_N_TILE)
+    return Int8Phases(ws, ws[0].cout, ws[0].cin, tiled.to(ws[0].packed.device), PHASES_N_TILE)
 
 
 def dequant_multiplier(wscale: torch.Tensor, act_scale: torch.Tensor) -> torch.Tensor:
@@ -82,10 +154,12 @@ def int8_conv_reference(
     bias: Optional[torch.Tensor] = None,
     alpha: Optional[torch.Tensor] = None,
     out_dtype: torch.dtype = torch.bfloat16,
+    out_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plain version: the conv in float64 (exact), then the epilogue in
-    torch ops. cuDNN is off for it, so no FFT or Winograd algorithm rounds
-    the float64 sums."""
+    torch ops, then ``quantize_act_reference`` at ``out_scale`` where
+    given. cuDNN is off for it, so no FFT or Winograd algorithm rounds the
+    float64 sums."""
     kh, kw = weight.packed.shape[1:3]
     top, left = padding
     w64 = weight.packed[:weight.cout, :, :, :xq.shape[1]].permute(0, 3, 1, 2)
@@ -94,63 +168,102 @@ def int8_conv_reference(
         acc = F.conv2d(x64, w64.to(torch.float64)).to(torch.int32)
     m = dequant_multiplier(wscale, act_scale).view(1, -1, 1, 1)
     y = (acc.to(torch.float32) * m).to(out_dtype)
-    return bias_prelu(y, bias, alpha).contiguous(memory_format=torch.channels_last)
+    y = bias_prelu(y, bias, alpha).contiguous(memory_format=torch.channels_last)
+    return y if out_scale is None else quantize_act_reference(y, out_scale)
 
 
-def check_kernel_inputs(
-    xq: torch.Tensor, weight: Int8Weight, padding: Tuple[int, int], out_dtype
-) -> None:
-    """Raise ValueError unless the CUDA kernel takes these as they are."""
+def int8_conv_phases_reference(
+    xq: torch.Tensor,
+    weights: Int8Phases,
+    wscale: torch.Tensor,
+    act_scale: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    alpha: Optional[torch.Tensor] = None,
+    out_dtype: torch.dtype = torch.bfloat16,
+) -> List[torch.Tensor]:
+    """Plain version of :func:`int8_conv_phases`: four
+    :func:`int8_conv_reference` calls, phase (p, q) at padding (1-p, 1-q)."""
+    return [
+        int8_conv_reference(xq, wq, wscale, act_scale, (1 - p, 1 - q), bias, alpha, out_dtype)
+        for (p, q), wq in zip(PHASES, weights.phases)
+    ]
+
+
+def _check_x(xq: torch.Tensor, cin: int, cpad: int, npad: int, out_dtype) -> None:
     if out_dtype not in _DTYPES:
         raise ValueError(f"int8_conv writes bf16 or fp32, got {out_dtype}")
     if xq.dtype != torch.int8 or xq.dim() != 4:
         raise ValueError(f"xq must be int8 [B, C, H, W], got {xq.dtype} {tuple(xq.shape)}")
-    npad, kh, kw, cpad = weight.packed.shape
-    if (kh, kw) not in ((3, 3), (2, 2)):
-        raise ValueError(f"int8_conv takes 3x3 or 2x2 kernels, got {kh}x{kw}")
-    if not (0 <= padding[0] < kh and 0 <= padding[1] < kw):
-        raise ValueError(f"padding {padding} out of range for a {kh}x{kw} kernel")
-    if xq.shape[1] != weight.cin or weight.cout % 2:
-        raise ValueError(
-            f"xq has {xq.shape[1]} channels for a {weight.cin}-channel kernel"
-            f" (Cout={weight.cout} must be even)"
-        )
+    if xq.shape[1] != cin:
+        raise ValueError(f"xq has {xq.shape[1]} channels for a {cin}-channel kernel")
     if not xq.is_contiguous(memory_format=torch.channels_last):
         raise ValueError("xq must be contiguous in torch.channels_last")
     if xq.data_ptr() % 16:
         raise ValueError("xq must be 16-byte aligned")
     b, _, h, w = xq.shape
     if b > 65535 or b * h * w == 0 or b * h * w * max(cpad, npad) >= 2**31:
-        raise ValueError(f"unsupported size {tuple(xq.shape)} -> Cout={weight.cout}")
-    if weight.packed.device != xq.device:
+        raise ValueError(f"unsupported size {tuple(xq.shape)} -> Npad={npad}")
+
+
+def check_kernel_inputs(
+    xq: torch.Tensor, weight: Int8Weight, padding: Tuple[int, int], out_dtype,
+    out_scale: Optional[torch.Tensor] = None,
+) -> None:
+    """Raise ValueError unless the CUDA kernel takes these as they are."""
+    npad, kh, kw, cpad = weight.packed.shape
+    _check_x(xq, weight.cin, cpad, npad, out_dtype)
+    if (kh, kw) not in ((3, 3), (2, 2)):
+        raise ValueError(f"int8_conv takes 3x3 or 2x2 kernels, got {kh}x{kw}")
+    if kh == 3 and tuple(padding) != (1, 1) or not all(0 <= p <= 1 for p in padding):
+        raise ValueError(f"padding {padding}: a 3x3 kernel takes (1, 1), a 2x2 one 0 or 1")
+    if weight.cout % 2 or weight.n_tile not in SINGLE_N_TILES[kh] or npad % weight.n_tile:
+        raise ValueError(f"Cout={weight.cout} must be even, and the N tile one the kernel takes")
+    if weight.packed.device != xq.device or weight.tiled.device != xq.device:
         raise ValueError("the weight must be on xq's device")
+    if out_scale is not None and (out_scale.numel() != 1 or out_scale.device != xq.device):
+        raise ValueError("out_scale must be one value on xq's device")
 
 
-def _launch(xq, weight, wscale, act_scale, padding, bias, alpha, out_dtype):
+def _pad_k(xq: torch.Tensor, cpad: int) -> torch.Tensor:
+    """The neck's Cin=3: zero-pad K to the 16-byte granule."""
+    if xq.shape[1] == cpad:
+        return xq
+    return F.pad(xq, (0, 0, 0, 0, 0, cpad - xq.shape[1])).contiguous(
+        memory_format=torch.channels_last
+    )
+
+
+def _epilogue_args(wscale, act_scale, bias, alpha, out_dtype):
+    mult = dequant_multiplier(wscale, act_scale).contiguous()
+    b32 = None if bias is None else bias.detach().to(out_dtype).float().contiguous()
+    a32 = None if alpha is None else alpha.detach().reshape(1).to(out_dtype).float()
+    return mult, b32, a32
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _launch(xq, weight, wscale, act_scale, padding, bias, alpha, out_dtype, out_scale):
     from fast_srgan_torch.kernels._build import load_library
 
-    check_kernel_inputs(xq, weight, padding, out_dtype)
+    check_kernel_inputs(xq, weight, padding, out_dtype, out_scale)
     lib = load_library()
-    b, cin, h, w = xq.shape
-    _, kh, kw, cpad = weight.packed.shape
+    b, _, h, w = xq.shape
+    _, kh, _, cpad = weight.packed.shape
     with torch.cuda.device(xq.device):
-        if cpad != cin:  # the neck's Cin=3: zero-pad K to the 16-byte granule
-            xq = F.pad(xq, (0, 0, 0, 0, 0, cpad - cin))
-            xq = xq.contiguous(memory_format=torch.channels_last)
-        mult = dequant_multiplier(wscale, act_scale).contiguous()
-        b32 = None if bias is None else bias.detach().to(out_dtype).float().contiguous()
-        a32 = None if alpha is None else alpha.detach().reshape(1).to(out_dtype).float()
+        xq = _pad_k(xq, cpad)
+        mult, b32, a32 = _epilogue_args(wscale, act_scale, bias, alpha, out_dtype)
+        rscale = None if out_scale is None else quantize_reciprocal(out_scale).reshape(1)
         out = torch.empty(
-            (b, weight.cout, h, w), dtype=out_dtype, device=xq.device,
-            memory_format=torch.channels_last,
+            (b, weight.cout, h, w), dtype=out_dtype if out_scale is None else torch.int8,
+            device=xq.device, memory_format=torch.channels_last,
         )
         fn = lib.fsr_int8_conv_bf16 if out_dtype == torch.bfloat16 else lib.fsr_int8_conv_f32
         err = fn(
-            xq.data_ptr(), weight.packed.data_ptr(), mult.data_ptr(),
-            None if b32 is None else b32.data_ptr(),
-            None if a32 is None else a32.data_ptr(),
-            out.data_ptr(), b, h, w, cpad, weight.cout, kh, kw, padding[0], padding[1],
-            torch.cuda.current_stream(xq.device).cuda_stream,
+            xq.data_ptr(), weight.tiled.data_ptr(), mult.data_ptr(), _ptr(b32), _ptr(a32),
+            _ptr(rscale), out.data_ptr(), b, h, w, cpad, weight.cout, weight.n_tile, kh,
+            padding[0], padding[1], torch.cuda.current_stream(xq.device).cuda_stream,
         )
     if err:
         raise RuntimeError(f"int8_conv launch failed: cudaError {err}")
@@ -167,21 +280,81 @@ def int8_conv(
     bias: Optional[torch.Tensor] = None,
     alpha: Optional[torch.Tensor] = None,
     out_dtype: torch.dtype = torch.bfloat16,
+    out_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """"Same"-sized conv of int8 [B, Cin, H, W] ``xq`` (channels_last) by
     ``weight``, dequantized by ``wscale`` [Cout] (fp32) and the activation
     scale ``act_scale`` (one fp32 value), then ``+ bias`` and PReLU with the
     one-value slope ``alpha`` where given (both in ``out_dtype``), in
-    ``out_dtype``. ``padding`` = (top, left) zero rows and columns.
+    ``out_dtype``; or, with ``out_scale`` (one fp32 value), that result
+    quantized to int8 at ``out_scale`` (the next conv's input).
+    ``padding`` = (top, left) zero rows and columns.
 
     ``int8_conv.launches`` counts the calls that launched the kernel."""
     if xq.device.type == "cpu":
         return int8_conv_reference(
-            xq, weight, wscale, act_scale, padding, bias, alpha, out_dtype
+            xq, weight, wscale, act_scale, padding, bias, alpha, out_dtype, out_scale
         )
     if xq.device.type != "cuda":
         raise ValueError(f"int8_conv runs on cpu or cuda, not {xq.device}")
-    return _launch(xq, weight, wscale, act_scale, padding, bias, alpha, out_dtype)
+    return _launch(xq, weight, wscale, act_scale, padding, bias, alpha, out_dtype, out_scale)
 
 
 int8_conv.launches = 0
+
+
+def _launch_phases(xq, weights, wscale, act_scale, bias, alpha, out_dtype):
+    from fast_srgan_torch.kernels._build import load_library
+
+    npad, _, _, cpad = weights.phases[0].packed.shape
+    _check_x(xq, weights.cin, cpad, npad, out_dtype)
+    if weights.cout % 2 or weights.n_tile != PHASES_N_TILE or npad % weights.n_tile:
+        raise ValueError(f"Cout={weights.cout} must be even, and the N tile one the kernel takes")
+    if weights.tiled.device != xq.device:
+        raise ValueError("the weights must be on xq's device")
+    lib = load_library()
+    b, _, h, w = xq.shape
+    with torch.cuda.device(xq.device):
+        xq = _pad_k(xq, cpad)
+        mult, b32, a32 = _epilogue_args(wscale, act_scale, bias, alpha, out_dtype)
+        out = torch.empty((4, b, h, w, weights.cout), dtype=out_dtype, device=xq.device)
+        fn = (lib.fsr_int8_conv_phases_bf16 if out_dtype == torch.bfloat16
+              else lib.fsr_int8_conv_phases_f32)
+        err = fn(
+            xq.data_ptr(), weights.tiled.data_ptr(), mult.data_ptr(), _ptr(b32), _ptr(a32),
+            out.data_ptr(), b, h, w, cpad, weights.cout, weights.n_tile,
+            torch.cuda.current_stream(xq.device).cuda_stream,
+        )
+    if err:
+        raise RuntimeError(f"int8_conv_phases launch failed: cudaError {err}")
+    int8_conv_phases.launches += 1
+    return [out[i].permute(0, 3, 1, 2) for i in range(4)]
+
+
+def int8_conv_phases(
+    xq: torch.Tensor,
+    weights: Int8Phases,
+    wscale: torch.Tensor,
+    act_scale: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    alpha: Optional[torch.Tensor] = None,
+    out_dtype: torch.dtype = torch.bfloat16,
+) -> List[torch.Tensor]:
+    """The four stage-2 phases of int8 [B, Cin, H, W] ``xq`` (channels_last):
+    phase (p, q) is :func:`int8_conv` by its 2x2 kernel at padding
+    (1 - p, 1 - q), with the same scales, bias and slope. Returns the four
+    [B, Cout, H, W] outputs in :data:`PHASES` order, each channels_last; on
+    the card they are slices of one [4, B, H, W, Cout] allocation, written
+    by one launch that stages each input tile once for all four.
+
+    ``int8_conv_phases.launches`` counts the calls that launched the kernel."""
+    if xq.device.type == "cpu":
+        return int8_conv_phases_reference(
+            xq, weights, wscale, act_scale, bias, alpha, out_dtype
+        )
+    if xq.device.type != "cuda":
+        raise ValueError(f"int8_conv_phases runs on cpu or cuda, not {xq.device}")
+    return _launch_phases(xq, weights, wscale, act_scale, bias, alpha, out_dtype)
+
+
+int8_conv_phases.launches = 0

@@ -22,11 +22,17 @@ import torch
 _DTYPES = (torch.bfloat16, torch.float32)
 
 
+def quantize_reciprocal(scale: torch.Tensor) -> torch.Tensor:
+    """``127 / s`` in fp32 as one IEEE division, JAX's rounding: ``127.0 /
+    s`` is torch's __rtruediv__, reciprocal(s) * 127, which differs for about
+    a quarter of scales. The kernels take this value as it is."""
+    s = scale.to(torch.float32)
+    return torch.full_like(s, 127.0) / s
+
+
 def quantize_act_reference(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """Plain version: ``x`` any float dtype, ``scale`` one fp32 value."""
-    s = scale.to(torch.float32)
-    # true division: ``127.0 / s`` is torch's __rtruediv__, reciprocal(s) * 127
-    r = torch.full_like(s, 127.0) / s
+    r = quantize_reciprocal(scale)
     return torch.round(x.to(torch.float32) * r).clamp_(-127, 127).to(torch.int8)
 
 

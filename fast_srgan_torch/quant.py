@@ -45,7 +45,13 @@ import torch
 import torch.nn.functional as F
 
 from fast_srgan_torch.kernels.instance_norm import instance_norm_prelu
-from fast_srgan_torch.kernels.int8_conv import bias_prelu, int8_conv, pack_int8_weight
+from fast_srgan_torch.kernels.int8_conv import (
+    bias_prelu,
+    int8_conv,
+    int8_conv_phases,
+    pack_int8_phases,
+    pack_int8_weight,
+)
 from fast_srgan_torch.kernels.quantize import quantize_act
 from fast_srgan_torch.ops.lr_tail import (
     _head_kernel_2x,
@@ -144,7 +150,8 @@ class PreparedGenerator:
     :class:`~fast_srgan_torch.kernels.int8_conv.Int8Weight`, ``ws``: fp32
     dequant scales), with ``b``/``a`` (bias, PReLU slope in the glue dtype)
     where the conv's epilogue applies them. The stage-2 entry holds the four
-    phase kernels (``phases`` float, ``phases_q`` int8); a float 4x head
+    phase kernels (``phases`` float, ``phases_q`` an
+    :class:`~fast_srgan_torch.kernels.int8_conv.Int8Phases`); a float 4x head
     also holds its four per-phase ``parts``; ``b32`` is the 4x head's fp32
     bias. ``trunk`` is the float ``Generator.trunk`` of the ``ups``/``tail``
     modes, whose plans then hold no trunk layers."""
@@ -162,7 +169,7 @@ def prepare_generator(
     params: Dict[str, Any],
     mode: Optional[str] = None,
     glue_dtype: torch.dtype = torch.float32,
-    device: Any = "cpu",
+    device: Any = "cuda",
     model=None,
 ) -> PreparedGenerator:
     """Prepare a float generator param tree (numpy leaves) for the executor.
@@ -171,13 +178,19 @@ def prepare_generator(
     and :func:`calibrate_scales` take); otherwise one of :data:`MODES`,
     quantized by :func:`quantize_generator_params`. ``model`` is the float
     ``Generator`` (in ``glue_dtype`` on ``device``) whose trunk the ``ups``
-    and ``tail`` modes run; it is built from ``params`` when not given."""
+    and ``tail`` modes run; it is built from ``params`` when not given.
+    ``device`` is the card unless the caller asks for ``"cpu"``."""
     if mode is not None and mode not in MODES:
         raise ValueError(f"quantize must be True/'tail'/'ups'/'full'/'trunk': {mode!r}")
     p = params["params"] if "params" in params else params
     if mode is not None:
         p = quantize_generator_params(p, only=MODES[mode])
     dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device='cuda' but torch.cuda.is_available() is False; "
+            "pass device='cpu' to run on the CPU"
+        )
     glue = glue_dtype
     n_layers = sum(1 for k in p if str(k).startswith("stem_"))
     n_up = sum(1 for k in p if str(k).startswith("upsampling_"))
@@ -229,7 +242,7 @@ def prepare_generator(
         if scale > 2 and j == n_up - 1:  # stage 2 of the 4x transform: phases
             phases = _phase_kernels_2x(kernel(up["conv"])).items()
             if "qkernel" in up["conv"]:
-                entry["phases_q"] = [(pq, weight(kp)) for pq, kp in phases]
+                entry["phases_q"] = pack_int8_phases([(pq, weight(kp)) for pq, kp in phases])
                 entry["ws"] = vec(up["conv"]["wscale"], torch.float32)
             else:
                 entry["phases"] = [(pq, weight(kp)) for pq, kp in phases]
@@ -318,17 +331,21 @@ class _Exec:
         self.observe(name, x)
         return quantize_act(x.contiguous(memory_format=torch.channels_last), self.scales[name])
 
-    def conv_q(self, xq, name, weight, wscale, padding=(1, 1), bias=None, alpha=None):
-        return int8_conv(xq, weight, wscale, self.scales[name], padding, bias, alpha, self.glue)
-
-    def conv(self, x: torch.Tensor, name: str, leaf: Dict[str, Any]) -> torch.Tensor:
+    def conv(
+        self, x: torch.Tensor, name: str, leaf: Dict[str, Any], quantize_for=None
+    ) -> torch.Tensor:
         """3x3 pad-1 conv of a prepared leaf, then its bias and PReLU where
-        it has them, each rounded to the glue dtype (quant.py's order)."""
+        it has them, each rounded to the glue dtype (quant.py's order).
+        ``quantize_for`` (an int8 conv's name) returns that conv's int8
+        input instead, quantized in an int8 conv's epilogue."""
         bias, alpha = leaf.get("b"), leaf.get("a")
+        out_scale = None if quantize_for is None else self.scales[quantize_for]
         if "q" in leaf:
-            return self.conv_q(self.qin(name, x), name, leaf["q"], leaf["ws"], (1, 1), bias, alpha)
+            return int8_conv(self.qin(name, x), leaf["q"], leaf["ws"], self.scales[name],
+                             (1, 1), bias, alpha, self.glue, out_scale)
         self.observe(name, x)
-        return bias_prelu(F.conv2d(x, leaf["w"], padding=1), bias, alpha)
+        y = bias_prelu(F.conv2d(x, leaf["w"], padding=1), bias, alpha)
+        return y if quantize_for is None else self.qin(quantize_for, y)
 
 
 def _trunk(lay, ex: _Exec, x: torch.Tensor, n_layers: int) -> torch.Tensor:
@@ -343,19 +360,19 @@ def _trunk(lay, ex: _Exec, x: torch.Tensor, n_layers: int) -> torch.Tensor:
 
 
 def _tail_4x(lay, ex: _Exec, y: torch.Tensor, n0: str = "up0", n1: str = "up1"):
-    """The 4x LR-domain tail. The head is phase-summed with fp32 partials
-    when it is float and nothing is collecting; calibration and an int8 head
-    take the 16F phase concat (per-conv-input statistics are defined on
-    it)."""
-    a1 = ex.conv(y, n0, lay[n0])  # [B, 4F, H, W], bias and PReLU applied
+    """The 4x LR-domain tail. An int8 stage 2 takes its input quantized in
+    stage 1's epilogue and runs its four phases in one launch. The head is
+    phase-summed with fp32 partials when it is float and nothing is
+    collecting; calibration and an int8 head take the 16F phase concat
+    (per-conv-input statistics are defined on it)."""
     st = lay[n1]
-    if "phases_q" in st:
-        a1q = ex.qin(n1, a1)
-        phases = [
-            ex.conv_q(a1q, n1, wq, st["ws"], (1 - p, 1 - q), st["b"], st["a"])
-            for (p, q), wq in st["phases_q"]
-        ]
+    if "phases_q" in st:  # a quantized plan: nothing collects
+        a1q = ex.conv(y, n0, lay[n0], quantize_for=n1)  # [B, 4F, H, W] int8
+        phases = int8_conv_phases(
+            a1q, st["phases_q"], st["ws"], ex.scales[n1], st["b"], st["a"], ex.glue
+        )
     else:
+        a1 = ex.conv(y, n0, lay[n0])  # [B, 4F, H, W], bias and PReLU applied
         ex.observe(n1, a1)
         phases = _phase_outputs(a1, st["phases"], st["b"], st["a"])
     head = lay["head"]

@@ -11,7 +11,8 @@ exceeds one bf16 ulp), and finite outputs for the near-constant clamp case.
 Fused upsample: fp32 5e-5 with TF32 off; bf16 3e-2 with |y| < 4 (1.5 bf16
 ulps: the plain version rounds after the conv and again after the bias).
 Pixel shuffle: bitwise. int8 activation quantize and s8 x s8 -> s32 conv
-(with its dequantize + bias + PReLU epilogue, bf16 and fp32 glue): bitwise;
+(with its dequantize + bias + PReLU epilogue, bf16 and fp32 glue, the
+fused requantize and the four-phase launch): bitwise;
 the int8 engine (fp32 glue) against the CPU port on the same scales: the
 bounded-flip contract (at most 3 uint8 counts, under 2% off by more than 1).
 """
@@ -343,6 +344,57 @@ def test_int8_conv_other_widths_bitwise(device, cin, cout):
         assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("shape", [(8, 64, 180, 320), (3, 64, 37, 53), (2, 16, 37, 53)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_int8_conv_fused_quantize_is_bitwise_plain(device, shape, dtype):
+    """Stage 1 with the next conv's quantize in its epilogue: int8 out."""
+    from fast_srgan_torch.kernels.int8_conv import int8_conv, int8_conv_reference
+
+    xq, weight, ws, s = _int8_case(device, shape, 3, 256, seed=sum(shape) + 7)
+    bias = (torch.rand(256, device=device) - 0.5).to(dtype)
+    alpha = torch.tensor([0.173], device=device).to(dtype)
+    s_next = torch.tensor(5.1, device=device)
+    got = int8_conv(xq, weight, ws, s, (1, 1), bias, alpha, dtype, s_next)
+    want = int8_conv_reference(xq, weight, ws, s, (1, 1), bias, alpha, dtype, s_next)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int8 and got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shape", [(8, 256, 180, 320), (3, 256, 37, 53), (1, 64, 5, 3)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_int8_conv_phases_is_bitwise_plain(device, shape, dtype):
+    """The four stage-2 phases in one launch against four plain convs."""
+    from fast_srgan_torch.kernels.int8_conv import (
+        int8_conv_phases,
+        int8_conv_phases_reference,
+        pack_int8_phases,
+        pack_int8_weight,
+    )
+    from fast_srgan_torch.ops.lr_tail import _phase_kernels_2x
+
+    gen = torch.Generator().manual_seed(sum(shape))
+    b, cin, h, w = shape
+    k = torch.randint(-127, 128, (3, 3, cin // 4, 256), generator=gen).to(torch.int8)
+    phases = pack_int8_phases(
+        [(pq, pack_int8_weight(kp, device)) for pq, kp in _phase_kernels_2x(k).items()]
+    )
+    xq = torch.randint(-127, 128, (b, h, w, cin), generator=gen).to(torch.int8)
+    xq = xq.to(device).permute(0, 3, 1, 2)
+    ws = (torch.rand(256, generator=gen) * 1e-2 + 1e-3).to(device)
+    s = torch.tensor(2.3, device=device)
+    bias = (torch.rand(256, device=device) - 0.5).to(dtype)
+    alpha = torch.tensor([0.173], device=device).to(dtype)
+    before = int8_conv_phases.launches
+    got = int8_conv_phases(xq, phases, ws, s, bias, alpha, dtype)
+    want = int8_conv_phases_reference(xq, phases, ws, s, bias, alpha, dtype)
+    torch.cuda.synchronize()
+    assert int8_conv_phases.launches == before + 1
+    for a, b_ in zip(got, want):
+        assert a.dtype == dtype and a.is_contiguous(memory_format=torch.channels_last)
+        assert torch.equal(a, b_)
+
+
 def test_int8_conv_rejects(device):
     from fast_srgan_torch.kernels.int8_conv import int8_conv
 
@@ -355,12 +407,16 @@ def test_int8_conv_rejects(device):
         int8_conv(xq.float(), weight, ws, s)
     with pytest.raises(ValueError, match="padding"):
         int8_conv(xq, weight, ws, s, padding=(3, 1))
+    with pytest.raises(ValueError, match="padding"):
+        int8_conv(xq, weight, ws, s, padding=(0, 0))  # a 3x3 kernel reads the one-pad
+    with pytest.raises(ValueError, match="out_scale"):
+        int8_conv(xq, weight, ws, s, out_scale=torch.tensor(1.0))  # not on the card
 
 
 def test_int8_engine_launches_and_matches_cpu(device):
     from fast_srgan_torch.checkpoints.npz_io import load_npz_params
     from fast_srgan_torch.inference import SRInferenceEngine
-    from fast_srgan_torch.kernels.int8_conv import int8_conv
+    from fast_srgan_torch.kernels.int8_conv import int8_conv, int8_conv_phases
     from fast_srgan_torch.kernels.quantize import quantize_act
 
     params = load_npz_params("models/generator_pretrained.npz")
@@ -369,10 +425,11 @@ def test_int8_engine_launches_and_matches_cpu(device):
                              calib_batches=[images])
     cpu = SRInferenceEngine(params, device="cpu", dtype=torch.float32, quantize=True,
                             act_scales={k: v.cpu() for k, v in card.act_scales.items()})
-    counters = (int8_conv, quantize_act, instance_norm_prelu)
+    counters = (int8_conv, int8_conv_phases, quantize_act, instance_norm_prelu)
     before = [f.launches for f in counters]
     a = card.upscale_batch(images).astype(np.int16)
-    assert [f.launches - n for f, n in zip(counters, before)] == [5, 2, 8]
+    # stage 1 quantizes stage 2's input; the four phases are one launch
+    assert [f.launches - n for f, n in zip(counters, before)] == [1, 1, 1, 8]
     b = cpu.upscale_batch(images).astype(np.int16)
     diff = np.abs(a - b)  # the bounded-flip contract, fp32 glue
     assert diff.max() <= 3 and (diff > 1).mean() < 0.02

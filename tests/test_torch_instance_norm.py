@@ -97,17 +97,20 @@ class TestPlainVersusJax:
         )
         np.testing.assert_allclose(_nhwc(out.float()), want, atol=2e-2)
 
-    def test_near_constant_input_is_finite(self, rng):
+    def test_near_constant_input_is_finite(self):
         # fp32 cancellation regime of the one-pass variance (the clamp case)
         x = np.full((1, 16, 16, 64), 40.0, np.float32)
-        x += rng.normal(0, 1e-4, x.shape).astype(np.float32)
+        x += np.random.default_rng(11).normal(0, 1e-4, x.shape).astype(np.float32)
         out = instance_norm_prelu(_nchw(x), torch.tensor([0.25]))
         assert torch.isfinite(out).all()
 
 
 class TestGradient:
-    def test_matches_jax_grad(self, rng):
-        x = rng.standard_normal((1, 6, 6, 8)).astype(np.float32)
+    # A local generator per seed: the shared ``rng`` fixture's draw depends
+    # on which files the same xdist worker ran before this one.
+    @pytest.mark.parametrize("seed", [0, 1, 2, 3])
+    def test_matches_jax_grad(self, seed):
+        x = np.random.default_rng(seed).standard_normal((1, 6, 6, 8)).astype(np.float32)
         a = np.asarray([0.25], np.float32)
 
         def f(xx, aa):
@@ -118,7 +121,9 @@ class TestGradient:
         at = torch.from_numpy(a.copy()).requires_grad_(True)
         torch.sin(instance_norm_prelu(xt, at)).sum().backward()
         np.testing.assert_allclose(_nhwc(xt.grad), np.asarray(gx_want), atol=1e-5)
-        np.testing.assert_allclose(at.grad.numpy(), np.asarray(ga_want), atol=1e-5)
+        # The slope's gradient is an fp32 sum of 288 terms that reads ~100,
+        # taken in another order than JAX's: relative, not absolute.
+        np.testing.assert_allclose(at.grad.numpy(), np.asarray(ga_want), rtol=1e-5)
 
 
 class TestKernelContract:

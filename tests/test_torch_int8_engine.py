@@ -41,13 +41,13 @@ class TestQuantForward:
     def test_matches_jax_with_the_same_scales(self, scale, mode):
         params = random_params(8, 2, scale, seed=10 + scale)
         x = _input(seed=scale)
-        scales = quant.calibrate_scales(quant.prepare_generator(params), [x])
+        scales = quant.calibrate_scales(quant.prepare_generator(params, device="cpu"), [x])
         want = jq.sr_quant_forward(
             jq.quantize_generator_params(params, only=_ONLY[mode]),
             {k: jnp.asarray(v.numpy()) for k, v in scales.items()},
             jnp.asarray(x), scale, jnp.float32,
         )
-        plan = quant.prepare_generator(params, mode, torch.float32)
+        plan = quant.prepare_generator(params, mode, torch.float32, device="cpu")
         with torch.no_grad():
             got = quant.sr_quant_forward(plan, scales, _nchw(x))
         assert got.shape == (2, 3, 7 * scale, 9 * scale) and got.dtype == torch.float32
@@ -55,11 +55,11 @@ class TestQuantForward:
 
     def test_plan_holds_int8_where_the_mode_says(self):
         params = random_params(8, 1, 4)
-        ups = quant.prepare_generator(params, "ups", torch.bfloat16)
+        ups = quant.prepare_generator(params, "ups", torch.bfloat16, device="cpu")
         assert "neck" not in ups.layers and "w" in ups.layers["head"]
         assert "q" in ups.layers["up0"] and "phases_q" in ups.layers["up1"]
         assert ups.trunk is not None  # Generator.trunk, with the IN+PReLU kernel
-        full = quant.prepare_generator(params, "full", torch.bfloat16)
+        full = quant.prepare_generator(params, "full", torch.bfloat16, device="cpu")
         assert "q" in full.layers["neck"] and "q" in full.layers["head"]
         assert full.trunk is None
         assert full.layers["head"]["q"].packed.shape == (64, 3, 3, 128)  # 48 -> 64 rows
@@ -101,7 +101,7 @@ class TestEngine:
         eng = SRInferenceEngine(params, device="cpu", dtype=torch.float32, quantize=True)
         assert eng.default_calibration  # the synthetic batch
         want = quant.calibrate_scales(
-            quant.prepare_generator(params), [quant.default_calibration_batch()]
+            quant.prepare_generator(params, device="cpu"), [quant.default_calibration_batch()]
         )
         assert all(torch.equal(eng.act_scales[k], want[k]) for k in want)
         plan = eng._plan
@@ -109,7 +109,7 @@ class TestEngine:
         eng.recalibrate([x * 0.5])
         assert not eng.default_calibration
         assert eng._plan is plan  # nothing else is rebuilt
-        want = quant.calibrate_scales(quant.prepare_generator(params), [x * 0.5])
+        want = quant.calibrate_scales(quant.prepare_generator(params, device="cpu"), [x * 0.5])
         assert all(torch.equal(eng.act_scales[k], want[k]) for k in want)
         assert not torch.equal(eng.upscale_float(x), before)
 
@@ -121,7 +121,7 @@ class TestEngine:
     def test_act_scales_given_are_used(self):
         params, x = _small(3)
         scales = {k: float(v) * 2 for k, v in quant.calibrate_scales(
-            quant.prepare_generator(params), [x]).items()}
+            quant.prepare_generator(params, device="cpu"), [x]).items()}
         eng = SRInferenceEngine(params, device="cpu", dtype=torch.float32,
                                 quantize="tail", act_scales=scales)
         assert not eng.default_calibration
@@ -132,9 +132,9 @@ class TestEngine:
         params, x = _small(4)
         eng = SRInferenceEngine(params, device="cpu", dtype=torch.float32,
                                 quantize="full", calib_batches=[x])
-        fplan = quant.prepare_generator(params)
+        fplan = quant.prepare_generator(params, device="cpu")
         direct = quant.sr_quant_forward(
-            quant.prepare_generator(params, "full", torch.float32),
+            quant.prepare_generator(params, "full", torch.float32, device="cpu"),
             quant.calibrate_scales(fplan, [x]), _nchw(x),
         )
         np.testing.assert_array_equal(eng.upscale_float(x).numpy(), _nhwc(direct))
@@ -144,7 +144,7 @@ class TestEngine:
         eng = SRInferenceEngine(params, device="cpu", dtype=torch.bfloat16,
                                 quantize=True, calib_batches=[x])
         out = eng.upscale_images([((x[0] + 1) * 127.5).astype(np.uint8)])[0]
-        ref = _u8(_nhwc(quant.sr_float_forward(quant.prepare_generator(params),
+        ref = _u8(_nhwc(quant.sr_float_forward(quant.prepare_generator(params, device="cpu"),
                                                _nchw(x[:1]))))[0]
         assert out.shape == ref.shape == (48, 56, 3)
         mse = np.mean((out.astype(np.float64) - ref) ** 2)

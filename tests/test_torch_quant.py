@@ -189,7 +189,7 @@ class TestFloatOracle:
     def test_matches_jax_and_lr_tail(self, scale):
         params = random_params(8, 2, scale, seed=scale)
         x = _input(seed=scale)
-        plan = quant.prepare_generator(params)
+        plan = quant.prepare_generator(params, device="cpu")
         collect = {}
         with torch.no_grad():
             got = quant.sr_float_forward(plan, _nchw(x), collect=collect)
@@ -205,17 +205,17 @@ class TestFloatOracle:
             np.testing.assert_allclose(float(collect[k]), float(want_collect[k]), rtol=1e-6)
 
     def test_rejects_a_quantized_plan(self):
-        plan = quant.prepare_generator(random_params(8, 1, 4), "ups")
+        plan = quant.prepare_generator(random_params(8, 1, 4), "ups", device="cpu")
         with pytest.raises(ValueError, match="sr_float_forward"):
             quant.sr_float_forward(plan, torch.zeros(1, 3, 4, 4))
         with pytest.raises(ValueError, match="quantize must be"):
-            quant.prepare_generator(random_params(8, 1, 4), "int4")
+            quant.prepare_generator(random_params(8, 1, 4), "int4", device="cpu")
 
 
 class TestCalibration:
     def test_scales_match_jax(self):
         params = random_params(8, 2, 4, seed=3)
-        plan = quant.prepare_generator(params)
+        plan = quant.prepare_generator(params, device="cpu")
         rng = np.random.default_rng(3)
         u8_hwc = rng.integers(0, 256, (7, 9, 3), dtype=np.uint8)
         u8_nhwc = rng.integers(0, 256, (2, 7, 9, 3), dtype=np.uint8)
@@ -230,7 +230,8 @@ class TestCalibration:
 
     def test_rejects_empty(self):
         with pytest.raises(ValueError, match="at least one batch"):
-            quant.calibrate_scales(quant.prepare_generator(random_params(8, 1, 4)), [])
+            plan = quant.prepare_generator(random_params(8, 1, 4), device="cpu")
+            quant.calibrate_scales(plan, [])
 
     def test_percentile_past_torch_quantile_limit(self):
         # 2^24 + 1 elements: torch.quantile refuses this many
@@ -270,13 +271,13 @@ class TestPretrainedBound:
     def test_psnr_bound_pretrained(self):
         params = load_npz_params(PRETRAINED)
         x = quant.default_calibration_batch(h=48, w=64, n=2, seed=3)
-        plan = quant.prepare_generator(params)
+        plan = quant.prepare_generator(params, device="cpu")
         with torch.no_grad():
             ref = _nhwc(quant.sr_float_forward(plan, _nchw(x)))
             scales = quant.calibrate_scales(plan, [x])
 
             def psnr_of(mode):
-                qplan = quant.prepare_generator(params, mode, torch.float32)
+                qplan = quant.prepare_generator(params, mode, torch.float32, device="cpu")
                 return _psnr_u8(_nhwc(quant.sr_quant_forward(qplan, scales, _nchw(x))), ref)
 
             psnr_full = psnr_of("full")
