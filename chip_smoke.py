@@ -9,12 +9,16 @@ own line; any failure exits non-zero and prints no result:
 
   1. device: the card's name and nvidia-smi's name and power limit;
   2. build: the CUDA kernels from fast_srgan_torch/csrc with nvcc;
-  3. kernel: the fused instance norm + PReLU against its plain PyTorch
-     version on the card, at the serving path's shape and a ragged one,
-     in bf16 and fp32, and on a near-constant input; both timed;
+  3. kernel: the instance-norm family's two epilogues (IN + PReLU, IN +
+     residual add) against their plain PyTorch versions on the card, at the
+     serving path's shape (bf16: the resident form; fp32: two launches), a
+     ragged one and a 540x960 frame (two launches), and on near-constant
+     inputs in both forms; timed at the serving shape and the 540x960 frame
+     beside F.instance_norm as a yardstick;
   4. serving: the pretrained 4x generator (models/generator_pretrained.npz,
      bf16) answers 12 requests from 4 threads through the micro-batcher;
-     the kernel's launch count must be n_layers x the generator forwards;
+     the launch counts must be n_layers (IN+PReLU) and n_layers + 1
+     (IN+add) x the generator forwards;
   5. fidelity: the card's fp32 engine against the CPU fp32 engine, and the
      card's bf16 replies against its fp32 ones (PSNR);
   6. throughput: 180x320 -> 720p bf16 frames/s over 200 frames staged on
@@ -43,7 +47,7 @@ own line; any failure exits non-zero and prints no result:
      launch timed beside the bf16 cuDNN convs the float tier runs, with
      TOP/s and share of bound; the int8 engine (pretrained 4x, ups mode,
      bf16 glue, calibrated on the frames) answers the frames with exact
-     launch counts (two s8 launches and one quantize a forward);
+     launch counts (two s8 launches, one quantize and 8 + 9 IN a forward);
      every mode in both glue dtypes on the PSNR bar's own input (2x48x64,
      tests/test_quant.py), at least its bar against the card's fp32, and
      against the CPU port on the same scales (the bounded-flip contract for
@@ -74,6 +78,9 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 CHECKPOINT = os.path.join(REPO, "models", "generator_pretrained.npz")
 KERNEL_SOURCE = "fast_srgan_torch/csrc/instance_norm.cu"
 KERNEL_REPLACES = "fast_srgan_tpu/kernels/instance_norm.py:50"
+# the JAX package's `instance_norm_nhwc(y) + x` (models/generator.py:115),
+# which XLA lowered on the TPU
+ADD_REPLACES = "fast_srgan_tpu/ops/norm.py:32"
 UPSAMPLE_SOURCE = "fast_srgan_torch/csrc/fused_upsample.cu"
 UPSAMPLE_REPLACES = "fast_srgan_tpu/kernels/fused_upsample.py:255"
 SHUFFLE_SOURCE = "fast_srgan_torch/csrc/pixel_shuffle.cu"
@@ -85,6 +92,9 @@ QUANTIZE_REPLACES = "fast_srgan_tpu/quant.py:184"
 
 FP32_TOL = 2e-5
 BF16_TOL = 2e-2
+# IN + residual add in bf16 with |skip| <= 1: one ulp of the normalized value
+# in [1, 2) plus one of the sum in [2, 4) (the plain version rounds twice)
+ADD_BF16_TOL = 3e-2
 PSNR_MIN_DB = 40.0
 # Fused upsample: fp32 with TF32 off; bf16 with |y| < 4, where 3e-2 is 1.5
 # bf16 ulps (the plain version rounds after the conv and after the bias).
@@ -214,14 +224,23 @@ def phase_build() -> None:
 
 
 def phase_kernel() -> dict:
+    """Both epilogues of the instance-norm family, in both its forms, against
+    their plain versions. Returns each epilogue's row of the kernels line."""
+    import torch.nn.functional as F
+
     from fast_srgan_torch.kernels.instance_norm import (
+        EPS,
+        instance_norm_add,
+        instance_norm_add_reference,
         instance_norm_prelu,
         instance_norm_prelu_reference,
+        plan,
     )
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     alpha = torch.tensor([0.173], device=dev)
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def activation(shape, dtype, dist):
         b, c = shape[0], shape[1]
@@ -235,63 +254,105 @@ def phase_kernel() -> dict:
         x = (z * scale + shift).to(dtype)
         return x.contiguous(memory_format=torch.channels_last)
 
+    # (kernel, plain version, F.instance_norm yardstick, bf16 bar, bytes and
+    # fp32 operations an element: sums, normalize, then the PReLU, or the
+    # rounding and the add with skip's read)
+    forms = {
+        "instance_norm_prelu": (
+            lambda x, s: instance_norm_prelu(x, alpha),
+            lambda x, s: instance_norm_prelu_reference(x, alpha),
+            lambda x, s: F.prelu(F.instance_norm(x, eps=EPS), alpha.to(x.dtype)),
+            BF16_TOL, 2, 6,
+        ),
+        "instance_norm_add": (
+            instance_norm_add, instance_norm_add_reference,
+            lambda x, s: F.instance_norm(x, eps=EPS) + s,
+            ADD_BF16_TOL, 3, 7,
+        ),
+    }
     # bf16 draws are uniform: after the norm |y| < 1.8, where 2e-2 is more
-    # than one bf16 ulp. Normal draws at 29M elements put thousands of values
-    # above 4, where a one-ulp flip from summation order alone is 0.031.
+    # than one bf16 ulp, and with |skip| <= 1 the sum stays below 4. Normal
+    # draws at 29M elements put thousands of values above 4, where a one-ulp
+    # flip from summation order alone is 0.031. The serving shape takes the
+    # resident form in bf16 and the two launches in fp32; the 540x960 frame
+    # takes the two launches.
     cases = [
-        ("serving bf16", (8, 64, 180, 320), torch.bfloat16, "uniform", BF16_TOL),
-        ("serving fp32", (8, 64, 180, 320), torch.float32, "normal", FP32_TOL),
-        ("ragged bf16", (1, 64, 37, 53), torch.bfloat16, "uniform", BF16_TOL),
-        ("ragged fp32", (1, 64, 37, 53), torch.float32, "normal", FP32_TOL),
+        ("serving bf16", (8, 64, 180, 320), torch.bfloat16, "uniform", True),
+        ("serving fp32", (8, 64, 180, 320), torch.float32, "normal", True),
+        ("ragged bf16", (1, 64, 37, 53), torch.bfloat16, "uniform", False),
+        ("ragged fp32", (1, 64, 37, 53), torch.float32, "normal", False),
+        ("540x960 bf16", (1, 64, 540, 960), torch.bfloat16, "uniform", True),
     ]
-    row = None
-    for name, shape, dtype, dist, tol in cases:
+    rows = {name: {} for name in forms}
+    taken = set()
+    for case, shape, dtype, dist, timed in cases:
+        found = plan(shape, torch.finfo(dtype).bits // 8, n_sms)
+        form = "two launches" if found is None else "resident %s" % (found,)
+        taken.add(found is None)
         x = activation(shape, dtype, dist)
-        got = instance_norm_prelu(x, alpha)
-        want = instance_norm_prelu_reference(x, alpha)
-        torch.cuda.synchronize()
-        check(got.dtype == dtype and got.shape == x.shape, f"{name}: bad output")
-        check(got.is_contiguous(memory_format=torch.channels_last), f"{name}: layout")
-        check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
-        err = (got.float() - want.float()).abs().max().item()
-        ms = plain_ms = None
-        if shape[0] == 8:
-            ms, plain_ms = _timed_pair(
-                lambda: instance_norm_prelu(x, alpha),
-                lambda: instance_norm_prelu_reference(x, alpha),
-            )
-        print(
-            f"[3 kernel] {name} {list(shape)}: max_abs_err {err:.3e} (tol {tol:g})"
-            + (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms" if ms else ""),
-            flush=True,
-        )
-        check(err <= tol, f"{name}: max_abs_err {err} > {tol}")
-        if name == "serving bf16":
-            # one read, one write; ~6 fp32 operations an element (sums,
-            # normalize, PReLU); no one PyTorch call is this function
-            row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
-                   **bound(2 * x.numel() * x.element_size(), 6 * x.numel(), FP32_FLOPS)}
+        if dist == "uniform":
+            skip = (torch.rand(shape, device=dev, generator=gen) * 2 - 1).to(dtype)
+        else:
+            skip = torch.randn(shape, device=dev, generator=gen).to(dtype)
+        skip = skip.contiguous(memory_format=torch.channels_last)
+        for name, (kernel, plain, yardstick, bf16_tol, per_elem, ops) in forms.items():
+            tol = bf16_tol if dtype == torch.bfloat16 else FP32_TOL
+            got = kernel(x, skip)
+            want = plain(x, skip)
+            torch.cuda.synchronize()
+            label = f"{name} {case}"
+            check(got.dtype == dtype and got.shape == x.shape, f"{label}: bad output")
+            check(got.is_contiguous(memory_format=torch.channels_last), f"{label}: layout")
+            check(bool(torch.isfinite(got).all()), f"{label}: non-finite output")
+            err = (got.float() - want.float()).abs().max().item()
+            line = (f"[3 kernel] {label} {list(shape)} ({form}): max_abs_err {err:.3e}"
+                    f" (tol {tol:g})")
+            if timed:
+                ms, plain_ms = _timed_pair(lambda: kernel(x, skip), lambda: plain(x, skip))
+                yard_ms = cuda_ms(lambda: yardstick(x, skip), 20)
+                bnd = bound(per_elem * x.numel() * x.element_size(), ops * x.numel(),
+                            FP32_FLOPS)
+                line += (f"; kernel {ms:.4f} ms, {100 * bnd['bound_ms'] / ms:.1f}% of its"
+                         f" {bnd['bound_ms']:.4f} ms bound ({bnd['bound_by']}); plain"
+                         f" {plain_ms:.4f} ms; F.instance_norm yardstick {yard_ms:.4f} ms")
+                if case == "serving bf16":
+                    # no one PyTorch call is this function: library_ms is
+                    # null, F.instance_norm (two-pass variance) a yardstick
+                    rows[name].update({"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                       "library_ms": None, **bnd,
+                                       "f_instance_norm_ms": yard_ms})
+                elif case == "540x960 bf16":
+                    rows[name].update({"two_launch_ms": ms, "two_launch_plain_ms": plain_ms,
+                                       "two_launch_bound_ms": bnd["bound_ms"]})
+            print(line, flush=True)
+            check(err <= tol, f"{label}: max_abs_err {err} > {tol}")
+    check(taken == {False, True}, "phase 3 did not run both forms")
 
     # The clamp case: a near-constant input makes the one-pass variance
     # cancel in fp32 (it can come out negative); the output must stay finite.
     # The statistic is ill-conditioned here, so the two versions' outputs
     # are compared for finiteness only, as the JAX package's test does.
-    for dtype in (torch.float32, torch.bfloat16):
-        x = torch.full((2, 64, 37, 53), 40.0, device=dev)
-        x = (x + 1e-4 * torch.randn(x.shape, device=dev, generator=gen)).to(dtype)
-        x = x.contiguous(memory_format=torch.channels_last)
-        got = instance_norm_prelu(x, alpha)
-        want = instance_norm_prelu_reference(x, alpha)
-        torch.cuda.synchronize()
-        finite = bool(torch.isfinite(got).all()) and bool(torch.isfinite(want).all())
-        print(f"[3 kernel] near-constant {dtype}: finite {finite}", flush=True)
-        check(finite, f"near-constant {dtype}: non-finite output")
-    return row
+    for shape in ((2, 64, 37, 53), (1, 64, 540, 960)):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.full(shape, 40.0, device=dev)
+            x = (x + 1e-4 * torch.randn(x.shape, device=dev, generator=gen)).to(dtype)
+            x = x.contiguous(memory_format=torch.channels_last)
+            skip = torch.ones_like(x)
+            finite = True
+            for kernel, plain, *_ in forms.values():
+                got = kernel(x, skip)
+                want = plain(x, skip)
+                torch.cuda.synchronize()
+                finite &= bool(torch.isfinite(got).all()) and bool(torch.isfinite(want).all())
+            print(f"[3 kernel] near-constant {list(shape)} {dtype}, both epilogues:"
+                  f" finite {finite}", flush=True)
+            check(finite, f"near-constant {list(shape)} {dtype}: non-finite output")
+    return rows
 
 
 def phase_serving(params, frames) -> tuple:
     from fast_srgan_torch.inference import SRInferenceEngine
-    from fast_srgan_torch.kernels.instance_norm import instance_norm_prelu
+    from fast_srgan_torch.kernels.instance_norm import instance_norm_add, instance_norm_prelu
     from fast_srgan_torch.serving import MicroBatcher
 
     engine = SRInferenceEngine(params, device="cuda", dtype=torch.bfloat16)
@@ -306,7 +367,7 @@ def phase_serving(params, frames) -> tuple:
             errors.append(repr(e))
 
     batcher = MicroBatcher(engine, max_batch=8, max_wait_ms=20)
-    instance_norm_prelu.launches = 0
+    instance_norm_prelu.launches = instance_norm_add.launches = 0
     engine.forward_calls = 0
     t0 = time.perf_counter()
     threads = [threading.Thread(target=client, args=(k,)) for k in range(4)]
@@ -315,7 +376,7 @@ def phase_serving(params, frames) -> tuple:
     for t in threads:
         t.join(timeout=900)
     seconds = time.perf_counter() - t0
-    launches = instance_norm_prelu.launches
+    launches = [instance_norm_prelu.launches, instance_norm_add.launches]
     forwards = engine.forward_calls
     batcher.close()
     check(not any(t.is_alive() for t in threads), "a client thread hung")
@@ -328,13 +389,17 @@ def phase_serving(params, frames) -> tuple:
             f"bad reply for a {h}x{w} request",
         )
     n_layers = engine.model.n_layers
+    # n_layers norms feed a PReLU; the stem's other n_layers and the
+    # bottleneck's are followed by a residual add
+    want = [n_layers * forwards, (n_layers + 1) * forwards]
     print(
         f"[4 serving] {len(frames)} requests in {batcher.stats['batches']} batches"
         f" ({seconds:.2f} s incl. first-call setup); {forwards} generator forwards;"
-        f" instance_norm_prelu launches {launches} (want {n_layers} x {forwards})",
+        f" launches instance_norm_prelu {launches[0]}, instance_norm_add {launches[1]}"
+        f" (want {want})",
         flush=True,
     )
-    check(forwards > 0 and launches == n_layers * forwards, "launch count mismatch")
+    check(forwards > 0 and launches == want, "launch count mismatch")
     return engine, replies, launches
 
 
@@ -583,14 +648,15 @@ def phase_int8_engine(params, frames) -> list:
     phases, quantize)."""
     from fast_srgan_torch import quant
     from fast_srgan_torch.inference import SRInferenceEngine
-    from fast_srgan_torch.kernels.instance_norm import instance_norm_prelu
+    from fast_srgan_torch.kernels.instance_norm import instance_norm_add, instance_norm_prelu
     from fast_srgan_torch.kernels.int8_conv import int8_conv, int8_conv_phases
     from fast_srgan_torch.kernels.quantize import quantize_act
 
     calib = np.stack([f for f in frames if f.shape[:2] == (180, 320)])
     engine = SRInferenceEngine(params, device="cuda", dtype=torch.bfloat16,
                                quantize=True, calib_batches=[calib])
-    counters = (int8_conv, int8_conv_phases, quantize_act, instance_norm_prelu)
+    counters = (int8_conv, int8_conv_phases, quantize_act, instance_norm_prelu,
+                instance_norm_add)
     for f in counters:
         f.launches = 0
     engine.forward_calls = 0
@@ -599,11 +665,13 @@ def phase_int8_engine(params, frames) -> list:
     forwards = engine.forward_calls
     # a 4x forward: stage 1 (quantizing stage 2's input in its epilogue) and
     # the four phases in one launch, so 2 s8 launches, and 1 quantize
-    want = [forwards, forwards, forwards, engine.model.n_layers * forwards]
+    n_layers = engine.model.n_layers
+    want = [forwards, forwards, forwards, n_layers * forwards, (n_layers + 1) * forwards]
     print(
         f"[10 int8] ups bf16 engine: {len(frames)} frames in {forwards} forwards; launches"
         f" s8 conv {launches[0] + launches[1]} (stage 1 {launches[0]}, four phases"
-        f" {launches[1]}), quantize {launches[2]}, IN+PReLU {launches[3]} (want {want})",
+        f" {launches[1]}), quantize {launches[2]}, IN+PReLU {launches[3]}, IN+add"
+        f" {launches[4]} (want {want})",
         flush=True,
     )
     check(forwards > 0 and launches == want, "int8 launch count mismatch")
@@ -846,14 +914,15 @@ def _train_config(fused: bool, bf16: bool = True):
 
 
 def _run_training_arm(fused: bool, batch: torch.Tensor, card: str) -> list:
-    """20 pretrain + 10 GAN steps; returns the launches of the three kernels."""
+    """20 pretrain + 10 GAN steps; returns the launches of the four kernels."""
     from fast_srgan_torch.kernels.fused_upsample import fused_upsample
-    from fast_srgan_torch.kernels.instance_norm import instance_norm_prelu
+    from fast_srgan_torch.kernels.instance_norm import instance_norm_add, instance_norm_prelu
     from fast_srgan_torch.kernels.pixel_shuffle import pixel_shuffle_phase_major
     from fast_srgan_torch.train.steps import build_bundle
 
     bundle = build_bundle(_train_config(fused), "cuda", torch.Generator().manual_seed(0))
-    counters = (instance_norm_prelu, fused_upsample, pixel_shuffle_phase_major)
+    counters = (instance_norm_prelu, instance_norm_add, fused_upsample,
+                pixel_shuffle_phase_major)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for f in counters:
@@ -874,7 +943,8 @@ def _run_training_arm(fused: bool, batch: torch.Tensor, card: str) -> list:
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     losses = [float(v) for v in losses]
     steps = PRETRAIN_STEPS + GAN_STEPS
-    want = [8 * steps, 2 * steps, 0] if fused else [8 * steps, 0, 2 * steps]
+    # one generator forward a step: 8 + 9 norms, two upsample stages
+    want = [8 * steps, 9 * steps] + ([2 * steps, 0] if fused else [0, 2 * steps])
     # after warm-up: the last half of each step kind
     ms = {k: 1000 * float(np.mean(v[len(v) // 2:])) for k, v in step_s.items()}
     arm = "fused" if fused else "unfused"
@@ -882,8 +952,8 @@ def _run_training_arm(fused: bool, batch: torch.Tensor, card: str) -> list:
         f"[9 training] {arm} upsample: pretrain loss {losses[0]:.5f} -> {losses[-1]:.5f};"
         f" {ms['pretrain']:.2f} ms/pretrain step, {ms['gan']:.2f} ms/GAN step"
         f" (mean of the last half); peak {peak_gib:.2f} GiB; launches IN+PReLU"
-        f" {launches[0]}, fused upsample {launches[1]}, pixel shuffle {launches[2]}"
-        f" (want {want}); {card}",
+        f" {launches[0]}, IN+add {launches[1]}, fused upsample {launches[2]}, pixel"
+        f" shuffle {launches[3]} (want {want}); {card}",
         flush=True,
     )
     last = {k: float(v) for k, v in metrics[-1].items()}
@@ -907,10 +977,11 @@ def phase_training(card: str) -> tuple:
     unfused = _run_training_arm(False, batch, card)
 
     # fp32, TF32 off: one pretrain step from the same state (the same seed
-    # draws the same weights), with the kernels (IN+PReLU, fused upsample)
-    # on the card against the plain path, which the wrappers take on the CPU
+    # draws the same weights), with the kernels (IN+PReLU, IN+add, fused
+    # upsample) on the card against the plain path, which the wrappers take
+    # on the CPU
     from fast_srgan_torch.kernels.fused_upsample import fused_upsample
-    from fast_srgan_torch.kernels.instance_norm import instance_norm_prelu
+    from fast_srgan_torch.kernels.instance_norm import instance_norm_add, instance_norm_prelu
 
     values = []
     with _no_tf32():
@@ -918,10 +989,12 @@ def phase_training(card: str) -> tuple:
             bundle = build_bundle(
                 _train_config(True, bf16=False), device, torch.Generator().manual_seed(0)
             )
-            instance_norm_prelu.launches = fused_upsample.launches = 0
+            counters = (instance_norm_prelu, instance_norm_add, fused_upsample)
+            for f in counters:
+                f.launches = 0
             values.append(float(bundle.pretrain_step(batch.to(device))))
-            got = [instance_norm_prelu.launches, fused_upsample.launches]
-            want = [8, 2] if device == "cuda" else [0, 0]
+            got = [f.launches for f in counters]
+            want = [8, 9, 2] if device == "cuda" else [0, 0, 0]
             check(got == want, f"fp32 parity launches on {device}: {got} != {want}")
     rel = abs(values[0] - values[1]) / abs(values[1])
     print(
@@ -936,7 +1009,7 @@ def phase_training(card: str) -> tuple:
 def main() -> None:
     kind, card = phase_device()
     phase_build()
-    row = phase_kernel()
+    in_rows = phase_kernel()
     up_row = phase_upsample_kernel()
     shuffle_row = phase_shuffle_kernel()
 
@@ -962,20 +1035,25 @@ def main() -> None:
         not any(m.startswith("fast_srgan_tpu") for m in sys.modules),
         "the JAX package was imported",
     )
-    # launches: IN+PReLU from the serving path (phase 4), the s8 conv (stage
-    # 1 and the four-phase launch) and the quantize from the int8 engine
-    # (phase 10), the fused upsample from the fused training arm, the
-    # shuffle from the unfused arm (phase 9). The s8 conv's times are the
-    # four-phase launch's; library_ms is null where no one PyTorch call
-    # computes the kernel's function (cudnn_bf16_ms is a yardstick only)
+    # launches: IN+PReLU and IN+add from the serving path (phase 4), the s8
+    # conv (stage 1 and the four-phase launch) and the quantize from the int8
+    # engine (phase 10), the fused upsample from the fused training arm, the
+    # shuffle from the unfused arm (phase 9). The IN rows' times are the
+    # serving shape's (resident form), two_launch_* the 540x960 frame's;
+    # the s8 conv's are the four-phase launch's. library_ms is null where no
+    # one PyTorch call computes the kernel's function (f_instance_norm_ms
+    # and cudnn_bf16_ms are yardsticks only)
     print(json.dumps({"kernels": [
         {"name": "instance_norm_prelu", "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": KERNEL_REPLACES, "launches": launches, **row},
+         "replaces": KERNEL_REPLACES, "launches": launches[0],
+         **in_rows["instance_norm_prelu"]},
+        {"name": "instance_norm_add", "route": "cuda", "source": KERNEL_SOURCE,
+         "replaces": ADD_REPLACES, "launches": launches[1], **in_rows["instance_norm_add"]},
         {"name": "fused_upsample", "route": "cuda", "source": UPSAMPLE_SOURCE,
-         "replaces": UPSAMPLE_REPLACES, "launches": fused[1], **up_row},
+         "replaces": UPSAMPLE_REPLACES, "launches": fused[2], **up_row},
         {"name": "pixel_shuffle_phase_major", "route": "cuda",
          "source": SHUFFLE_SOURCE, "replaces": SHUFFLE_REPLACES,
-         "launches": unfused[2], **shuffle_row},
+         "launches": unfused[3], **shuffle_row},
         {"name": "int8_conv", "route": "cuda", "source": INT8_CONV_SOURCE,
          "replaces": INT8_CONV_REPLACES, "launches": int8_launches[0] + int8_launches[1],
          "launches_stage1": int8_launches[0], "launches_phases": int8_launches[1],

@@ -5,6 +5,8 @@ from fast_srgan_torch.kernels.fused_upsample import (
     fused_upsample_reference,
 )
 from fast_srgan_torch.kernels.instance_norm import (
+    instance_norm_add,
+    instance_norm_add_reference,
     instance_norm_prelu,
     instance_norm_prelu_reference,
 )
@@ -23,6 +25,8 @@ from fast_srgan_torch.kernels.quantize import quantize_act, quantize_act_referen
 __all__ = [
     "fused_upsample",
     "fused_upsample_reference",
+    "instance_norm_add",
+    "instance_norm_add_reference",
     "instance_norm_prelu",
     "instance_norm_prelu_reference",
     "int8_conv",

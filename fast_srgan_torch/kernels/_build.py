@@ -32,8 +32,9 @@ NVCC_FLAGS = [
 ]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# (x, alpha, out, partial, B, HW, C, tile_px, eps, stream)
-_IN_PRELU = [_P] * 4 + [_I] * 4 + [_F, _P]
+# (x, alpha or skip, out, partial, B, HW, C, grid, per_wave, tile_px, eps,
+#  stream)
+_IN = [_P] * 4 + [_I] * 6 + [_F, _P]
 # (x, weight, bias, alpha, out, B, H, W, C, stream)
 _FUSED_UPSAMPLE = [_P] * 5 + [_I] * 4 + [_P]
 # (x, weight, mult, bias, alpha, rscale, out, B, H, W, Cin, Cout, n_tile, KH,
@@ -48,8 +49,10 @@ _QUANTIZE = [_P] * 3 + [_I, _P]
 #: order: a pointer (and the stream) is c_void_p, or ctypes would pass it as
 #: a 32-bit int. Each returns its launches' cudaError_t as an int.
 ENTRY_POINTS = {
-    "fsr_instance_norm_prelu_bf16": _IN_PRELU,
-    "fsr_instance_norm_prelu_f32": _IN_PRELU,
+    "fsr_instance_norm_prelu_bf16": _IN,
+    "fsr_instance_norm_prelu_f32": _IN,
+    "fsr_instance_norm_add_bf16": _IN,
+    "fsr_instance_norm_add_f32": _IN,
     "fsr_fused_upsample_bf16": _FUSED_UPSAMPLE,
     "fsr_fused_upsample_f32": _FUSED_UPSAMPLE,
     # (x, out, B, H, W, C in bytes, stream)

@@ -1,25 +1,46 @@
-"""Fused instance norm + PReLU: the CUDA kernel and its plain version.
+"""Instance norm + PReLU, and instance norm + residual add: the CUDA kernel
+family and its plain versions.
 
 The port of ``fast_srgan_tpu/kernels/instance_norm.py``. The residual stem
-runs ``conv1 -> InstanceNorm -> PReLU`` in each of its blocks; this op does
-the norm and the PReLU in one kernel family (``csrc/instance_norm.cu``): a
-statistics pass and a normalize pass over a tiled grid, bandwidth-bound,
-two reads and one write of the activation.
+runs ``conv1 -> InstanceNorm -> PReLU -> conv2 -> InstanceNorm -> + x`` in
+each of its blocks, and the bottleneck ``conv -> InstanceNorm -> + long
+skip``. :func:`instance_norm_prelu` serves the 8 norms that feed a PReLU,
+:func:`instance_norm_add` the other 9 (the JAX package computes those as
+``instance_norm_nhwc(y) + x``). Both are one kernel family
+(``csrc/instance_norm.cu``) with two epilogues, in two forms chosen by shape
+(:func:`plan`):
 
-Dispatch follows the tensor: a CPU tensor takes
-:func:`instance_norm_prelu_reference` (the plain composition, the numerical
-contract); a CUDA tensor launches the kernel or raises ``ValueError`` for
-what the kernel does not take. There is no fallback between the two.
+* resident: one cooperative launch, each block keeping its tile on chip
+  from the statistics to the store, so x is read from HBM once;
+* two launches (statistics, then normalize walking back), where a sample's
+  tiles do not fit in the SMs' shared memory.
+
+Dispatch follows the tensor: a CPU tensor takes the plain version (the
+numerical contract); a CUDA tensor launches the kernel or raises
+``ValueError`` for what the kernel does not take. There is no fallback
+between the two.
 """
 
 from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
 
 import torch
 
 from fast_srgan_torch.ops.norm import EPS, instance_norm
 
-#: Pixels per tile of the kernel's grid (gridDim.x = ceil(H*W / TILE_PX)).
+#: Pixels per tile of the two-launch form (gridDim.x = ceil(H*W / TILE_PX)).
 TILE_PX = 1024
+#: Threads of a resident block, at most (a multiple of C / vector width).
+RESIDENT_THREADS = 512
+#: 16-byte vectors a resident thread holds in registers, at most.
+HELD = 8
+#: Fewest pixels a resident tile is cut to (smaller samples take fewer blocks).
+MIN_TILE_PX = 32
+#: Shared memory one block may opt in to on Hopper (227 KB; the kernels are
+#: built for sm_90a only).
+SMEM_LIMIT = 232448
 # 16-byte vectors: values per load, and the most channel groups a block takes.
 _VEC = {torch.bfloat16: 8, torch.float32: 4}
 _MAX_GROUPS = 256
@@ -35,10 +56,40 @@ def instance_norm_prelu_reference(
     return torch.where(y >= 0, y, a * y)
 
 
+def instance_norm_add_reference(x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+    """Plain composition: ``ops.norm.instance_norm(x) + skip`` (JAX's
+    ``instance_norm_nhwc(y) + x``): the normalized value is rounded to x's
+    dtype, then the sum is taken in fp32 and rounded again."""
+    return instance_norm(x, eps=EPS) + skip
+
+
 def check_kernel_inputs(x: torch.Tensor, alpha: torch.Tensor) -> None:
     """Raise ValueError unless the CUDA kernel takes (x, alpha) as they are."""
+    _check_activation(x, "instance_norm_prelu")
+    if alpha.numel() != 1 or alpha.device != x.device:
+        raise ValueError("alpha must be one value on x's device")
+
+
+def check_add_inputs(x: torch.Tensor, skip: torch.Tensor) -> None:
+    """Raise ValueError unless the CUDA kernel takes (x, skip) as they are."""
+    _check_activation(x, "instance_norm_add")
+    if skip.dtype != x.dtype:
+        raise ValueError(f"skip must have x's dtype {x.dtype}, got {skip.dtype}")
+    if skip.shape != x.shape:
+        raise ValueError(
+            f"skip must have x's shape {tuple(x.shape)}, got {tuple(skip.shape)}"
+        )
+    if skip.device != x.device:
+        raise ValueError(f"skip must be on x's device {x.device}, got {skip.device}")
+    if not skip.is_contiguous(memory_format=torch.channels_last):
+        raise ValueError("skip must be contiguous in torch.channels_last")
+    if skip.data_ptr() % 16:
+        raise ValueError("skip must be 16-byte aligned")
+
+
+def _check_activation(x: torch.Tensor, name: str) -> None:
     if x.dtype not in _VEC:
-        raise ValueError(f"instance_norm_prelu takes bf16 or fp32, got {x.dtype}")
+        raise ValueError(f"{name} takes bf16 or fp32, got {x.dtype}")
     if x.dim() != 4:
         raise ValueError(f"x must be [B, C, H, W], got shape {tuple(x.shape)}")
     b, c, h, w = x.shape
@@ -54,45 +105,108 @@ def check_kernel_inputs(x: torch.Tensor, alpha: torch.Tensor) -> None:
         raise ValueError("x must be 16-byte aligned")
     if b > 65535 or b * h * w * c >= 2**31 or b * h * w == 0:
         raise ValueError(f"unsupported size {tuple(x.shape)}")
-    if alpha.numel() != 1 or alpha.device != x.device:
-        raise ValueError("alpha must be one value on x's device")
 
 
-def _launch(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+def resident_smem(c: int, itemsize: int, tile_px: int, waves: int) -> int:
+    """Shared memory of a resident block (csrc/instance_norm.cu
+    ``launch_resident``): a ring of min(waves, 3) tiles of x, and the fp32
+    sums."""
+    groups = c // (16 // itemsize)
+    threads = (RESIDENT_THREADS // groups) * groups
+    rows = threads // groups
+    sums = 2 * c * (rows + 1) + max(4 * threads, 2 * c) + 4 * c
+    return min(waves, 3) * tile_px * c * itemsize + 4 * sums + 16
+
+
+def plan(shape: Tuple[int, int, int, int], itemsize: int, n_sms: int
+         ) -> Optional[Tuple[int, int, int]]:
+    """The resident form's (grid, samples a wave, tile pixels) for a
+    [B, C, H, W] activation, or None where it does not fit: then the two
+    launches run. Both epilogues take the same plan.
+
+    A tile is at most HELD vectors a thread and what shared memory holds.
+    All samples in one wave where their tiles fit (one buffer); else waves
+    of as many samples as the SMs hold with a ring of three tile buffers,
+    each sample cut into the most tiles the SMs allow (at least MIN_TILE_PX
+    pixels each)."""
+    b, c, h, w = shape
+    hw = h * w
+    groups = c // (16 // itemsize)
+    held_px = HELD * (RESIDENT_THREADS // groups)
+    max_tiles = math.ceil(hw / MIN_TILE_PX)
+    if b <= n_sms:
+        tiles = min(n_sms // b, max_tiles)
+        tile_px = math.ceil(hw / tiles)
+        if tile_px <= held_px and resident_smem(c, itemsize, tile_px, 1) <= SMEM_LIMIT:
+            return b * tiles, b, tile_px
+    cap_px = (SMEM_LIMIT - resident_smem(c, itemsize, 0, 3)) // (3 * c * itemsize)
+    cap_px = min(cap_px, held_px)
+    if cap_px < 1 or math.ceil(hw / cap_px) > n_sms:
+        return None
+    per_wave = min(b, n_sms // math.ceil(hw / cap_px))
+    tiles = max(math.ceil(hw / cap_px), min(n_sms // per_wave, max_tiles))
+    tile_px = math.ceil(hw / tiles)
+    if resident_smem(c, itemsize, tile_px, math.ceil(b / per_wave)) > SMEM_LIMIT:
+        return None
+    return per_wave * tiles, per_wave, tile_px
+
+
+_SMS = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _SMS:
+        _SMS[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _SMS[index]
+
+
+def _launch(x: torch.Tensor, other: torch.Tensor, residual: bool) -> torch.Tensor:
+    """One call of the kernel family: ``other`` is the slope (PReLU) or
+    skip (residual add)."""
     from fast_srgan_torch.kernels._build import load_library
 
-    check_kernel_inputs(x, alpha)
     lib = load_library()
     b, c, h, w = x.shape
     hw = h * w
-    tiles = (hw + TILE_PX - 1) // TILE_PX
     with torch.cuda.device(x.device):
+        found = plan((b, c, h, w), x.element_size(), _sm_count(x.device))
+        if found is None:
+            grid, per_wave, tile_px = 0, 0, TILE_PX
+            scratch = b * ((hw + TILE_PX - 1) // TILE_PX) * 2 * c
+        else:
+            grid, per_wave, tile_px = found
+            # 64-bit tagged words (zeroed ahead of the kernel): each tile's
+            # partial sums, then each sample's totals
+            scratch = 2 * b * (grid // per_wave + 1) * 2 * c
         out = torch.empty_like(x, memory_format=torch.channels_last)
-        partial = torch.empty(
-            (b, tiles, 2, c), dtype=torch.float32, device=x.device
-        )
-        a32 = alpha.detach().reshape(1).to(torch.float32).contiguous()
-        fn = (
-            lib.fsr_instance_norm_prelu_bf16 if x.dtype == torch.bfloat16
-            else lib.fsr_instance_norm_prelu_f32
-        )
+        partial = torch.empty(scratch, dtype=torch.float32, device=x.device)
+        bf16 = x.dtype == torch.bfloat16
+        if residual:
+            fn = lib.fsr_instance_norm_add_bf16 if bf16 else lib.fsr_instance_norm_add_f32
+            second = other
+        else:
+            fn = lib.fsr_instance_norm_prelu_bf16 if bf16 else lib.fsr_instance_norm_prelu_f32
+            second = other.detach().reshape(1).to(torch.float32).contiguous()
         err = fn(
-            x.data_ptr(), a32.data_ptr(), out.data_ptr(), partial.data_ptr(),
-            b, hw, c, TILE_PX, EPS,
+            x.data_ptr(), second.data_ptr(), out.data_ptr(), partial.data_ptr(),
+            b, hw, c, grid, per_wave, tile_px, EPS,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
+    name = "instance_norm_add" if residual else "instance_norm_prelu"
     if err:
-        raise RuntimeError(f"instance_norm_prelu launch failed: cudaError {err}")
-    instance_norm_prelu.launches += 1
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    (instance_norm_add if residual else instance_norm_prelu).launches += 1
     return out
 
 
-def _forward(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+def _on_device(x: torch.Tensor, name: str) -> bool:
+    """True for a CUDA tensor (launch), False for a CPU one (plain)."""
     if x.device.type == "cpu":
-        return instance_norm_prelu_reference(x, alpha)
+        return False
     if x.device.type != "cuda":
-        raise ValueError(f"instance_norm_prelu runs on cpu or cuda, not {x.device}")
-    return _launch(x, alpha)
+        raise ValueError(f"{name} runs on cpu or cuda, not {x.device}")
+    return True
 
 
 class InstanceNormPReLUFunction(torch.autograd.Function):
@@ -102,7 +216,10 @@ class InstanceNormPReLUFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, alpha):
         ctx.save_for_backward(x, alpha)
-        return _forward(x, alpha)
+        if not _on_device(x, "instance_norm_prelu"):
+            return instance_norm_prelu_reference(x, alpha)
+        check_kernel_inputs(x, alpha)
+        return _launch(x, alpha, residual=False)
 
     @staticmethod
     def backward(ctx, grad):
@@ -115,12 +232,47 @@ class InstanceNormPReLUFunction(torch.autograd.Function):
         return gx, ga
 
 
+class InstanceNormAddFunction(torch.autograd.Function):
+    """Forward through the kernel; backward differentiates the plain
+    composition ``instance_norm(x) + skip`` (the JAX package has no
+    backward kernel for it either)."""
+
+    @staticmethod
+    def forward(ctx, x, skip):
+        ctx.save_for_backward(x)
+        if not _on_device(x, "instance_norm_add"):
+            return instance_norm_add_reference(x, skip)
+        check_add_inputs(x, skip)
+        return _launch(x, skip, residual=True)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (x,) = ctx.saved_tensors
+        gx = None
+        if ctx.needs_input_grad[0]:
+            with torch.enable_grad():
+                xd = x.detach().requires_grad_(True)
+                y = instance_norm(xd, eps=EPS)
+            (gx,) = torch.autograd.grad(y, xd, grad)
+        return gx, grad
+
+
 def instance_norm_prelu(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
     """Fused IN + PReLU of [B, C, H, W] x with a one-value slope.
 
     ``instance_norm_prelu.launches`` counts the calls that launched the
-    CUDA kernel (one per call: the statistics and normalize kernels)."""
+    CUDA kernel family (one a call, whichever form it took)."""
     return InstanceNormPReLUFunction.apply(x, alpha)
 
 
+def instance_norm_add(x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+    """Fused ``instance_norm(x) + skip`` of [B, C, H, W] x and skip (on
+    CUDA: the same shape, dtype and channels_last layout).
+
+    ``instance_norm_add.launches`` counts the calls that launched the CUDA
+    kernel family (one a call, whichever form it took)."""
+    return InstanceNormAddFunction.apply(x, skip)
+
+
 instance_norm_prelu.launches = 0
+instance_norm_add.launches = 0

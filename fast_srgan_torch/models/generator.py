@@ -5,8 +5,8 @@ The port of ``fast_srgan_tpu/models/generator.py``:
   neck:       Conv 3->F (k3, p1) + PReLU
   stem:       n_layers x ResidualBlock
                 Conv(k3, no bias) -> InstanceNorm+PReLU (fused kernel)
-                -> Conv(no bias) -> InstanceNorm -> + x
-  bottleneck: Conv(no bias) -> InstanceNorm, + long skip
+                -> Conv(no bias) -> InstanceNorm + x (fused kernel)
+  bottleneck: Conv(no bias) -> InstanceNorm + long skip (fused kernel)
   upsampling: log2(scale) x [Conv F->4F (k3) -> PixelShuffle(2) -> PReLU]
                 (fused_upsample=True: one kernel, kernels/fused_upsample.py;
                 else the conv's output channels come out phase-major and the
@@ -31,12 +31,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from fast_srgan_torch.kernels.fused_upsample import fused_upsample
-from fast_srgan_torch.kernels.instance_norm import instance_norm_prelu
+from fast_srgan_torch.kernels.instance_norm import (
+    instance_norm_add,
+    instance_norm_prelu,
+)
 from fast_srgan_torch.kernels.pixel_shuffle import (
     phase_major_index,
     pixel_shuffle_phase_major,
 )
-from fast_srgan_torch.ops.norm import instance_norm
 
 _STAGES = {2: 1, 4: 2, 8: 3}
 
@@ -61,7 +63,7 @@ class ResidualBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = instance_norm_prelu(self.conv1(x), self.relu1.weight)
-        return instance_norm(self.conv2(y)) + x
+        return instance_norm_add(self.conv2(y), x)
 
 
 class UpSamplingBlock(nn.Module):
@@ -126,7 +128,7 @@ class Generator(nn.Module):
         y = residual
         for block in self.stem:
             y = block(y)
-        return instance_norm(self.bottleneck(y)) + residual
+        return instance_norm_add(self.bottleneck(y), residual)
 
     def tail(self, y: torch.Tensor) -> torch.Tensor:
         """The canonical upsampling tail and head on a trunk output."""

@@ -7,9 +7,11 @@ E[x^2]; the variance E[x^2] - E[x]^2 is clamped at 0, because fp32
 cancellation on a near-constant channel can drive it slightly negative and
 rsqrt would return NaN. The output is cast back to the input dtype.
 
-This is the plain op for the norms that feed no PReLU (the second norm of
-each residual block, and the bottleneck's). The 8 norms that feed a PReLU
-go through ``kernels/instance_norm.py``.
+This is the plain op of the discriminator's norms and of the kernels'
+plain versions. The generator's 17 norms go through
+``kernels/instance_norm.py``: the 8 that feed a PReLU through
+``instance_norm_prelu``, the 9 that a residual add follows through
+``instance_norm_add``.
 """
 
 from __future__ import annotations

@@ -44,7 +44,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from fast_srgan_torch.kernels.instance_norm import instance_norm_prelu
+from fast_srgan_torch.kernels.instance_norm import instance_norm_add, instance_norm_prelu
 from fast_srgan_torch.kernels.int8_conv import (
     bias_prelu,
     int8_conv,
@@ -61,7 +61,6 @@ from fast_srgan_torch.ops.lr_tail import (
     _prepared,
     _summed_head,
 )
-from fast_srgan_torch.ops.norm import instance_norm
 from fast_srgan_torch.ops.precision import cudnn_without_tf32
 
 # -- weight quantization ------------------------------------------------------
@@ -354,9 +353,8 @@ def _trunk(lay, ex: _Exec, x: torch.Tensor, n_layers: int) -> torch.Tensor:
     for i in range(n_layers):
         c1 = lay[f"stem_{i}_c1"]
         h = instance_norm_prelu(ex.conv(y, f"stem_{i}_c1", c1), c1["norm_a"])
-        h = instance_norm(ex.conv(h, f"stem_{i}_c2", lay[f"stem_{i}_c2"]))
-        y = y + h
-    return instance_norm(ex.conv(y, "bottleneck", lay["bottleneck"])) + r
+        y = instance_norm_add(ex.conv(h, f"stem_{i}_c2", lay[f"stem_{i}_c2"]), y)
+    return instance_norm_add(ex.conv(y, "bottleneck", lay["bottleneck"]), r)
 
 
 def _tail_4x(lay, ex: _Exec, y: torch.Tensor, n0: str = "up0", n1: str = "up1"):

@@ -8,6 +8,11 @@ fixture, never at import). On a machine with a card and nvcc:
 Tolerances are chip_smoke.py's. IN+PReLU: fp32 max-abs 2e-5, bf16 max-abs
 2e-2 (bf16 inputs are uniform so normalized values stay below 4, where 2e-2
 exceeds one bf16 ulp), and finite outputs for the near-constant clamp case.
+IN + residual add: fp32 2e-5, bf16 3e-2 with |skip| <= 1 (one ulp of the
+normalized value in [1, 2) plus one of the sum in [2, 4)). Both epilogues
+run in both forms of the kernel: the resident one (the serving shape in
+bf16, the ragged and narrow shapes) and the two launches (fp32 at the
+serving shape, bf16 at 540x960).
 Fused upsample: fp32 5e-5 with TF32 off; bf16 3e-2 with |y| < 4 (1.5 bf16
 ulps: the plain version rounds after the conv and again after the bias).
 Pixel shuffle: bitwise. int8 activation quantize and s8 x s8 -> s32 conv
@@ -22,8 +27,11 @@ import pytest
 import torch
 
 from fast_srgan_torch.kernels.instance_norm import (
+    instance_norm_add,
+    instance_norm_add_reference,
     instance_norm_prelu,
     instance_norm_prelu_reference,
+    plan,
 )
 
 pytestmark = pytest.mark.cuda
@@ -49,9 +57,24 @@ def _activation(device, shape, dtype, seed):
     return x.contiguous(memory_format=torch.channels_last)
 
 
-@pytest.mark.parametrize(
-    "shape", [(8, 64, 180, 320), (1, 64, 37, 53), (3, 16, 1, 1023)]
-)
+_IN_SHAPES = [(8, 64, 180, 320), (1, 64, 37, 53), (3, 16, 1, 1023), (1, 64, 540, 960)]
+
+
+def _skip(device, shape, dtype, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    s = (torch.rand(shape, device=device, generator=gen) * 2 - 1).to(dtype)
+    return s.contiguous(memory_format=torch.channels_last)
+
+
+def test_both_forms_are_planned(device):
+    """The shapes below reach both forms of the kernel family."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    assert plan((8, 64, 180, 320), 2, sms) is not None  # resident
+    assert plan((1, 64, 540, 960), 2, sms) is None  # two launches
+    assert plan((8, 64, 180, 320), 4, sms) is None
+
+
+@pytest.mark.parametrize("shape", _IN_SHAPES)
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 2e-5)])
 def test_kernel_matches_plain(device, shape, dtype, tol):
     x = _activation(device, shape, dtype, seed=sum(shape))
@@ -66,14 +89,32 @@ def test_kernel_matches_plain(device, shape, dtype, tol):
     assert (got.float() - want.float()).abs().max().item() <= tol
 
 
+@pytest.mark.parametrize("shape", _IN_SHAPES)
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 3e-2), (torch.float32, 2e-5)])
+def test_add_kernel_matches_plain(device, shape, dtype, tol):
+    x = _activation(device, shape, dtype, seed=sum(shape) + 1)
+    skip = _skip(device, shape, dtype, seed=sum(shape) + 2)
+    before = instance_norm_add.launches
+    got = instance_norm_add(x, skip)
+    want = instance_norm_add_reference(x, skip)
+    torch.cuda.synchronize()
+    assert instance_norm_add.launches == before + 1
+    assert got.dtype == dtype and got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    assert torch.equal(instance_norm_add(x, skip), got)  # deterministic
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 37, 53), (1, 64, 540, 960)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_near_constant_is_finite(device, dtype):
+def test_near_constant_is_finite(device, shape, dtype):
     gen = torch.Generator(device=device).manual_seed(0)
-    x = 40.0 + 1e-4 * torch.randn((2, 64, 37, 53), device=device, generator=gen)
+    x = 40.0 + 1e-4 * torch.randn(shape, device=device, generator=gen)
     x = x.to(dtype).contiguous(memory_format=torch.channels_last)
     out = instance_norm_prelu(x, torch.tensor([0.25], device=device))
+    out_add = instance_norm_add(x, torch.ones_like(x))
     torch.cuda.synchronize()
-    assert torch.isfinite(out).all()
+    assert torch.isfinite(out).all() and torch.isfinite(out_add).all()
 
 
 def test_bf16_slope_is_read_on_device(device):
@@ -89,6 +130,22 @@ def test_rejects_unsupported_channels(device):
     with pytest.raises(ValueError, match="C=12"):
         instance_norm_prelu(x.contiguous(memory_format=torch.channels_last),
                             torch.zeros(1, device=device))
+
+
+def test_add_rejects(device):
+    x = _activation(device, (2, 64, 5, 7), torch.bfloat16, seed=0)
+    with pytest.raises(ValueError, match="x's dtype"):
+        instance_norm_add(x, x.float())
+    with pytest.raises(ValueError, match="x's shape"):
+        instance_norm_add(x, x[:1])
+    with pytest.raises(ValueError, match="x must be contiguous"):
+        instance_norm_add(x.contiguous(), x)
+    with pytest.raises(ValueError, match="skip must be contiguous"):
+        instance_norm_add(x, x.contiguous())
+    with pytest.raises(ValueError, match="x's device"):
+        instance_norm_add(x, x.cpu())
+    with pytest.raises(ValueError, match="bf16 or fp32"):
+        instance_norm_add(x.half(), x.half())
 
 
 def test_gradient_matches_cpu(device):
@@ -113,9 +170,10 @@ def test_engine_fp32_card_matches_cpu(device):
     image = np.random.default_rng(1).integers(0, 256, (24, 40, 3), dtype=np.uint8)
     card = SRInferenceEngine(params, device=device, dtype=torch.float32)
     cpu = SRInferenceEngine(params, device="cpu", dtype=torch.float32)
-    before = instance_norm_prelu.launches
+    before = [instance_norm_prelu.launches, instance_norm_add.launches]
     a = card.upscale_images([image])[0].astype(np.int16)
-    assert instance_norm_prelu.launches - before == 8
+    assert [instance_norm_prelu.launches, instance_norm_add.launches] == [
+        before[0] + 8, before[1] + 9]
     b = cpu.upscale_images([image])[0].astype(np.int16)
     assert np.abs(a - b).max() <= 1
 
@@ -248,14 +306,15 @@ def test_generator_launch_counts(device, fused):
     x = torch.rand((2, 3, 24, 24), device=device).contiguous(
         memory_format=torch.channels_last
     )
-    counters = (instance_norm_prelu, fused_upsample, pixel_shuffle_phase_major)
+    counters = (instance_norm_prelu, instance_norm_add, fused_upsample,
+                pixel_shuffle_phase_major)
     before = [f.launches for f in counters]
     with torch.autocast("cuda", dtype=torch.bfloat16):
         out = model(x)
     out.float().mean().backward()
     torch.cuda.synchronize()
     got = [f.launches - b for f, b in zip(counters, before)]
-    assert got == ([8, 2, 0] if fused else [8, 0, 2])
+    assert got == ([8, 9, 2, 0] if fused else [8, 9, 0, 2])
     assert out.shape == (2, 3, 96, 96) and torch.isfinite(out).all()
 
 
@@ -425,11 +484,12 @@ def test_int8_engine_launches_and_matches_cpu(device):
                              calib_batches=[images])
     cpu = SRInferenceEngine(params, device="cpu", dtype=torch.float32, quantize=True,
                             act_scales={k: v.cpu() for k, v in card.act_scales.items()})
-    counters = (int8_conv, int8_conv_phases, quantize_act, instance_norm_prelu)
+    counters = (int8_conv, int8_conv_phases, quantize_act, instance_norm_prelu,
+                instance_norm_add)
     before = [f.launches for f in counters]
     a = card.upscale_batch(images).astype(np.int16)
     # stage 1 quantizes stage 2's input; the four phases are one launch
-    assert [f.launches - n for f, n in zip(counters, before)] == [1, 1, 1, 8]
+    assert [f.launches - n for f, n in zip(counters, before)] == [1, 1, 1, 8, 9]
     b = cpu.upscale_batch(images).astype(np.int16)
     diff = np.abs(a - b)  # the bounded-flip contract, fp32 glue
     assert diff.max() <= 3 and (diff > 1).mean() < 0.02

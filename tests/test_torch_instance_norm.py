@@ -1,10 +1,17 @@
-"""The port's fused IN+PReLU (fast_srgan_torch/kernels) against the JAX package.
+"""The port's fused IN+PReLU and IN+residual add (fast_srgan_torch/kernels)
+against the JAX package.
 
-On the CPU the port's op takes its plain version, so these tests hold that
-plain version (the kernel's numerical contract) to the JAX reference and to
-the two Pallas kernels in interpret mode, at fp32, to atol 1e-5. The CUDA
-kernel itself is checked on the card (tests/test_torch_cuda_kernels.py,
-chip_smoke.py).
+On the CPU the port's ops take their plain versions, so these tests hold
+those plain versions (the kernels' numerical contract) to the JAX reference
+and to the two Pallas kernels in interpret mode: IN+PReLU at fp32 to atol
+1e-5; IN+add (JAX's ``instance_norm_nhwc(y) + x``) at fp32 to 2e-5, and in
+bf16 to 3e-2 (one bf16 ulp of the normalized value in [1, 2) plus one of
+the sum in [2, 4), |skip| <= 1), with its gradients against ``jax.vjp``.
+The shape dispatch between the kernels' resident and two-launch forms is
+checked here too; the CUDA kernels themselves are checked on the card
+(tests/test_torch_cuda_kernels.py, chip_smoke.py).
+
+    JAX_PLATFORMS=cpu python -m pytest tests/test_torch_instance_norm.py -q
 """
 
 import jax
@@ -24,9 +31,17 @@ from fast_srgan_tpu.kernels.instance_norm import (
 from fast_srgan_tpu.ops.norm import instance_norm_nhwc
 from fast_srgan_torch.kernels import _build
 from fast_srgan_torch.kernels.instance_norm import (
+    HELD,
+    RESIDENT_THREADS,
+    SMEM_LIMIT,
+    check_add_inputs,
     check_kernel_inputs,
+    instance_norm_add,
+    instance_norm_add_reference,
     instance_norm_prelu,
     instance_norm_prelu_reference,
+    plan,
+    resident_smem,
 )
 from fast_srgan_torch.ops.norm import instance_norm
 
@@ -164,6 +179,173 @@ class TestKernelContract:
         x = torch.empty((1, 64, 4, 4), device="meta")
         with pytest.raises(ValueError, match="cpu or cuda"):
             instance_norm_prelu(x, torch.empty(1, device="meta"))
+
+
+def _add_inputs(seed, shape=SHAPE, dist="normal"):
+    """x with per-channel shifts and a skip, from a local generator."""
+    rng = np.random.default_rng(seed)
+    if dist == "normal":
+        x = rng.standard_normal(shape) * 3 + rng.uniform(-2, 2, shape[-1])
+        skip = rng.standard_normal(shape)
+    else:  # |x|, |skip| <= 1: the bf16 bar's regime
+        x = rng.uniform(-1, 1, shape) * rng.uniform(0.5, 1, shape[-1])
+        skip = rng.uniform(-1, 1, shape)
+    return x.astype(np.float32), skip.astype(np.float32)
+
+
+class TestAddPlainVersusJax:
+    @pytest.mark.parametrize("seed", [0, 1])
+    def test_fp32_matches_jax(self, seed):
+        x, skip = _add_inputs(seed)
+        want = np.asarray(instance_norm_nhwc(jnp.asarray(x)) + jnp.asarray(skip))
+        got = _nhwc(instance_norm_add_reference(_nchw(x), _nchw(skip)))
+        np.testing.assert_allclose(got, want, atol=2e-5)
+
+    def test_bf16_keeps_dtype_and_rounds_twice(self):
+        x, skip = _add_inputs(5, dist="uniform")
+        xt, st = _nchw(x).to(torch.bfloat16), _nchw(skip).to(torch.bfloat16)
+        got = instance_norm_add_reference(xt, st)
+        assert got.dtype == torch.bfloat16
+        # the normalized value rounded to bf16, then the fp32 sum rounded
+        assert torch.equal(got, (instance_norm(xt).float() + st.float()).to(torch.bfloat16))
+        xj, sj = jnp.asarray(x, jnp.bfloat16), jnp.asarray(skip, jnp.bfloat16)
+        want = np.asarray(instance_norm_nhwc(xj) + sj, np.float32)
+        np.testing.assert_allclose(_nhwc(got.float()), want, atol=3e-2)
+
+    def test_public_op_is_plain_on_cpu(self):
+        x, skip = _add_inputs(2)
+        xt, st = _nchw(x), _nchw(skip)
+        before = instance_norm_add.launches
+        out = instance_norm_add(xt, st)
+        assert instance_norm_add.launches == before  # no kernel on the CPU
+        assert torch.equal(out, instance_norm_add_reference(xt, st))
+
+    def test_near_constant_input_is_finite(self):
+        x = np.full((1, 16, 16, 64), 40.0, np.float32)
+        x += np.random.default_rng(11).normal(0, 1e-4, x.shape).astype(np.float32)
+        out = instance_norm_add(_nchw(x), _nchw(np.ones_like(x)))
+        assert torch.isfinite(out).all()
+
+
+class TestAddGradient:
+    @pytest.mark.parametrize("seed", [0, 1, 2, 3])
+    def test_matches_jax_vjp(self, seed):
+        rng = np.random.default_rng(seed)
+        x, skip, g = (rng.standard_normal((1, 6, 6, 8)).astype(np.float32) for _ in range(3))
+        _, vjp = jax.vjp(
+            lambda a, b: instance_norm_nhwc(a) + b, jnp.asarray(x), jnp.asarray(skip)
+        )
+        gx_want, gs_want = vjp(jnp.asarray(g))
+        xt = _nchw(x).requires_grad_(True)
+        st = _nchw(skip).requires_grad_(True)
+        instance_norm_add(xt, st).backward(_nchw(g))
+        np.testing.assert_allclose(_nhwc(xt.grad), np.asarray(gx_want), rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(_nhwc(st.grad), np.asarray(gs_want), rtol=1e-5)
+
+
+class TestAddContract:
+    """What the CUDA wrapper refuses for the residual form."""
+
+    def _x(self, dtype=torch.bfloat16, shape=(2, 64, 5, 7)):
+        return torch.zeros(shape, dtype=dtype).contiguous(memory_format=torch.channels_last)
+
+    def test_accepts_matching_pair(self):
+        check_add_inputs(self._x(), self._x())
+        check_add_inputs(self._x(torch.float32, (2, 16, 1, 9)), self._x(torch.float32, (2, 16, 1, 9)))
+
+    @pytest.mark.parametrize(
+        "case,match",
+        [
+            ("dtype", "x's dtype"),
+            ("shape", "x's shape"),
+            ("nchw x", "x must be contiguous in torch.channels_last"),
+            ("nchw skip", "skip must be contiguous in torch.channels_last"),
+        ],
+    )
+    def test_rejects(self, case, match):
+        x, skip = self._x(), self._x()
+        if case == "dtype":
+            skip = self._x(torch.float32)
+        elif case == "shape":
+            skip = self._x(shape=(2, 64, 5, 8))
+        elif case == "nchw x":
+            x = torch.zeros((2, 64, 5, 7), dtype=torch.bfloat16)
+        else:
+            skip = torch.zeros((2, 64, 5, 7), dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match=match):
+            check_add_inputs(x, skip)
+
+    def test_other_devices_raise(self):
+        x = torch.empty((1, 64, 4, 4), device="meta")
+        with pytest.raises(ValueError, match="cpu or cuda"):
+            instance_norm_add(x, torch.empty((1, 64, 4, 4), device="meta"))
+
+
+class TestPlan:
+    """The explicit shape dispatch between the resident and two-launch
+    forms, on an H100's 132 SMs (both epilogues take the same plan)."""
+
+    def test_serving_bf16_is_resident(self):
+        # one sample a wave, 132 tiles of 437 of its 57,600 pixels
+        assert plan((8, 64, 180, 320), 2, 132) == (132, 1, 437)
+
+    def test_training_batch_is_one_wave(self):
+        assert plan((24, 64, 24, 24), 2, 132) == (120, 24, 116)
+
+    @pytest.mark.parametrize("shape,itemsize", [((1, 64, 540, 960), 2), ((8, 64, 180, 320), 4)])
+    def test_large_samples_take_two_launches(self, shape, itemsize):
+        assert plan(shape, itemsize, 132) is None
+
+    @pytest.mark.parametrize("itemsize", [2, 4])
+    def test_every_plan_fits_and_covers(self, itemsize):
+        for b in (1, 2, 3, 8, 24, 200):
+            for c in (16, 64, 256):
+                for h, w in ((1, 1), (1, 1023), (37, 53), (24, 24), (90, 160), (180, 320)):
+                    found = plan((b, c, h, w), itemsize, 132)
+                    if found is None:
+                        continue
+                    grid, per_wave, tile_px = found
+                    tiles = grid // per_wave
+                    waves = -(-b // per_wave)
+                    assert grid <= 132 and grid == per_wave * tiles and per_wave <= b
+                    assert tiles * tile_px >= h * w
+                    assert resident_smem(c, itemsize, tile_px, waves) <= SMEM_LIMIT
+                    groups = c * itemsize // 16
+                    assert tile_px * groups <= HELD * (RESIDENT_THREADS // groups) * groups
+
+
+class TestCallSites:
+    """The generator's 9 residual-add norms go through instance_norm_add."""
+
+    def _count(self, monkeypatch, module):
+        calls = []
+        wrapper = module.instance_norm_add
+
+        def counting(x, skip):
+            calls.append(x.shape)
+            return wrapper(x, skip)
+
+        monkeypatch.setattr(module, "instance_norm_add", counting)
+        return calls
+
+    def test_generator(self, monkeypatch):
+        from fast_srgan_torch.models import generator as generator_module
+
+        calls = self._count(monkeypatch, generator_module)
+        model = generator_module.Generator(n_filters=8, n_layers=3)
+        x = torch.rand((1, 3, 6, 7)).contiguous(memory_format=torch.channels_last)
+        with torch.no_grad():
+            model(x)
+        assert len(calls) == 3 + 1
+
+    def test_int8_executor_trunk(self, monkeypatch):
+        from fast_srgan_torch import quant
+        from test_torch_generator import random_params
+
+        calls = self._count(monkeypatch, quant)
+        plan_ = quant.prepare_generator(random_params(8, 2, 4), device="cpu")
+        quant.sr_float_forward(plan_, torch.rand((1, 3, 6, 7)) * 2 - 1)
+        assert len(calls) == 2 + 1
 
 
 class TestBuild:
