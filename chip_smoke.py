@@ -23,20 +23,26 @@ own line; any failure exits non-zero and prints no result:
      card's bf16 replies against its fp32 ones (PSNR);
   6. throughput: 180x320 -> 720p bf16 frames/s over 200 frames staged on
      the card (an indicative number, not a benchmark);
-  7. kernel: the fused conv + bias + PixelShuffle + PReLU upsample against
-     its plain version, bf16 and fp32, at the two training stages, the
-     serving stage 1 and a ragged shape; timed at the large shapes; its
-     gradients through the autograd Function against the plain ones;
+  7. kernel: the fused conv + bias + PixelShuffle + PReLU upsample (its
+     ptxas line first) against its plain version, and its pre-activation
+     form (the backward's z) against conv + bias + shuffle, bf16 and fp32,
+     at the two training stages, the serving stage 1, a ragged shape and
+     C = 16; timed in bf16 and fp32 at the three large shapes, with TFLOP/s
+     and share of bound, beside a bf16 cuDNN conv + bias alone at the same
+     shape as the yardstick; its gradients through the autograd Function
+     against the plain ones, in fp32 and in bf16 under autocast;
   8. kernel: the phase-major pixel shuffle, bitwise against its plain
-     version, timed; and the unfused upsample stage as the generator runs
-     it (phase-major conv + the shuffle kernel + PReLU) against conv +
-     F.pixel_shuffle + PReLU in torch channel order, forward and
-     forward+backward, at the training stages and serving stage 1;
+     version, timed; and the upsample stage as the generator runs it:
+     unfused (phase-major conv + the shuffle kernel + PReLU) against conv +
+     F.pixel_shuffle + PReLU in torch channel order, and the fused block,
+     forward and forward+backward, at the training stages and serving
+     stage 1;
   9. training: the reference configuration (64/8 4x generator, 64-filter
      discriminator, VGG19 with fixed-seed weights, batch 24 of 96x96 crops,
      bf16 autocast): 20 pretrain steps (the loss must fall) and 10 GAN steps
      (finite metrics), once with the fused upsample and once unfused (conv +
-     the shuffle kernel); exact launch counts; ms per step and peak memory;
+     the shuffle kernel); exact launch counts (the fused upsample's
+     backward launches among them); ms per step and peak memory;
      and one fp32 pretrain step from the same state with the kernels on the
      card against the plain path on the CPU, losses within 1e-5;
  10. int8: the activation-quantize and s8 x s8 -> s32 conv kernels, bitwise
@@ -207,6 +213,20 @@ def phase_device() -> tuple:
     return kind, card
 
 
+def _ptxas_lines(name: str) -> list:
+    """ptxas -v's lines for the kernels whose mangled name holds ``name``."""
+    from fast_srgan_torch.kernels import _build
+
+    lines, kernel = [], None
+    for line in (_build.build_log or "").splitlines():
+        if "Compiling entry function" in line:
+            kernel = line.split("'")[1] if name in line else None
+        elif kernel and ("registers" in line or "spill" in line or "C75" in line
+                         or "warning" in line):
+            lines.append(f"{kernel}: {line.strip()}")
+    return lines
+
+
 def phase_build() -> None:
     from fast_srgan_torch.kernels import _build
 
@@ -215,12 +235,8 @@ def phase_build() -> None:
     print(f"[2 build] nvcc {' '.join(_build.NVCC_FLAGS)}: {time.perf_counter() - t0:.1f} s",
           flush=True)
     # ptxas -v, one line a kernel: its name, registers and spills
-    kernel = None
-    for line in (_build.build_log or "").splitlines():
-        if "Compiling entry function" in line:
-            kernel = line.split("'")[1]
-        elif kernel and ("registers" in line or "spill" in line or "C7513" in line):
-            print(f"[2 build] ptxas {kernel}: {line.strip()}", flush=True)
+    for line in _ptxas_lines(""):
+        print(f"[2 build] ptxas {line}", flush=True)
 
 
 def phase_kernel() -> dict:
@@ -744,82 +760,139 @@ def phase_int8_throughput(params, frames, card: str) -> None:
         )
 
 
-def phase_upsample_kernel() -> dict:
+def phase_upsample_kernel(card: str) -> dict:
+    import torch.nn.functional as F
+
     from fast_srgan_torch.kernels.fused_upsample import (
+        _launch,
         fused_upsample,
         fused_upsample_reference,
+        launch_prepared,
+        prepare,
+        upsample_preact_reference,
     )
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
+    for line in _ptxas_lines("fused_upsample"):
+        print(f"[7 kernel] ptxas {line}", flush=True)
 
-    def args(shape, dtype):
+    def args(shape, dtype, c4=256):
         # x uniform in [-1, 1], weights of std 0.04: |y| < 4 at every shape
         x = (torch.rand(shape, device=dev, generator=gen) * 2 - 1).to(dtype)
-        w = torch.randn((256, 64, 3, 3), device=dev, generator=gen) * 0.04
-        b = (torch.rand(256, device=dev, generator=gen) - 0.5) * 0.2
+        w = torch.randn((c4, 64, 3, 3), device=dev, generator=gen) * 0.04
+        b = (torch.rand(c4, device=dev, generator=gen) - 0.5) * 0.2
         a = torch.tensor([0.173], device=dev)
         return x.contiguous(memory_format=torch.channels_last), w, b, a
 
-    row = None
-    for label, shape, timed in [
-        ("train stage 1", (24, 64, 24, 24), False),
-        ("train stage 2", (24, 64, 48, 48), True),
-        ("serving stage 1", (8, 64, 180, 320), True),
-        ("ragged", (1, 64, 37, 53), False),
+    row = {}
+    for label, shape, c4, timed in [
+        ("train stage 1", (24, 64, 24, 24), 256, True),
+        ("train stage 2", (24, 64, 48, 48), 256, True),
+        ("serving stage 1", (8, 64, 180, 320), 256, True),
+        ("ragged", (1, 64, 37, 53), 256, False),
+        ("C=16", (3, 64, 37, 53), 64, False),
     ]:
         for dtype, tol in ((torch.bfloat16, UPSAMPLE_BF16_TOL),
                            (torch.float32, UPSAMPLE_FP32_TOL)):
-            a = args(shape, dtype)
+            a = args(shape, dtype, c4)
             with _no_tf32():
                 got = fused_upsample(*a)
                 want = fused_upsample_reference(*a)
+                z = _launch(*a, prelu=False)
+                z_want = upsample_preact_reference(*a[:3])
                 torch.cuda.synchronize()
                 b, _, h, w = shape
-                check(got.dtype == dtype and got.shape == (b, 64, 2 * h, 2 * w),
+                check(got.dtype == dtype and got.shape == (b, c4 // 4, 2 * h, 2 * w),
                       f"upsample {label}: bad output")
                 check(got.is_contiguous(memory_format=torch.channels_last),
                       f"upsample {label}: layout")
                 check(bool(torch.isfinite(got).all()), f"upsample {label}: non-finite")
                 err = (got.float() - want.float()).abs().max().item()
-                ms = plain_ms = None
+                z_err = (z.float() - z_want.float()).abs().max().item()
+                line = (f"[7 kernel] fused upsample {label} {'bf16' if dtype == torch.bfloat16 else 'fp32'}"
+                        f" {list(shape)} -> 4C={c4}: max_abs_err {err:.3e}, pre-activation form"
+                        f" {z_err:.3e} (tol {tol:g})")
                 if timed:
+                    # the kernel alone on prepared parameters, and the call
+                    # (prepare's gather and casts + the kernel) as training
+                    # makes it every step
+                    params = prepare(*a[1:], dtype)
                     ms, plain_ms = _timed_pair(
-                        lambda: fused_upsample(*a), lambda: fused_upsample_reference(*a)
+                        lambda: launch_prepared(a[0], params), lambda: fused_upsample_reference(*a)
                     )
-            name = "bf16" if dtype == torch.bfloat16 else "fp32"
-            print(
-                f"[7 kernel] fused upsample {label} {name} {list(shape)}: max_abs_err"
-                f" {err:.3e} (tol {tol:g})"
-                + (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms" if ms else ""),
-                flush=True,
-            )
-            check(err <= tol, f"upsample {label} {name}: max_abs_err {err} > {tol}")
-            if label == "train stage 2" and dtype == torch.bfloat16:
-                b, c, h, w = shape
-                nbytes = sum(t.numel() * t.element_size() for t in (*a, got))
-                row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
-                       **bound(nbytes, 2 * b * h * w * c * 9 * 256, BF16_FLOPS)}
+                    call_ms = cuda_ms(lambda: fused_upsample(*a), 20)
+                    flops = 2 * b * h * w * 64 * 9 * c4
+                    nbytes = sum(t.numel() * t.element_size() for t in (*a, got))
+                    peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+                    bnd = bound(nbytes, flops, peak)
+                    line += (f"; kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s,"
+                             f" {100 * bnd['bound_ms'] / ms:.1f}% of its {bnd['bound_ms']:.4f} ms"
+                             f" bound ({bnd['bound_by']})); the call with its parameter"
+                             f" gather {call_ms:.4f} ms; plain {plain_ms:.4f} ms")
+                    if dtype == torch.bfloat16:
+                        # the yardstick: a bf16 cuDNN conv + bias alone at the
+                        # same shape (not the same function: no shuffle, no PReLU)
+                        wy = a[1].to(dtype).contiguous(memory_format=torch.channels_last)
+                        by = a[2].to(dtype)
+                        yard = cuda_ms(lambda: F.conv2d(a[0], wy, by, padding=1), 20)
+                        line += f"; bf16 cuDNN conv + bias {yard:.4f} ms ({card})"
+                        key = {"train stage 1": "stage1", "train stage 2": "",
+                               "serving stage 1": "serving"}[label]
+                        pre = key + "_" if key else ""
+                        row.update({f"{pre}ms": ms, f"{pre}plain_ms": plain_ms,
+                                    f"{pre}call_ms": call_ms, f"{pre}cudnn_bf16_ms": yard})
+                        if key:
+                            row[f"{pre}bound_ms"] = bnd["bound_ms"]
+                        else:
+                            row.update({"max_abs_err": err, "library_ms": None, **bnd})
+            print(line, flush=True)
+            check(err <= tol, f"upsample {label}: max_abs_err {err} > {tol}")
+            check(z_err <= tol, f"upsample {label} pre-activation: max_abs_err {z_err} > {tol}")
 
-    # gradients through the Function against the plain composition's (fp32)
+    # Gradients through the Function against the plain composition's. fp32:
+    # rtol 1e-5 of each one's max-abs. bf16 x with fp32 parameters under
+    # autocast, as training runs it: the plain version rounds z twice, the
+    # kernel once, so near z = 0 their signs differ and so do dz's there;
+    # both are held to the fp32 gradients of the same inputs, the kernel's
+    # error within 1.25x the plain version's plus one bf16 ulp (4e-3) of
+    # each one's max-abs.
+    def grads(op, base, g, autocast):
+        leaves = [t.detach().clone().requires_grad_(True) for t in base]
+        with _no_tf32(), torch.autocast("cuda", torch.bfloat16, enabled=autocast):
+            y = op(*leaves)
+        with _no_tf32():
+            y.backward(g)
+        return [t.grad.float() for t in leaves]
+
+    def rel(got, want):
+        return [((k - p).abs().max() / p.abs().max()).item() for k, p in zip(got, want)]
+
     base = args((2, 64, 24, 24), torch.float32)
     g = torch.randn((2, 64, 48, 48), device=dev, generator=gen)
-    grads = []
-    for op in (fused_upsample, fused_upsample_reference):
-        leaves = [t.detach().clone().requires_grad_(True) for t in base]
-        with _no_tf32():
-            op(*leaves).backward(g.contiguous(memory_format=torch.channels_last))
-        grads.append([t.grad for t in leaves])
-    rel = max(
-        ((k - p).abs().max() / p.abs().max()).item() for k, p in zip(*grads)
-    )
-    print(f"[7 kernel] fused upsample gradients vs plain: max rel {rel:.3e}"
-          f" (rtol {GRAD_RTOL:g})", flush=True)
-    check(rel <= GRAD_RTOL, f"upsample gradients differ: {rel}")
+    g = g.contiguous(memory_format=torch.channels_last)
+    r = rel(grads(fused_upsample, base, g, False), grads(fused_upsample_reference, base, g, False))
+    print(f"[7 kernel] fused upsample gradients vs plain, fp32: max rel (dx, dW, db, dalpha)"
+          f" {', '.join(f'{v:.3e}' for v in r)} (rtol {GRAD_RTOL:g})", flush=True)
+    check(max(r) <= GRAD_RTOL, f"upsample gradients fp32 differ: {r}")
+
+    base = args((4, 64, 24, 24), torch.bfloat16)
+    g = torch.randn((4, 64, 48, 48), device=dev, generator=gen).to(torch.bfloat16)
+    g = g.contiguous(memory_format=torch.channels_last)
+    truth = grads(fused_upsample_reference, [base[0].float(), *base[1:]], g.float(), False)
+    kernel = grads(fused_upsample, base, g, True)
+    plain = grads(fused_upsample_reference, base, g, True)
+    rk, rp = rel(kernel, truth), rel(plain, truth)
+    print(f"[7 kernel] fused upsample gradients, bf16 under autocast, against fp32 ones: max"
+          f" rel (dx, dW, db, dalpha) kernel {', '.join(f'{v:.3e}' for v in rk)}; plain"
+          f" {', '.join(f'{v:.3e}' for v in rp)}; kernel vs plain"
+          f" {', '.join(f'{v:.3e}' for v in rel(kernel, plain))}", flush=True)
+    check(all(k <= 1.25 * p + 4e-3 for k, p in zip(rk, rp)),
+          f"upsample bf16 gradients: kernel {rk} against plain {rp}")
     return row
 
 
-def phase_shuffle_kernel() -> dict:
+def phase_shuffle_kernel() -> tuple:
     from fast_srgan_torch.kernels.pixel_shuffle import (
         pixel_shuffle_phase_major,
         pixel_shuffle_phase_major_reference,
@@ -850,15 +923,17 @@ def phase_shuffle_kernel() -> dict:
             flush=True,
         )
         check(equal, f"pixel shuffle {list(shape)} differs from its plain version")
-    _unfused_stage_forms()
-    return row
+    return row, _unfused_stage_forms()
 
 
-def _unfused_stage_forms() -> None:
-    """The unfused upsample stage as the generator runs it against conv +
-    F.pixel_shuffle + PReLU in torch channel order, on one block's weights:
-    forward and forward+backward at the training stages (fp32 parameters,
-    bf16 autocast) and forward at serving stage 1 (bf16 parameters)."""
+def _unfused_stage_forms() -> dict:
+    """The upsample stage as the generator runs it, on one block's weights:
+    unfused (phase-major conv + the shuffle kernel + PReLU) against conv +
+    F.pixel_shuffle + PReLU in torch channel order, and the fused block (the
+    kernel, its wrapper's per-call weight gather included) beside it.
+    Forward and forward+backward at the training stages (fp32 parameters,
+    bf16 autocast), forward at serving stage 1 (bf16 parameters). Returns
+    {label: {form: ms}}."""
     import torch.nn.functional as F
 
     from fast_srgan_torch.models.generator import UpSamplingBlock, prelu
@@ -866,40 +941,51 @@ def _unfused_stage_forms() -> None:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(5)
     torch.manual_seed(5)
+    times = {}
     for label, shape, train in [
         ("train stage 1", (24, 64, 24, 24), True),
         ("train stage 2", (24, 64, 48, 48), True),
         ("serving stage 1", (8, 64, 180, 320), False),
     ]:
         block = UpSamplingBlock(64).to(dev, memory_format=torch.channels_last)
+        fused = UpSamplingBlock(64, fused=True).to(dev, memory_format=torch.channels_last)
+        fused.load_state_dict(block.state_dict())
         if not train:
-            block = block.to(torch.bfloat16)
+            block, fused = block.to(torch.bfloat16), fused.to(torch.bfloat16)
         x = (torch.rand(shape, device=dev, generator=gen) * 2 - 1).to(torch.bfloat16)
         x = x.contiguous(memory_format=torch.channels_last).requires_grad_(train)
-        leaves = [x, *block.parameters()]
 
         def torch_order(x):
             return prelu(F.pixel_shuffle(block.conv(x), 2), block.relu.weight)
 
-        def run(form, backward):
+        def run(form, backward, params):
             with torch.autocast("cuda", torch.bfloat16, enabled=train, cache_enabled=False):
                 y = form(x)
             if not backward:
                 return y
             g = torch.ones_like(y)
-            return torch.autograd.grad(y, leaves, g)
+            return torch.autograd.grad(y, [x, *params], g)
 
         with torch.no_grad():
-            err = (run(block, False).float() - run(torch_order, False).float()).abs().max()
-        check(err.item() <= UPSAMPLE_BF16_TOL, f"unfused {label}: forms differ by {err}")
-        line = f"[8 stage] unfused upsample {label} {list(shape)} bf16:"
+            ref = run(torch_order, False, ()).float()
+            err = (run(block, False, ()).float() - ref).abs().max().item()
+            err_fused = (run(fused, False, ()).float() - ref).abs().max().item()
+        check(err <= UPSAMPLE_BF16_TOL, f"unfused {label}: forms differ by {err}")
+        check(err_fused <= UPSAMPLE_BF16_TOL, f"fused block {label}: differs by {err_fused}")
+        line = f"[8 stage] upsample stage {label} {list(shape)} bf16:"
+        times[label] = {}
         for backward in (False, True) if train else (False,):
-            ms, plain_ms = _timed_pair(lambda: run(block, backward),
-                                       lambda: run(torch_order, backward))
-            line += (f" {'fwd+bwd' if backward else 'fwd'} {ms:.4f} ms vs"
-                     f" {plain_ms:.4f} ms;")
-        print(f"{line} (phase-major conv + shuffle kernel vs conv + F.pixel_shuffle;"
-              f" max_abs_err {err.item():.3e})", flush=True)
+            kind = "fwd+bwd" if backward else "fwd"
+            ms, plain_ms = _timed_pair(lambda: run(block, backward, list(block.parameters())),
+                                       lambda: run(torch_order, backward,
+                                                   list(block.parameters())))
+            fused_ms = cuda_ms(lambda: run(fused, backward, list(fused.parameters())), 20)
+            times[label].update({f"unfused {kind}": ms, f"fused {kind}": fused_ms})
+            line += (f" {kind}: unfused {ms:.4f} ms vs torch order {plain_ms:.4f} ms,"
+                     f" fused block {fused_ms:.4f} ms;")
+        print(f"{line} (unfused: phase-major conv + shuffle kernel; max_abs_err unfused"
+              f" {err:.3e}, fused {err_fused:.3e})", flush=True)
+    return times
 
 
 def _train_config(fused: bool, bf16: bool = True):
@@ -914,7 +1000,8 @@ def _train_config(fused: bool, bf16: bool = True):
 
 
 def _run_training_arm(fused: bool, batch: torch.Tensor, card: str) -> list:
-    """20 pretrain + 10 GAN steps; returns the launches of the four kernels."""
+    """20 pretrain + 10 GAN steps; returns the launches of the four kernels
+    and then the fused upsample's backward (pre-activation) launches."""
     from fast_srgan_torch.kernels.fused_upsample import fused_upsample
     from fast_srgan_torch.kernels.instance_norm import instance_norm_add, instance_norm_prelu
     from fast_srgan_torch.kernels.pixel_shuffle import pixel_shuffle_phase_major
@@ -927,6 +1014,7 @@ def _run_training_arm(fused: bool, batch: torch.Tensor, card: str) -> list:
     torch.cuda.reset_peak_memory_stats()
     for f in counters:
         f.launches = 0
+    fused_upsample.backward_launches = 0
     losses, step_s = [], {"pretrain": [], "gan": []}
     for _ in range(PRETRAIN_STEPS):
         t0 = time.perf_counter()
@@ -939,12 +1027,13 @@ def _run_training_arm(fused: bool, batch: torch.Tensor, card: str) -> list:
         metrics.append(bundle.gan_step(batch))
         torch.cuda.synchronize()
         step_s["gan"].append(time.perf_counter() - t0)
-    launches = [f.launches for f in counters]
+    launches = [f.launches for f in counters] + [fused_upsample.backward_launches]
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     losses = [float(v) for v in losses]
     steps = PRETRAIN_STEPS + GAN_STEPS
-    # one generator forward a step: 8 + 9 norms, two upsample stages
-    want = [8 * steps, 9 * steps] + ([2 * steps, 0] if fused else [0, 2 * steps])
+    # one generator forward and one backward into it a step: 8 + 9 norms,
+    # two upsample stages, each fused stage's pre-activation recomputed once
+    want = [8 * steps, 9 * steps] + ([2 * steps, 0, 2 * steps] if fused else [0, 2 * steps, 0])
     # after warm-up: the last half of each step kind
     ms = {k: 1000 * float(np.mean(v[len(v) // 2:])) for k, v in step_s.items()}
     arm = "fused" if fused else "unfused"
@@ -953,7 +1042,7 @@ def _run_training_arm(fused: bool, batch: torch.Tensor, card: str) -> list:
         f" {ms['pretrain']:.2f} ms/pretrain step, {ms['gan']:.2f} ms/GAN step"
         f" (mean of the last half); peak {peak_gib:.2f} GiB; launches IN+PReLU"
         f" {launches[0]}, IN+add {launches[1]}, fused upsample {launches[2]}, pixel"
-        f" shuffle {launches[3]} (want {want}); {card}",
+        f" shuffle {launches[3]}, fused upsample backward {launches[4]} (want {want}); {card}",
         flush=True,
     )
     last = {k: float(v) for k, v in metrics[-1].items()}
@@ -992,9 +1081,10 @@ def phase_training(card: str) -> tuple:
             counters = (instance_norm_prelu, instance_norm_add, fused_upsample)
             for f in counters:
                 f.launches = 0
+            fused_upsample.backward_launches = 0
             values.append(float(bundle.pretrain_step(batch.to(device))))
-            got = [f.launches for f in counters]
-            want = [8, 9, 2] if device == "cuda" else [0, 0, 0]
+            got = [f.launches for f in counters] + [fused_upsample.backward_launches]
+            want = [8, 9, 2, 2] if device == "cuda" else [0, 0, 0, 0]
             check(got == want, f"fp32 parity launches on {device}: {got} != {want}")
     rel = abs(values[0] - values[1]) / abs(values[1])
     print(
@@ -1010,8 +1100,8 @@ def main() -> None:
     kind, card = phase_device()
     phase_build()
     in_rows = phase_kernel()
-    up_row = phase_upsample_kernel()
-    shuffle_row = phase_shuffle_kernel()
+    up_row = phase_upsample_kernel(card)
+    shuffle_row, stage_ms = phase_shuffle_kernel()
 
     from fast_srgan_torch.checkpoints.npz_io import load_npz_params
 
@@ -1050,7 +1140,8 @@ def main() -> None:
         {"name": "instance_norm_add", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": ADD_REPLACES, "launches": launches[1], **in_rows["instance_norm_add"]},
         {"name": "fused_upsample", "route": "cuda", "source": UPSAMPLE_SOURCE,
-         "replaces": UPSAMPLE_REPLACES, "launches": fused[2], **up_row},
+         "replaces": UPSAMPLE_REPLACES, "launches": fused[2], "backward_launches": fused[4],
+         **up_row, "stage_ms": stage_ms["train stage 2"]},
         {"name": "pixel_shuffle_phase_major", "route": "cuda",
          "source": SHUFFLE_SOURCE, "replaces": SHUFFLE_REPLACES,
          "launches": unfused[3], **shuffle_row},

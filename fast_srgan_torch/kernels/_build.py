@@ -35,8 +35,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # (x, alpha or skip, out, partial, B, HW, C, grid, per_wave, tile_px, eps,
 #  stream)
 _IN = [_P] * 4 + [_I] * 6 + [_F, _P]
-# (x, weight, bias, alpha, out, B, H, W, C, stream)
-_FUSED_UPSAMPLE = [_P] * 5 + [_I] * 4 + [_P]
+# (x, weight, bias, alpha, out, B, H, W, C, prelu, stream)
+_FUSED_UPSAMPLE = [_P] * 5 + [_I] * 5 + [_P]
 # (x, weight, mult, bias, alpha, rscale, out, B, H, W, Cin, Cout, n_tile, KH,
 #  pad_top, pad_left, stream)
 _INT8_CONV = [_P] * 7 + [_I] * 9 + [_P]

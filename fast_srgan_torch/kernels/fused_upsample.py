@@ -8,35 +8,101 @@ conv output is never stored.
 
 ``fused_upsample`` is an autograd Function. Its forward takes the plain
 version on a CPU tensor and launches the kernel on a CUDA tensor (or raises
-``ValueError`` for what the kernel does not take). Its backward
-differentiates the plain composition, as the JAX ``_fused_bwd`` does; there
-is no backward kernel. Autocast is off inside: the activation's dtype is
-the compute dtype, and weight, bias and slope are cast to it.
+``ValueError`` for what the kernel does not take). Its backward recomputes
+only the pre-activation z = shuffle(conv(x) + b) (the same kernel without
+the PReLU on a CUDA tensor, the plain composition on a CPU one), takes the
+PReLU's gradients from z, and leaves dx, dW and db to the library's conv
+backward, as the JAX ``_fused_bwd`` leaves them to ``jax.vjp`` of the lax
+composition. Autocast is off inside: the activation's dtype is the compute
+dtype, and weight, bias and slope are cast to it.
 """
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-from fast_srgan_torch.kernels.pixel_shuffle import phase_major_index
+from fast_srgan_torch.kernels.pixel_shuffle import phase_major_permutation
 
 #: Input channels the kernel is built for (the generator's n_filters).
 C_IN = 64
 _DTYPES = (torch.bfloat16, torch.float32)
 
 
+def upsample_preact_reference(
+    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor
+) -> torch.Tensor:
+    """Plain pre-activation: conv with the weight cast to x's dtype, + bias
+    cast to x's dtype, then ``F.pixel_shuffle(., 2)``."""
+    y = F.conv2d(x, weight.to(x.dtype), padding=1)
+    return F.pixel_shuffle(y + bias.to(x.dtype).view(1, -1, 1, 1), 2)
+
+
 def fused_upsample_reference(
     x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, alpha: torch.Tensor
 ) -> torch.Tensor:
-    """Plain version, the JAX ``_reference_impl``: conv with the weight cast
-    to x's dtype, + bias cast to x's dtype, ``F.pixel_shuffle(., 2)``, then
-    PReLU with the slope cast to x's dtype. weight [4C, Cin, 3, 3] in torch
-    channel order, bias [4C], alpha one value."""
-    y = F.conv2d(x, weight.to(x.dtype), padding=1)
-    y = F.pixel_shuffle(y + bias.to(x.dtype).view(1, -1, 1, 1), 2)
+    """Plain version, the JAX ``_reference_impl``: the pre-activation above,
+    then PReLU with the slope cast to x's dtype. weight [4C, Cin, 3, 3] in
+    torch channel order, bias [4C], alpha one value."""
+    y = upsample_preact_reference(x, weight, bias)
     a = alpha.to(y.dtype)
     return torch.where(y >= 0, y, a * y)
+
+
+def n_tile(c4: int) -> int:
+    """Output channels a block of the bf16 kernel keeps resident."""
+    return 128 if c4 % 128 == 0 else 64
+
+
+def _tile_column_channels(nt: int) -> np.ndarray:
+    """Phase-major channel (within its N tile) of each column of a tile.
+
+    The wgmma accumulator gives thread t of a quad columns 8j + 2t + e; the
+    kernel's epilogue wants 8 consecutive channels in one thread (one
+    16-byte store). So within each group of 32 columns, column
+    8 jj + 2 t + e holds channel 8 t + 2 jj + e."""
+    col = np.arange(nt)
+    return 32 * (col // 32) + 8 * ((col % 8) // 2) + 2 * ((col % 32) // 8) + col % 2
+
+
+@functools.lru_cache(maxsize=32)
+def weight_index(c4: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """Flat indices into a [4C, 64, 3, 3] weight (torch order) that gather
+    it into the kernel's layout, made once per shape and device.
+
+    bf16: [4C / NT][9 taps][4 steps][2][NT][8], element (tile, tap, s, kc,
+    col, e) = W[perm[tile * NT + chan(col)], 16 s + 8 kc + e, tap // 3,
+    tap % 3], with perm the phase-major permutation: each (tap, 16-channel
+    step) slice is wgmma's no-swizzle K-major core-matrix layout.
+    fp32: [9][64][4C], element (tap, k, n) = W[perm[n], k, tap // 3, tap % 3]."""
+    perm = phase_major_permutation(c4)
+    tap = np.arange(9)
+    ky, kx = tap // 3, tap % 3
+    if dtype == torch.bfloat16:
+        nt = n_tile(c4)
+        o = perm[np.arange(c4 // nt)[:, None] * nt + _tile_column_channels(nt)[None, :]]
+        k = (16 * np.arange(4)[:, None, None] + 8 * np.arange(2)[None, :, None]
+             + np.arange(8)[None, None, :])  # [4, 2, 8]
+        idx = (((o[:, None, None, None, :, None] * C_IN
+                 + k[None, None, :, :, None, :]) * 3
+                + ky[None, :, None, None, None, None]) * 3
+               + kx[None, :, None, None, None, None])
+    else:
+        k = np.arange(C_IN)
+        idx = ((perm[None, None, :] * C_IN + k[None, :, None]) * 3
+               + ky[:, None, None]) * 3 + kx[:, None, None]
+    with torch.inference_mode(False):
+        return torch.from_numpy(np.ascontiguousarray(idx).reshape(-1)).to(device)
+
+
+def tile_weights(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The kernel's weight: ``weight`` [4C, 64, 3, 3] gathered into its
+    layout (``weight_index``) and cast to ``dtype``; one gather, one cast."""
+    idx = weight_index(weight.shape[0], dtype, weight.device)
+    return torch.take(weight.detach(), idx).to(dtype)
 
 
 def check_kernel_inputs(
@@ -69,19 +135,27 @@ def check_kernel_inputs(
         raise ValueError("weight, bias and alpha must be on x's device")
 
 
-def _launch(x, weight, bias, alpha) -> torch.Tensor:
+def prepare(weight, bias, alpha, dtype: torch.dtype) -> tuple:
+    """The kernel's parameters in ``dtype``: the weight in its layout
+    (``tile_weights``), the bias in torch channel order and the slope. Made
+    per call, since training changes them every step: four launches at
+    most (the weight's gather and cast, the bias's and the slope's casts,
+    each cast only where the dtype differs)."""
+    return (tile_weights(weight, dtype), bias.detach().to(dtype).contiguous(),
+            alpha.detach().reshape(1).to(dtype))
+
+
+def launch_prepared(x: torch.Tensor, params: tuple, prelu: bool = True) -> torch.Tensor:
+    """The kernel alone, on parameters from ``prepare``: PReLU(shuffle(conv
+    + bias)), or with ``prelu=False`` the pre-activation shuffle(conv +
+    bias), [B, C, 2H, 2W] channels_last. The caller has checked x."""
     from fast_srgan_torch.kernels._build import load_library
 
-    check_kernel_inputs(x, weight, bias, alpha)
     lib = load_library()
+    wk, bk, ak = params
     b, _, h, w = x.shape
-    c4 = weight.shape[0]
+    c4 = bk.numel()
     with torch.cuda.device(x.device):
-        perm = phase_major_index(c4, x.device)
-        # [4C, Cin, 3, 3] torch order -> [3, 3, Cin, 4C] phase-major = [9, Cin, 4C]
-        wk = weight.detach().to(x.dtype)[perm].permute(2, 3, 1, 0).contiguous()
-        bk = bias.detach().to(x.dtype)[perm].float().contiguous()
-        ak = alpha.detach().reshape(1).to(x.dtype).float().contiguous()
         out = torch.empty(
             (b, c4 // 4, 2 * h, 2 * w), dtype=x.dtype, device=x.device,
             memory_format=torch.channels_last,
@@ -92,13 +166,23 @@ def _launch(x, weight, bias, alpha) -> torch.Tensor:
         )
         err = fn(
             x.data_ptr(), wk.data_ptr(), bk.data_ptr(), ak.data_ptr(),
-            out.data_ptr(), b, h, w, c4 // 4,
+            out.data_ptr(), b, h, w, c4 // 4, int(prelu),
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     if err:
         raise RuntimeError(f"fused_upsample launch failed: cudaError {err}")
-    fused_upsample.launches += 1
+    if prelu:
+        fused_upsample.launches += 1
+    else:
+        fused_upsample.backward_launches += 1
     return out
+
+
+def _launch(x, weight, bias, alpha, prelu: bool = True) -> torch.Tensor:
+    check_kernel_inputs(x, weight, bias, alpha)
+    with torch.cuda.device(x.device):
+        params = prepare(weight, bias, alpha, x.dtype)
+    return launch_prepared(x, params, prelu)
 
 
 class FusedUpsampleFunction(torch.autograd.Function):
@@ -114,10 +198,33 @@ class FusedUpsampleFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        inputs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
-        with torch.enable_grad(), torch.autocast(grad.device.type, enabled=False):
-            y = fused_upsample_reference(*inputs)
-        return torch.autograd.grad(y, inputs, grad)
+        """From the pre-activation z: dz = where(z >= 0, g, a g) and dalpha =
+        sum where(z < 0, g z, 0), as jax.vjp of ``jnp.where(y >= 0, y, a *
+        y)`` gives them; then the steps autograd takes through the plain
+        composition: ``F.pixel_unshuffle``, db the sum of the result, dx and
+        dW from the library's conv backward. All in x's dtype; each gradient
+        in its input's dtype."""
+        x, weight, bias, alpha = ctx.saved_tensors
+        needs = ctx.needs_input_grad
+        with torch.autocast(grad.device.type, enabled=False):
+            if x.device.type == "cpu":
+                z = upsample_preact_reference(x, weight, bias)
+            else:
+                z = _launch(x, weight, bias, alpha, prelu=False)
+            g = grad.to(z.dtype)
+            neg = z < 0
+            dy = F.pixel_unshuffle(torch.where(neg, alpha.to(z.dtype) * g, g), 2)
+            dx, dw, _ = torch.ops.aten.convolution_backward(
+                dy, x, weight.to(z.dtype), None, [1, 1], [1, 1], [1, 1], False,
+                [0, 0], 1, [needs[0], needs[1], False],
+            )
+            return (
+                dx if needs[0] else None,
+                dw.to(weight.dtype) if needs[1] else None,
+                dy.sum((0, 2, 3)).to(bias.dtype) if needs[2] else None,
+                torch.where(neg, g * z, 0).sum().reshape(alpha.shape).to(alpha.dtype)
+                if needs[3] else None,
+            )
 
 
 def fused_upsample(
@@ -127,8 +234,11 @@ def fused_upsample(
     x's dtype with fp32 accumulation. weight [4C, 64, 3, 3] torch channel
     order, bias [4C], alpha (1,): ``UpSamplingBlock``'s own parameters.
 
-    ``fused_upsample.launches`` counts the calls that launched the kernel."""
+    ``fused_upsample.launches`` counts the forwards that launched the
+    kernel, ``fused_upsample.backward_launches`` the backwards' launches of
+    its pre-activation form."""
     return FusedUpsampleFunction.apply(x, weight, bias, alpha)
 
 
 fused_upsample.launches = 0
+fused_upsample.backward_launches = 0

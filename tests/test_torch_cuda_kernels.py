@@ -14,13 +14,18 @@ run in both forms of the kernel: the resident one (the serving shape in
 bf16, the ragged and narrow shapes) and the two launches (fp32 at the
 serving shape, bf16 at 540x960).
 Fused upsample: fp32 5e-5 with TF32 off; bf16 3e-2 with |y| < 4 (1.5 bf16
-ulps: the plain version rounds after the conv and again after the bias).
+ulps: the plain version rounds after the conv and again after the bias),
+in both forms (with the PReLU, and the backward's pre-activation), at both
+widths (4C = 256 and 64); gradients fp32 rtol 1e-5, bf16 under autocast 3e-2
+of each one's max-abs.
 Pixel shuffle: bitwise. int8 activation quantize and s8 x s8 -> s32 conv
 (with its dequantize + bias + PReLU epilogue, bf16 and fp32 glue, the
 fused requantize and the four-phase launch): bitwise;
 the int8 engine (fp32 glue) against the CPU port on the same scales: the
 bounded-flip contract (at most 3 uint8 counts, under 2% off by more than 1).
 """
+
+import importlib
 
 import numpy as np
 import pytest
@@ -192,48 +197,142 @@ def _upsample_args(device, shape, dtype, seed, c4=256):
     return x.contiguous(memory_format=torch.channels_last), w, b, a
 
 
-@pytest.mark.parametrize(
-    "shape", [(24, 64, 24, 24), (24, 64, 48, 48), (1, 64, 37, 53), (2, 64, 1, 3)]
-)
+# train stages 1 and 2, serving stage 1, ragged, one pixel row, C = 16
+_UPSAMPLE_CASES = [((24, 64, 24, 24), 256), ((24, 64, 48, 48), 256), ((8, 64, 180, 320), 256),
+                   ((1, 64, 37, 53), 256), ((2, 64, 1, 3), 256), ((3, 64, 37, 53), 64)]
+
+
+@pytest.mark.parametrize("shape,c4", _UPSAMPLE_CASES)
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 3e-2), (torch.float32, 5e-5)])
-def test_fused_upsample_matches_plain(device, shape, dtype, tol):
+def test_fused_upsample_matches_plain(device, shape, c4, dtype, tol):
     from fast_srgan_torch.kernels.fused_upsample import (
         fused_upsample,
         fused_upsample_reference,
     )
 
-    args = _upsample_args(device, shape, dtype, seed=sum(shape))
-    before = fused_upsample.launches
+    args = _upsample_args(device, shape, dtype, seed=sum(shape), c4=c4)
+    before = fused_upsample.launches, fused_upsample.backward_launches
     with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
         got = fused_upsample(*args)
         want = fused_upsample_reference(*args)
     torch.cuda.synchronize()
-    assert fused_upsample.launches == before + 1
+    assert (fused_upsample.launches, fused_upsample.backward_launches) == (
+        before[0] + 1, before[1])
     b, _, h, w = shape
-    assert got.shape == (b, 64, 2 * h, 2 * w) and got.dtype == dtype
+    assert got.shape == (b, c4 // 4, 2 * h, 2 * w) and got.dtype == dtype
     assert got.is_contiguous(memory_format=torch.channels_last)
     assert torch.isfinite(got).all()
     assert (got.float() - want.float()).abs().max().item() <= tol
 
 
-def test_fused_upsample_gradients_match_plain(device):
+@pytest.mark.parametrize("shape,c4", [((24, 64, 48, 48), 256), ((1, 64, 37, 53), 256),
+                                      ((3, 64, 37, 53), 64)])
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 3e-2), (torch.float32, 5e-5)])
+def test_fused_upsample_preact_matches_plain(device, shape, c4, dtype, tol):
+    """The kernel's pre-activation form (the backward's z) against the plain
+    conv + bias + shuffle."""
     from fast_srgan_torch.kernels.fused_upsample import (
+        _launch,
         fused_upsample,
-        fused_upsample_reference,
+        upsample_preact_reference,
     )
+
+    x, w, b, a = _upsample_args(device, shape, dtype, seed=7, c4=c4)
+    before = fused_upsample.launches, fused_upsample.backward_launches
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        got = _launch(x, w, b, a, prelu=False)
+        want = upsample_preact_reference(x, w, b)
+    torch.cuda.synchronize()
+    assert (fused_upsample.launches, fused_upsample.backward_launches) == (
+        before[0], before[1] + 1)
+    assert got.shape == want.shape and got.is_contiguous(memory_format=torch.channels_last)
+    assert (got < 0).any() and (got > 0).any()
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+def _grads(op, base, g, autocast):
+    leaves = [t.detach().clone().requires_grad_(True) for t in base]
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        with torch.autocast("cuda", torch.bfloat16, enabled=autocast):
+            y = op(*leaves)
+        y.backward(g)
+    return y, [t.grad for t in leaves]
+
+
+def test_fused_upsample_gradients_match_plain(device, monkeypatch):
+    # the module (the package re-exports its function under the same name)
+    module = importlib.import_module("fast_srgan_torch.kernels.fused_upsample")
 
     base = _upsample_args(device, (2, 64, 9, 11), torch.float32, seed=3)
     g = torch.randn((2, 64, 18, 22), device=device).contiguous(
         memory_format=torch.channels_last
     )
-    grads = []
-    for op in (fused_upsample, fused_upsample_reference):
-        args = [t.detach().clone().requires_grad_(True) for t in base]
-        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-            op(*args).backward(g)
-        grads.append([t.grad for t in args])
-    for got, want in zip(*grads):
-        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    _, want = _grads(module.fused_upsample_reference, base, g, False)
+    before = module.fused_upsample.launches, module.fused_upsample.backward_launches
+
+    def refuse(*args):
+        raise AssertionError("the backward ran the plain version on a CUDA tensor")
+
+    monkeypatch.setattr(module, "fused_upsample_reference", refuse)
+    monkeypatch.setattr(module, "upsample_preact_reference", refuse)
+    _, got = _grads(module.fused_upsample, base, g, False)
+    assert (module.fused_upsample.launches, module.fused_upsample.backward_launches) == (
+        before[0] + 1, before[1] + 1)
+    for k, p in zip(got, want):
+        torch.testing.assert_close(k, p, rtol=1e-5, atol=1e-6)
+
+
+def test_fused_upsample_bf16_autocast_gradients_match_plain(device):
+    """x bf16, fp32 parameters under bf16 autocast, as training runs it.
+    The plain version rounds z twice and the kernel once, so near z = 0
+    their signs, and dz, differ: both are held to the fp32 gradients of the
+    same inputs, the kernel's error (max-abs, relative to each gradient's
+    max-abs) within 1.25x the plain version's plus one bf16 ulp (4e-3)."""
+    from fast_srgan_torch.kernels.fused_upsample import (
+        fused_upsample,
+        fused_upsample_reference,
+    )
+
+    x, w, b, a = _upsample_args(device, (4, 64, 24, 24), torch.bfloat16, seed=9)
+    gen = torch.Generator(device=device).manual_seed(10)
+    g = torch.randn((4, 64, 48, 48), device=device, generator=gen).to(torch.bfloat16)
+    g = g.contiguous(memory_format=torch.channels_last)
+    y1, kernel = _grads(fused_upsample, (x, w, b, a), g, True)
+    y2, plain = _grads(fused_upsample_reference, (x, w, b, a), g, True)
+    _, truth = _grads(fused_upsample_reference, (x.float(), w, b, a), g.float(), False)
+    assert y1.dtype == y2.dtype == torch.bfloat16
+    assert [t.dtype for t in kernel] == [t.dtype for t in plain]
+    for k, p, t in zip(kernel, plain, truth):
+        scale = t.abs().max()
+        err_k = (k.float() - t).abs().max() / scale
+        err_p = (p.float() - t).abs().max() / scale
+        assert err_k <= 1.25 * err_p + 4e-3
+
+
+def test_fused_upsample_cuda_graph(device):
+    """Captured once, replayed on new input data: the kernel reads its
+    inputs through the captured pointers, and nothing on the host is frozen."""
+    from fast_srgan_torch.kernels.fused_upsample import (
+        fused_upsample,
+        fused_upsample_reference,
+    )
+
+    x, w, b, a = _upsample_args(device, (2, 64, 24, 24), torch.bfloat16, seed=4)
+    static_x = x.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fused_upsample(static_x, w, b, a)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fused_upsample(static_x, w, b, a)
+    new = _upsample_args(device, (2, 64, 24, 24), torch.bfloat16, seed=5)[0]
+    static_x.copy_(new)
+    graph.replay()
+    torch.cuda.synchronize()
+    want = fused_upsample_reference(new, w, b, a)
+    assert (out.float() - want.float()).abs().max().item() <= 3e-2
 
 
 def test_fused_upsample_rejects(device):
@@ -309,12 +408,15 @@ def test_generator_launch_counts(device, fused):
     counters = (instance_norm_prelu, instance_norm_add, fused_upsample,
                 pixel_shuffle_phase_major)
     before = [f.launches for f in counters]
+    backward_before = fused_upsample.backward_launches
     with torch.autocast("cuda", dtype=torch.bfloat16):
         out = model(x)
     out.float().mean().backward()
     torch.cuda.synchronize()
     got = [f.launches - b for f, b in zip(counters, before)]
     assert got == ([8, 9, 2, 0] if fused else [8, 9, 0, 2])
+    # the backward recomputes each fused stage's pre-activation once
+    assert fused_upsample.backward_launches - backward_before == (2 if fused else 0)
     assert out.shape == (2, 3, 96, 96) and torch.isfinite(out).all()
 
 

@@ -5,7 +5,12 @@ On the CPU the port's op takes its plain version, so these tests hold that
 plain version (the CUDA kernel's numerical contract) to the JAX
 ``_reference_impl`` and to the v1 and v2 Pallas kernels in interpret mode,
 to atol 1e-5; gradients to jax.vjp of the JAX op to 1e-5 of each
-gradient's max-abs. The CUDA kernel itself is checked on the card
+gradient's max-abs. The backward runs there as on the card (the
+pre-activation, the PReLU's gradients from it, the library's conv
+backward) with z from the plain composition, so it is held to jax.vjp at
+several seeds, both widths (4C = 64, 256), a negative slope and planted
+zero pre-activations. The bf16 kernel's weight tiling is checked element by
+element. The CUDA kernel itself is checked on the card
 (tests/test_torch_cuda_kernels.py, chip_smoke.py).
 """
 
@@ -28,6 +33,10 @@ from fast_srgan_torch.kernels.fused_upsample import (
     check_kernel_inputs,
     fused_upsample,
     fused_upsample_reference,
+    n_tile,
+    tile_weights,
+    upsample_preact_reference,
+    weight_index,
 )
 from fast_srgan_torch.models.generator import Generator
 
@@ -106,6 +115,121 @@ def test_gradients_match_jax_vjp():
         (bt.grad.numpy(), gb), (at.grad.numpy(), ga),
     ]:
         np.testing.assert_allclose(got, want, atol=1e-5 * np.abs(want).max())
+
+
+def _port_grads(x, k, bias, alpha, g):
+    xt = _nchw(x).requires_grad_(True)
+    wt = torch.from_numpy(np.ascontiguousarray(k.transpose(3, 2, 0, 1))).requires_grad_(True)
+    bt = torch.from_numpy(bias).requires_grad_(True)
+    at = torch.from_numpy(alpha).requires_grad_(True)
+    fused_upsample(xt, wt, bt, at).backward(_nchw(g))
+    return [_nhwc(xt.grad), wt.grad.numpy().transpose(2, 3, 1, 0), bt.grad.numpy(),
+            at.grad.numpy()]
+
+
+def _jax_grads(x, k, bias, alpha, g):
+    _, vjp = jax.vjp(jax_fused_upsample, *map(jnp.asarray, (x, k, bias, alpha)))
+    return [np.asarray(t) for t in vjp(jnp.asarray(g))]
+
+
+def _assert_grads_match_jax(x, k, bias, alpha, g):
+    """dx, dW, db to 1e-5 of each one's max-abs. dalpha is one sum of
+    where(z < 0, g z, 0) with heavy cancellation (|dalpha| can be 1/400 of
+    the terms' absolute sum), where JAX's own fp32 sum strays 1e-5 of
+    |dalpha| from the float64 value: it is held to the larger of 1e-5
+    |dalpha| and 1e-7 of that absolute sum (two fp32 ulps of it)."""
+    z = _port(*(a.astype(np.float64) for a in (x, k, bias, alpha)),
+              op=lambda xx, w, b, a: upsample_preact_reference(xx, w, b))
+    mass = np.abs(np.where(z < 0, g * z, 0)).sum()
+    got, want = _port_grads(x, k, bias, alpha, g), _jax_grads(x, k, bias, alpha, g)
+    for a, b in zip(got[:3], want[:3]):
+        assert a.shape == b.shape
+        np.testing.assert_allclose(a, b, atol=1e-5 * np.abs(b).max())
+    np.testing.assert_allclose(got[3], want[3], atol=max(1e-5 * np.abs(want[3]).max(), 1e-7 * mass))
+
+
+@pytest.mark.parametrize("slope", [0.25, -0.4])
+@pytest.mark.parametrize("c4", [64, 256])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_backward_matches_jax_vjp(seed, c4, slope):
+    """The backward's composition (z, then the PReLU's gradients from z, then
+    the library's conv backward) against jax.vjp of the JAX op."""
+    x, k, bias, _ = _inputs((2, 5, 7, 64), seed=seed, c4=c4)
+    alpha = np.asarray([slope], np.float32)
+    g = np.random.default_rng(seed + 10).standard_normal((2, 10, 14, c4 // 4))
+    g = g.astype(np.float32)
+    _assert_grads_match_jax(x, k, bias, alpha, g)
+
+
+@pytest.mark.parametrize("c4", [64, 256])
+def test_backward_at_zero_preactivations(c4):
+    """Pre-activations planted at exactly 0 (a zero input window and zero
+    bias channels) take the z >= 0 branch: dz = g and no share of dalpha,
+    as in JAX's where."""
+    x, k, bias, _ = _inputs((1, 6, 8, 64), seed=7, c4=c4)
+    x[0, :4, :5] = 0.0  # every window centred in rows 0-2, columns 0-3 is zero
+    bias[::2] = 0.0
+    alpha = np.asarray([0.3], np.float32)
+    z = _port(x, k, bias, alpha, op=lambda xx, w, b, a: upsample_preact_reference(xx, w, b))
+    assert (z == 0).sum() >= 12 * (c4 // 8)
+    g = np.random.default_rng(8).standard_normal(z.shape).astype(np.float32)
+    _assert_grads_match_jax(x, k, bias, alpha, g)
+
+
+@pytest.mark.parametrize("shape", [(1, 5, 16, 64), (2, 3, 7, 64)])
+def test_preact_matches_jax_reference_at_unit_slope(shape):
+    # with slope 1 the JAX op is the identity on its pre-activation
+    x, k, bias, _ = _inputs(shape, seed=11)
+    one = np.asarray([1.0], np.float32)
+    want = np.asarray(_reference_impl(*map(jnp.asarray, (x, k, bias, one))))
+    got = _port(x, k, bias, one, op=lambda xx, w, b, a: upsample_preact_reference(xx, w, b))
+    np.testing.assert_allclose(got, want, atol=1e-5)
+
+
+@pytest.mark.parametrize("c4", [64, 192, 256])
+def test_bf16_weight_tiling(c4):
+    """The bf16 kernel's weight layout, element by element from its
+    definition: tile, tap, 16-channel step, 8-channel half, column, element;
+    column 8 jj + 2 t + e of each 32 is channel 8 t + 2 jj + e, so a
+    thread's accumulators are 8 consecutive channels."""
+    w = torch.randn((c4, 64, 3, 3)).contiguous(memory_format=torch.channels_last)
+    got = torch.take(w, weight_index(c4, torch.bfloat16, torch.device("cpu")))
+    nt = n_tile(c4)
+    got = got.reshape(c4 // nt, 9, 4, 2, nt, 8).numpy()
+    perm = phase_major_permutation(c4)
+    wn = w.numpy()
+    rng = np.random.default_rng(c4)
+    for _ in range(400):
+        tile, tap, s, kc, col, e = (int(rng.integers(n)) for n in (c4 // nt, 9, 4, 2, nt, 8))
+        j, t, half = col // 8, (col % 8) // 2, col % 2
+        chan = 32 * (j // 4) + 8 * t + 2 * (j % 4) + half
+        want = wn[perm[tile * nt + chan], 16 * s + 8 * kc + e, tap // 3, tap % 3]
+        assert got[tile, tap, s, kc, col, e] == want
+    # a permutation of the weight: scattering back restores it
+    back = torch.empty(w.numel())
+    back[weight_index(c4, torch.bfloat16, torch.device("cpu"))] = torch.from_numpy(got.reshape(-1))
+    assert torch.equal(back.reshape(c4, 64, 3, 3), w.contiguous())
+
+
+def test_f32_weight_layout():
+    w = torch.randn((256, 64, 3, 3))
+    got = tile_weights(w, torch.float32).reshape(9, 64, 256)
+    perm = phase_major_permutation(256)
+    want = w[perm].permute(2, 3, 1, 0).reshape(9, 64, 256)
+    assert torch.equal(got, want)
+
+
+def test_generator_fused_gradients_match_unfused():
+    torch.manual_seed(1)
+    plain = Generator(n_filters=16, n_layers=1)
+    fused = Generator(n_filters=16, n_layers=1, fused_upsample=True)
+    fused.load_state_dict(plain.state_dict())
+    x = torch.rand((2, 3, 6, 5)) * 2 - 1
+    for model in (plain, fused):
+        model(x).square().sum().backward()
+    for (name, p), q in zip(plain.named_parameters(), fused.parameters()):
+        torch.testing.assert_close(q.grad, p.grad, atol=1e-5 * p.grad.abs().max().item(),
+                                   rtol=0, msg=name)
 
 
 def test_generator_fused_flag_is_the_same_function():
