@@ -8,10 +8,13 @@ reference that ``tests/test_torch_*.py`` hold this one to.
 
 Activations are NCHW tensors in ``torch.channels_last`` memory (physically
 NHWC, the JAX package's layout). The hand-written kernels (``kernels/``,
-CUDA C++ in ``csrc/``) are the fused instance norm + PReLU, the fused
-upsample stage, the phase-major pixel shuffle, and the int8 tier's
-activation quantize and s8 conv (``quant.py``); float convolutions run
-through cuDNN. The training steps are in ``train/steps.py``.
+CUDA C++ in ``csrc/``) are the instance-norm family (+ PReLU, + residual
+add, each also masked for the bucketed forward), the fused upsample stage,
+the phase-major pixel shuffle, and the int8 tier's activation quantize and
+s8 conv (``quant.py``); float convolutions run through cuDNN. The serving
+entry points are ``python -m fast_srgan_torch.infer`` (images, video) and
+``python -m fast_srgan_torch.serve`` (HTTP); the training steps are in
+``train/steps.py``.
 """
 
 __version__ = "0.1.0"

@@ -56,6 +56,23 @@
 //   The apply pass walks the tiles and samples in reverse of the statistics
 //   pass, so the tiles read last, still in the 50 MB L2, are re-read first.
 //
+// Masked forms (M = true, the bucketed forward): x is a zero-padded frame of
+// width W, and sample b's valid region is y < vh[b], x < vw[b]. They replace
+// `instance_norm_masked_nhwc` (fast_srgan_tpu/ops/norm.py), which XLA
+// lowered on the TPU:
+//
+//   sums over the valid pixels only; mean = sum(x) / (vh * vw), ex2 likewise
+//   out = epilogue(y) at a valid pixel; PReLU: 0, add: skip at padding
+//
+// They read and write the same bytes as the unmasked forms at the padded
+// shape (x at padded pixels is fetched with its tile and left out of the
+// sums). The predicate is one per 16-byte vector (a vector is one pixel's
+// channels): each thread finds its first pixel's (row, column) once and
+// steps it by its pixel stride, with no division a vector. The resident
+// form is latency-bound, so the predicate's instructions show in its time:
+// each iteration reads its samples' valid sizes and builds both bit masks
+// at its top, ahead of the stages that wait on them.
+//
 // The wrapper (fast_srgan_torch/kernels/instance_norm.py) chooses the form
 // by shape, and guarantees: C % N == 0 with N = 16 / sizeof(T), C / N <=
 // 256, contiguous channels_last x, skip and out aligned to 16 bytes, alpha
@@ -272,7 +289,7 @@ __device__ void block_sums(float (&s)[N], float (&q)[N], float* red,
 // stat[c, 2c). A thread sums one 16-byte quad of statistics over a strided
 // share of the partials. red2 holds max(4 * blockDim.x, 2c) floats. Every
 // thread of the block must call it.
-__device__ void sample_stats(const float* partial, int n, int c, int hw,
+__device__ void sample_stats(const float* partial, int n, int c, int count,
                              float eps, float* red2, float* stat) {
   const int c2 = 2 * c;
   const int quads = c2 / 4;
@@ -297,22 +314,45 @@ __device__ void sample_stats(const float* partial, int n, int c, int hw,
       s += red2[p * c2 + ch];
       q += red2[p * c2 + c + ch];
     }
-    const float mean = s / (float)hw;
-    const float var = fmaxf(q / (float)hw - mean * mean, 0.f);
+    const float mean = s / (float)count;
+    const float var = fmaxf(q / (float)count - mean * mean, 0.f);
     stat[ch] = mean;
     stat[c + ch] = 1.0f / sqrtf(var + eps);
   }
   __syncthreads();
 }
 
+// A thread's pixels p, p + stride, p + 2 * stride, ... of a W-wide frame,
+// walked in (row, column) without a division a pixel.
+struct PixelWalk {
+  int y, x, dy, dx, w;
+  __device__ __forceinline__ PixelWalk(int p, int stride, int width)
+      : y(p / width), x(p % width), dy(stride / width), dx(stride % width),
+        w(width) {}
+  __device__ __forceinline__ bool inside(int vh, int vw) const {
+    return y < vh && x < vw;
+  }
+  __device__ __forceinline__ void next() {
+    x += dx;
+    y += dy;
+    if (x >= w) {
+      x -= w;
+      ++y;
+    }
+  }
+};
+
 // ---------------------------------------------------------------- resident
 
-template <typename T, int E>
+template <typename T, int E, bool M>
 __global__ void __launch_bounds__(kResidentThreads, 1)
     in_resident_kernel(const T* __restrict__ x, const T* __restrict__ skip,
-                       const float* __restrict__ alpha, T* __restrict__ out,
+                       const float* __restrict__ alpha,
+                       const int* __restrict__ vh, const int* __restrict__ vw,
+                       T* __restrict__ out,
                        unsigned long long* __restrict__ words, int batch,
-                       int hw, int c, int per_wave, int tile_px, float eps) {
+                       int hw, int width, int c, int per_wave, int tile_px,
+                       float eps) {
   using P = Pack<T>;
   constexpr int N = P::N;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -332,6 +372,22 @@ __global__ void __launch_bounds__(kResidentThreads, 1)
   const int p0 = min(tile * tile_px, hw);
   const int nvec = (min(p0 + tile_px, hw) - p0) * groups;  // 16-byte vectors
   const size_t tile_elems = (size_t)tile_px * c;
+  // masked: bit k set where the thread's vector t + k * threads lies in
+  // sample b's valid region (its pixel is p0 + t / groups + k * rows). The
+  // walk's start is the same in every wave: found once.
+  const PixelWalk walk0(M ? p0 + t / groups : 0, threads / groups, M ? width : 1);
+  auto valid_bits = [&](int b) -> unsigned {
+    if (!M) return ~0u;
+    const int hb = __ldg(vh + b), wb = __ldg(vw + b);
+    PixelWalk px = walk0;
+    unsigned bits = 0u;
+#pragma unroll
+    for (int k = 0; k < kHeld; ++k) {
+      if (px.inside(hb, wb)) bits |= 1u << k;
+      px.next();
+    }
+    return bits;
+  };
 
   T* xbuf = reinterpret_cast<T*>(smem);  // a ring of nbuf tiles of x
   float* red = reinterpret_cast<float*>(xbuf + nbuf * tile_elems);
@@ -370,6 +426,11 @@ __global__ void __launch_bounds__(kResidentThreads, 1)
     const bool sums_now = w < waves && b < batch;
     const bool totals_now = w >= 1 && b1 < batch;
     const bool norm_now = w >= 2 && b2 < batch;
+    // masked: the samples' valid sizes read once, ahead of the stages
+    const unsigned ok_sums = sums_now ? valid_bits(b) : 0u;
+    const unsigned ok_norm = norm_now ? valid_bits(b2) : 0u;
+    const float count =
+        (M && norm_now) ? (float)(__ldg(vh + b2) * __ldg(vw + b2)) : (float)hw;
     if (E == kAdd && norm_now) {
       const uint4* sk =
           reinterpret_cast<const uint4*>(skip + ((size_t)b2 * hw + p0) * c);
@@ -393,7 +454,7 @@ __global__ void __launch_bounds__(kResidentThreads, 1)
 #pragma unroll
       for (int k = 0; k < kHeld; ++k) {
         const int v = t + k * threads;
-        if (v < nvec) {
+        if (v < nvec && ((ok_sums >> k) & 1u)) {
           float e[N];
           P::load(cur + (size_t)v * N, e);
 #pragma unroll
@@ -425,8 +486,8 @@ __global__ void __launch_bounds__(kResidentThreads, 1)
       }
       __syncthreads();
       for (int ch = t; ch < c; ch += threads) {
-        const float mean = tot[ch] / (float)hw;
-        const float var = fmaxf(tot[c + ch] / (float)hw - mean * mean, 0.f);
+        const float mean = tot[ch] / count;
+        const float var = fmaxf(tot[c + ch] / count - mean * mean, 0.f);
         stat[ch] = mean;
         stat[c + ch] = 1.0f / sqrtf(var + eps);
       }
@@ -445,8 +506,9 @@ __global__ void __launch_bounds__(kResidentThreads, 1)
           float e[N], f[N];
           P::unpack(held[k], e);
           if (E == kAdd) P::unpack(skr[k], f);
+          const bool in = (ok_norm >> k) & 1u;  // padding: 0 into the epilogue
 #pragma unroll
-          for (int i = 0; i < N; ++i) e[i] = (e[i] - m[i]) * rs[i];
+          for (int i = 0; i < N; ++i) e[i] = in ? (e[i] - m[i]) * rs[i] : 0.f;
           epilogue<T, E, N>(e, f, a);
           P::store(o + (size_t)v * N, e);
         }
@@ -469,10 +531,11 @@ __global__ void __launch_bounds__(kResidentThreads, 1)
   cp_async_wait<0>();
 }
 
-template <typename T, int E>
-int launch_resident(const T* x, const T* skip, const float* alpha, T* out,
-                    unsigned long long* words, int b, int hw, int c, int grid,
-                    int per_wave, int tile_px, float eps,
+template <typename T, int E, bool M>
+int launch_resident(const T* x, const T* skip, const float* alpha,
+                    const int* vh, const int* vw, T* out,
+                    unsigned long long* words, int b, int hw, int w, int c,
+                    int grid, int per_wave, int tile_px, float eps,
                     cudaStream_t stream) {
   constexpr int N = Pack<T>::N;
   const int groups = c / N;
@@ -485,7 +548,7 @@ int launch_resident(const T* x, const T* skip, const float* alpha, T* out,
       ((size_t)2 * c * (rows + 1) + max(4 * threads, 2 * c) + 4 * c) *
           sizeof(float) +
       16;
-  auto kernel = in_resident_kernel<T, E>;
+  auto kernel = in_resident_kernel<T, E, M>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -493,9 +556,10 @@ int launch_resident(const T* x, const T* skip, const float* alpha, T* out,
   err = cudaMemsetAsync(words, 0, sizeof(*words) * b * (grid / per_wave + 1) * 2 * c,
                         stream);
   if (err != cudaSuccess) return static_cast<int>(err);
-  void* args[] = {(void*)&x,     (void*)&skip,     (void*)&alpha,
-                  (void*)&out,   (void*)&words,    (void*)&b,
-                  (void*)&hw,    (void*)&c,        (void*)&per_wave,
+  void* args[] = {(void*)&x,     (void*)&skip,    (void*)&alpha,
+                  (void*)&vh,    (void*)&vw,      (void*)&out,
+                  (void*)&words, (void*)&b,       (void*)&hw,
+                  (void*)&w,     (void*)&c,       (void*)&per_wave,
                   (void*)&tile_px, (void*)&eps};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
                                     dim3(grid), dim3(threads), args, smem,
@@ -509,10 +573,11 @@ int launch_resident(const T* x, const T* skip, const float* alpha, T* out,
 // walks the tile's pixels from t / groups with a stride of rows =
 // blockDim.x / groups.
 
-template <typename T>
+template <typename T, bool M>
 __global__ void __launch_bounds__(kThreads)
-    in_stats_kernel(const T* __restrict__ x, float* __restrict__ partial,
-                    int hw, int c, int tile_px) {
+    in_stats_kernel(const T* __restrict__ x, const int* __restrict__ vh,
+                    const int* __restrict__ vw, float* __restrict__ partial,
+                    int hw, int w, int c, int tile_px) {
   using P = Pack<T>;
   constexpr int N = P::N;
   extern __shared__ float smem_f[];  // red [2c][rows + 1], red2
@@ -531,7 +596,10 @@ __global__ void __launch_bounds__(kThreads)
     s[i] = 0.f;
     q[i] = 0.f;
   }
-  for (int p = tile * tile_px + r; p < p_end; p += rows) {
+  const int hb = M ? __ldg(vh + b) : 0, wb = M ? __ldg(vw + b) : 0;
+  PixelWalk px(tile * tile_px + r, rows, M ? w : 1);  // w is 0 unmasked
+  for (int p = tile * tile_px + r; p < p_end; p += rows, px.next()) {
+    if (M && !px.inside(hb, wb)) continue;
     float v[N];
     P::load(xb + (size_t)p * c, v);
 #pragma unroll
@@ -547,12 +615,14 @@ __global__ void __launch_bounds__(kThreads)
                 [&](int j, float v) { mine[j] = v; });
 }
 
-template <typename T, int E>
+template <typename T, int E, bool M>
 __global__ void __launch_bounds__(kThreads)
     in_apply_kernel(const T* __restrict__ x, const T* __restrict__ skip,
                     const float* __restrict__ partial,
-                    const float* __restrict__ alpha, T* __restrict__ out,
-                    int hw, int c, int tile_px, float eps) {
+                    const float* __restrict__ alpha,
+                    const int* __restrict__ vh, const int* __restrict__ vw,
+                    T* __restrict__ out, int hw, int w, int c, int tile_px,
+                    float eps) {
   using P = Pack<T>;
   constexpr int N = P::N;
   extern __shared__ float smem_f[];  // red2, then mean [c], 1/sqrt [c]
@@ -567,8 +637,9 @@ __global__ void __launch_bounds__(kThreads)
 
   float* red2 = smem_f;
   float* stat = red2 + max(4 * static_cast<int>(blockDim.x), 2 * c);
-  sample_stats(partial + (size_t)b * n_tiles * 2 * c, n_tiles, c, hw, eps,
-               red2, stat);
+  const int hb = M ? __ldg(vh + b) : 0, wb = M ? __ldg(vw + b) : 0;
+  sample_stats(partial + (size_t)b * n_tiles * 2 * c, n_tiles, c,
+               M ? hb * wb : hw, eps, red2, stat);
   float m[N], rs[N];
 #pragma unroll
   for (int i = 0; i < N; ++i) {
@@ -578,57 +649,63 @@ __global__ void __launch_bounds__(kThreads)
   const float a = E == kPrelu ? __ldg(alpha) : 0.f;
   const size_t base = (size_t)b * hw * c + g * N;
   const int p_end = min((tile + 1) * tile_px, hw);
-  for (int p = tile * tile_px + r; p < p_end; p += rows) {
+  PixelWalk px(tile * tile_px + r, rows, M ? w : 1);  // w is 0 unmasked
+  for (int p = tile * tile_px + r; p < p_end; p += rows, px.next()) {
     float v[N], sk[N];
     P::load(x + base + (size_t)p * c, v);
     if (E == kAdd) {
       P::load(skip + base + (size_t)p * c, sk);
     }
+    const bool in = !M || px.inside(hb, wb);  // padding: 0 into the epilogue
 #pragma unroll
-    for (int i = 0; i < N; ++i) v[i] = (v[i] - m[i]) * rs[i];
+    for (int i = 0; i < N; ++i) v[i] = in ? (v[i] - m[i]) * rs[i] : 0.f;
     epilogue<T, E, N>(v, sk, a);
     P::store(out + base + (size_t)p * c, v);
   }
 }
 
-template <typename T, int E>
-int launch_two(const T* x, const T* skip, const float* alpha, T* out,
-               float* partial, int b, int hw, int c, int tile_px, float eps,
-               cudaStream_t s) {
+template <typename T, int E, bool M>
+int launch_two(const T* x, const T* skip, const float* alpha, const int* vh,
+               const int* vw, T* out, float* partial, int b, int hw, int w,
+               int c, int tile_px, float eps, cudaStream_t s) {
   constexpr int N = Pack<T>::N;
   const int groups = c / N;
   const int rows = groups >= kThreads ? 1 : kThreads / groups;
   const int threads = rows * groups;
   const dim3 grid((hw + tile_px - 1) / tile_px, b);
   const size_t red2 = max(4 * threads, 2 * c);
-  in_stats_kernel<T><<<grid, threads,
-                       ((size_t)2 * c * (rows + 1) + red2) * sizeof(float),
-                       s>>>(
-      x, partial, hw, c, tile_px);
+  in_stats_kernel<T, M><<<grid, threads,
+                          ((size_t)2 * c * (rows + 1) + red2) * sizeof(float),
+                          s>>>(x, vh, vw, partial, hw, w, c, tile_px);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  in_apply_kernel<T, E><<<grid, threads, (red2 + 2 * c) * sizeof(float), s>>>(
-      x, skip, partial, alpha, out, hw, c, tile_px, eps);
+  in_apply_kernel<T, E, M>
+      <<<grid, threads, (red2 + 2 * c) * sizeof(float), s>>>(
+          x, skip, partial, alpha, vh, vw, out, hw, w, c, tile_px, eps);
   return static_cast<int>(cudaGetLastError());
 }
 
 // grid > 0: the resident form with that many blocks; grid == 0: two launches.
-template <typename T, int E>
-int launch(const void* x, const void* skip, const void* alpha, void* out,
-           void* partial, int b, int hw, int c, int grid, int per_wave,
-           int tile_px, float eps, void* stream) {
+// M: the masked form (vh, vw: int [b] on the device; w: the frame's width).
+template <typename T, int E, bool M>
+int launch(const void* x, const void* skip, const void* alpha, const void* vh,
+           const void* vw, void* out, void* partial, int b, int hw, int w,
+           int c, int grid, int per_wave, int tile_px, float eps,
+           void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (grid > 0) {
-    return launch_resident<T, E>(
+    return launch_resident<T, E, M>(
         static_cast<const T*>(x), static_cast<const T*>(skip),
-        static_cast<const float*>(alpha), static_cast<T*>(out),
-        static_cast<unsigned long long*>(partial), b, hw, c, grid, per_wave,
-        tile_px, eps, s);
+        static_cast<const float*>(alpha), static_cast<const int*>(vh),
+        static_cast<const int*>(vw), static_cast<T*>(out),
+        static_cast<unsigned long long*>(partial), b, hw, w, c, grid,
+        per_wave, tile_px, eps, s);
   }
-  return launch_two<T, E>(
+  return launch_two<T, E, M>(
       static_cast<const T*>(x), static_cast<const T*>(skip),
-      static_cast<const float*>(alpha), static_cast<T*>(out),
-      static_cast<float*>(partial), b, hw, c, tile_px, eps, s);
+      static_cast<const float*>(alpha), static_cast<const int*>(vh),
+      static_cast<const int*>(vw), static_cast<T*>(out),
+      static_cast<float*>(partial), b, hw, w, c, tile_px, eps, s);
 }
 
 }  // namespace
@@ -636,15 +713,16 @@ int launch(const void* x, const void* skip, const void* alpha, void* out,
 // C entry points (bound with ctypes). Each returns the cudaError_t of its
 // launches: 0 on success. grid > 0 takes the resident form (grid blocks,
 // per_wave samples a wave, tiles of tile_px pixels); grid == 0 the two
-// launches over tiles of tile_px pixels.
+// launches over tiles of tile_px pixels. The _masked ones take each sample's
+// valid height and width (int [b] on the device) and the frame's width w.
 extern "C" int fsr_instance_norm_prelu_bf16(const void* x, const void* alpha,
                                             void* out, void* partial, int b,
                                             int hw, int c, int grid,
                                             int per_wave, int tile_px,
                                             float eps, void* stream) {
-  return launch<__nv_bfloat16, kPrelu>(x, nullptr, alpha, out, partial, b, hw,
-                                       c, grid, per_wave, tile_px, eps,
-                                       stream);
+  return launch<__nv_bfloat16, kPrelu, false>(
+      x, nullptr, alpha, nullptr, nullptr, out, partial, b, hw, 0, c, grid,
+      per_wave, tile_px, eps, stream);
 }
 
 extern "C" int fsr_instance_norm_prelu_f32(const void* x, const void* alpha,
@@ -652,8 +730,9 @@ extern "C" int fsr_instance_norm_prelu_f32(const void* x, const void* alpha,
                                            int hw, int c, int grid,
                                            int per_wave, int tile_px,
                                            float eps, void* stream) {
-  return launch<float, kPrelu>(x, nullptr, alpha, out, partial, b, hw, c,
-                               grid, per_wave, tile_px, eps, stream);
+  return launch<float, kPrelu, false>(x, nullptr, alpha, nullptr, nullptr,
+                                      out, partial, b, hw, 0, c, grid,
+                                      per_wave, tile_px, eps, stream);
 }
 
 extern "C" int fsr_instance_norm_add_bf16(const void* x, const void* skip,
@@ -661,8 +740,9 @@ extern "C" int fsr_instance_norm_add_bf16(const void* x, const void* skip,
                                           int hw, int c, int grid,
                                           int per_wave, int tile_px, float eps,
                                           void* stream) {
-  return launch<__nv_bfloat16, kAdd>(x, skip, nullptr, out, partial, b, hw, c,
-                                     grid, per_wave, tile_px, eps, stream);
+  return launch<__nv_bfloat16, kAdd, false>(
+      x, skip, nullptr, nullptr, nullptr, out, partial, b, hw, 0, c, grid,
+      per_wave, tile_px, eps, stream);
 }
 
 extern "C" int fsr_instance_norm_add_f32(const void* x, const void* skip,
@@ -670,6 +750,43 @@ extern "C" int fsr_instance_norm_add_f32(const void* x, const void* skip,
                                          int hw, int c, int grid, int per_wave,
                                          int tile_px, float eps,
                                          void* stream) {
-  return launch<float, kAdd>(x, skip, nullptr, out, partial, b, hw, c, grid,
-                             per_wave, tile_px, eps, stream);
+  return launch<float, kAdd, false>(x, skip, nullptr, nullptr, nullptr, out,
+                                    partial, b, hw, 0, c, grid, per_wave,
+                                    tile_px, eps, stream);
+}
+
+extern "C" int fsr_instance_norm_prelu_masked_bf16(
+    const void* x, const void* alpha, const void* vh, const void* vw,
+    void* out, void* partial, int b, int hw, int w, int c, int grid,
+    int per_wave, int tile_px, float eps, void* stream) {
+  return launch<__nv_bfloat16, kPrelu, true>(x, nullptr, alpha, vh, vw, out,
+                                             partial, b, hw, w, c, grid,
+                                             per_wave, tile_px, eps, stream);
+}
+
+extern "C" int fsr_instance_norm_prelu_masked_f32(
+    const void* x, const void* alpha, const void* vh, const void* vw,
+    void* out, void* partial, int b, int hw, int w, int c, int grid,
+    int per_wave, int tile_px, float eps, void* stream) {
+  return launch<float, kPrelu, true>(x, nullptr, alpha, vh, vw, out, partial,
+                                     b, hw, w, c, grid, per_wave, tile_px, eps,
+                                     stream);
+}
+
+extern "C" int fsr_instance_norm_add_masked_bf16(
+    const void* x, const void* skip, const void* vh, const void* vw,
+    void* out, void* partial, int b, int hw, int w, int c, int grid,
+    int per_wave, int tile_px, float eps, void* stream) {
+  return launch<__nv_bfloat16, kAdd, true>(x, skip, nullptr, vh, vw, out,
+                                           partial, b, hw, w, c, grid,
+                                           per_wave, tile_px, eps, stream);
+}
+
+extern "C" int fsr_instance_norm_add_masked_f32(
+    const void* x, const void* skip, const void* vh, const void* vw,
+    void* out, void* partial, int b, int hw, int w, int c, int grid,
+    int per_wave, int tile_px, float eps, void* stream) {
+  return launch<float, kAdd, true>(x, skip, nullptr, vh, vw, out, partial, b,
+                                   hw, w, c, grid, per_wave, tile_px, eps,
+                                   stream);
 }

@@ -10,15 +10,23 @@ mode, the JAX package's production policy): the upsampling convs run int8
 on the card's tensor cores (``kernels/int8_conv.py``) at activation scales
 calibrated on sample inputs, the trunk and head stay float.
 
+``bucket=`` zero-pads each image to a multiple of ``bucket`` LR pixels and
+crops the output, so mixed sizes share one batch; it is exact: the masked
+forward (``Generator(valid_hw=)``, ``quant.sr_quant_forward_masked``) takes
+each sample's norm statistics over its valid region and re-zeroes the
+padding after every bias. :meth:`SRInferenceEngine.stream` pipelines a
+sequence of same-size frames (video) through pinned host buffers and copy
+streams.
+
 What the JAX engine does only for XLA's compiled shapes on the TPU is not
 here: eager PyTorch compiles nothing per shape, so batches are never padded
-to a compiled size and there is no "never batch 2..7" rule. Bucketing (and
-so the masked int8 forward), multi-device and video streaming are not
-ported yet.
+to a compiled size and there is no "never batch 2..7" rule. Multi-device
+is not ported yet.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
@@ -29,7 +37,15 @@ from fast_srgan_torch import quant
 from fast_srgan_torch.checkpoints.convert import state_dict_from_jax_params
 from fast_srgan_torch.models.generator import Generator
 from fast_srgan_torch.ops.lr_tail import generator_apply_lr_tail, prepare_lr_tail
+from fast_srgan_torch.ops.norm import valid_mask, zero_outside
 from fast_srgan_torch.ops.precision import cudnn_without_tf32
+
+#: Batches a stream keeps in flight on the card (the JAX engine's window).
+STREAM_IN_FLIGHT = 2
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
 
 
 def sr_forward_u8(
@@ -83,11 +99,14 @@ class SRInferenceEngine:
       device: where the model runs. ``"cuda"`` without CUDA raises: the
         engine never falls back to the CPU.
       pixel_budget: most LR pixels per batch (see :meth:`effective_batch_size`).
+      bucket: zero-pad inputs to multiples of ``bucket`` LR pixels and crop
+        the output (the masked forward, exact); 0 runs each shape as it is.
       lr_tail: run the upsampling tail at LR resolution (``ops/lr_tail.py``);
         False runs the canonical tail. The int8 tier always runs it.
       quantize: False, or the int8 mode: True (= ``"ups"``), ``"tail"``,
         ``"full"`` or ``"trunk"`` (``quant.MODES``). ``dtype`` is then the
-        glue dtype between the int8 convs.
+        glue dtype between the int8 convs. With ``bucket``, ``full`` and
+        ``trunk`` raise: the masked norms run on the float trunk only.
       act_scales: int8 activation scales (``quant.calibrate_scales``'s
         dict); None calibrates on ``calib_batches``, or else on
         ``quant.default_calibration_batch()``.
@@ -113,6 +132,7 @@ class SRInferenceEngine:
         scale_factor: Optional[int] = None,
         device: Any = "cuda",
         pixel_budget: Optional[int] = None,
+        bucket: int = 0,
         lr_tail: bool = True,
         quantize: bool | str = False,
         act_scales: Optional[Dict[str, Any]] = None,
@@ -140,6 +160,15 @@ class SRInferenceEngine:
             raise ValueError(f"quantize must be True/'tail'/'ups'/'full'/'trunk': {mode!r}")
         self.quantize = mode is not None
         self.quantize_mode = mode
+        if bucket < 0:
+            raise ValueError(f"bucket must be >= 0, got {bucket}")
+        if bucket and mode in ("full", "trunk"):
+            raise ValueError(
+                "bucketed (masked) int8 requires a float trunk (the ups/tail modes):"
+                " per-sample masked instance-norm statistics are float-path only."
+                " Use quantize=True/'tail'/'ups', or bucket=0."
+            )
+        self.bucket = bucket
         model = Generator(**arch)
         model.load_state_dict(state_dict_from_jax_params(params))
         use_lr_tail = lr_tail and not self.quantize
@@ -179,12 +208,14 @@ class SRInferenceEngine:
             return cudnn_without_tf32()
         return contextlib.nullcontext()
 
-    def _apply(self, x: torch.Tensor) -> torch.Tensor:
+    def _apply(self, x: torch.Tensor, valid_hw=None) -> torch.Tensor:
         if self.quantize:
-            return quant.sr_quant_forward(self._plan, self.act_scales, x)
+            if valid_hw is None:
+                return quant.sr_quant_forward(self._plan, self.act_scales, x)
+            return quant.sr_quant_forward_masked(self._plan, self.act_scales, x, valid_hw)
         if self._tail is None:
-            return self.model(x)
-        return generator_apply_lr_tail(self.model, self._tail, x)
+            return self.model(x, valid_hw=valid_hw)
+        return generator_apply_lr_tail(self.model, self._tail, x, valid_hw)
 
     def forward_u8(self, x_u8: torch.Tensor) -> torch.Tensor:
         """Device-resident [B, H, W, 3] uint8 -> [B, sH, sW, 3] uint8; one
@@ -194,8 +225,49 @@ class SRInferenceEngine:
         self.forward_calls += 1
         return out
 
-    def _to_device(self, batch_u8: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(batch_u8)).to(self.device)
+    def forward_u8_masked(
+        self, x_u8: torch.Tensor, valid_h: torch.Tensor, valid_w: torch.Tensor
+    ) -> torch.Tensor:
+        """:meth:`forward_u8` of a zero-padded batch: sample b's image fills
+        its top-left ``valid_h[b]`` x ``valid_w[b]`` (int32 [B] on the
+        device). Normalizes, then re-zeroes the padding (uint8 zeros map to
+        -1), then runs the masked forward. Only the valid region of each
+        output, s * valid_h x s * valid_w, is the image's upscale."""
+
+        def apply(x: torch.Tensor) -> torch.Tensor:
+            mask = valid_mask(x.shape[2], x.shape[3], valid_h, valid_w)[0]
+            return self._apply(zero_outside(x, mask), (valid_h, valid_w))
+
+        with torch.inference_mode(), self._precision():
+            out = sr_forward_u8(apply, x_u8)
+        self.forward_calls += 1
+        return out
+
+    def _to_device(self, array: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(array)).to(self.device)
+
+    def _bucket_shape(self, h: int, w: int) -> Tuple[int, int]:
+        if not self.bucket:
+            return h, w
+        return _round_up(h, self.bucket), _round_up(w, self.bucket)
+
+    def _forward_padded(self, images: Sequence[np.ndarray], ph: int, pw: int) -> torch.Tensor:
+        """Zero-pad uint8 HWC images to ph x pw and run the masked forward;
+        returns the device output [B, s * ph, s * pw, 3]."""
+        batch = np.zeros((len(images), ph, pw, 3), np.uint8)
+        for k, im in enumerate(images):
+            batch[k, :im.shape[0], :im.shape[1]] = im
+        vh = np.array([im.shape[0] for im in images], np.int32)
+        vw = np.array([im.shape[1] for im in images], np.int32)
+        return self.forward_u8_masked(
+            self._to_device(batch), self._to_device(vh), self._to_device(vw)
+        )
+
+    def _forward_host(self, images: Sequence[np.ndarray], ph: int, pw: int) -> torch.Tensor:
+        """One forward of same-bucket images (masked where bucketing)."""
+        if self.bucket:
+            return self._forward_padded(images, ph, pw)
+        return self.forward_u8(self._to_device(np.stack(images)))
 
     # -- batch-size policy ----------------------------------------------------
 
@@ -208,13 +280,17 @@ class SRInferenceEngine:
 
     def upscale_batch(self, batch_u8: np.ndarray) -> np.ndarray:
         """[B, H, W, 3] uint8 -> [B, sH, sW, 3] uint8 (s = SCALE), in chunks
-        of :meth:`effective_batch_size`."""
+        of :meth:`effective_batch_size` at the bucket-padded size (the size
+        the forward runs at). With ``bucket``, always the masked forward,
+        also for a shape already on the grid."""
         b, h, w, _ = batch_u8.shape
+        s = self.SCALE
         if b == 0:
-            return np.empty((0, h * self.SCALE, w * self.SCALE, 3), np.uint8)
-        eff = self.effective_batch_size(h, w, b)
+            return np.empty((0, h * s, w * s, 3), np.uint8)
+        ph, pw = self._bucket_shape(h, w)
+        eff = self.effective_batch_size(ph, pw, b)
         return np.concatenate([
-            self.forward_u8(self._to_device(batch_u8[i:i + eff])).cpu().numpy()
+            self._forward_host(batch_u8[i:i + eff], ph, pw).cpu().numpy()[:, :h * s, :w * s]
             for i in range(0, b, eff)
         ])
 
@@ -265,34 +341,133 @@ class SRInferenceEngine:
     def _grouped_upscale(
         self, sizes, take: Callable[[int], np.ndarray], batch_size: int
     ) -> Iterator[Tuple[int, np.ndarray]]:
-        """Group by exact shape, chunk by :meth:`effective_batch_size`, and
+        """Group by shape (by bucket shape with ``bucket``: mixed sizes then
+        share a batch, each image zero-padded and run through the masked
+        forward), chunk by :meth:`effective_batch_size` at that shape, and
         yield (original_index, output) as each chunk completes.
 
         One chunk stays in flight: the host decodes and stacks chunk t+1
         while the device runs chunk t. If taking chunk t+1 fails, chunk t's
         outputs are yielded before the error propagates."""
         pending: Optional[Tuple[torch.Tensor, List[int]]] = None
+        s = self.SCALE
 
         def fetch(entry):
             dev, chunk = entry
             host = dev.cpu().numpy()
-            return [(i, host[j]) for j, i in enumerate(chunk)]
+            return [
+                (i, host[j, :sizes[i][0] * s, :sizes[i][1] * s])
+                for j, i in enumerate(chunk)
+            ]
 
         order: Dict[Tuple[int, int], List[int]] = {}
-        for i, hw in enumerate(sizes):
-            order.setdefault(tuple(hw), []).append(i)
-        for (h, w), idxs in order.items():
-            eff = self.effective_batch_size(h, w, batch_size)
+        for i, (h, w) in enumerate(sizes):
+            order.setdefault(self._bucket_shape(h, w), []).append(i)
+        for (ph, pw), idxs in order.items():
+            eff = self.effective_batch_size(ph, pw, batch_size)
             for start in range(0, len(idxs), eff):
                 chunk = idxs[start:start + eff]
                 try:
-                    batch = np.stack([take(i) for i in chunk])
+                    images = [take(i) for i in chunk]
                 except Exception:
                     if pending is not None:
                         yield from fetch(pending)
                     raise
                 if pending is not None:
                     yield from fetch(pending)
-                pending = (self.forward_u8(self._to_device(batch)), chunk)
+                pending = (self._forward_host(images, ph, pw), chunk)
         if pending is not None:
             yield from fetch(pending)
+
+    def stream(
+        self, frames: Iterable[np.ndarray], batch_size: int = 8
+    ) -> Iterator[np.ndarray]:
+        """Upscale a sequence of uint8 HWC frames of one shape (video),
+        yielding outputs in input order.
+
+        The first frame fixes the batch (:meth:`effective_batch_size`); a
+        trailing partial batch runs at its own size. On the card, frames
+        go up through pinned host buffers on an upload stream and come down
+        on a download stream, ordered by events, with at most
+        ``STREAM_IN_FLIGHT`` batches in flight; the host fills batch t+1
+        while the card runs batch t. Each yielded frame is the caller's own
+        array. Unbucketed: one frame shape needs no padding."""
+        it = iter(frames)
+        first = next(it, None)
+        if first is None:
+            return
+        shape = np.shape(first)
+        if len(shape) != 3 or np.asarray(first).dtype != np.uint8:
+            raise ValueError(f"stream takes uint8 HWC frames, got {np.asarray(first).dtype} {shape}")
+        bs = self.effective_batch_size(shape[0], shape[1], batch_size)
+
+        def batches() -> Iterator[List[np.ndarray]]:
+            buf = [first]
+            for frame in it:
+                if np.shape(frame) != shape:
+                    raise ValueError(
+                        f"stream frames must share one shape: {shape}, then {np.shape(frame)}"
+                    )
+                buf.append(frame)
+                if len(buf) == bs:
+                    yield buf
+                    buf = []
+            if buf:
+                yield buf
+
+        if self.device.type != "cuda":
+            for batch in batches():
+                yield from self.forward_u8(self._to_device(np.stack(batch))).numpy()
+            return
+        yield from self._stream_on_card(batches(), bs, shape)
+
+    def _stream_on_card(
+        self, batches: Iterator[List[np.ndarray]], bs: int, shape: Tuple[int, ...]
+    ) -> Iterator[np.ndarray]:
+        """:meth:`stream`'s pipeline. Batch t uses slot t mod
+        (STREAM_IN_FLIGHT + 1): pinned input, device input, pinned output.
+        A slot comes round again only after its batch was fetched, which
+        waits for its download, which follows its forward and its upload,
+        so every buffer of the slot is free. The device output is held
+        until its download completes."""
+        h, w, c = shape
+        s = self.SCALE
+        dev = self.device
+        compute = torch.cuda.current_stream(dev)
+        up, down = torch.cuda.Stream(dev), torch.cuda.Stream(dev)
+        slots = [
+            (torch.empty((bs, h, w, c), dtype=torch.uint8, pin_memory=True),
+             torch.empty((bs, h, w, c), dtype=torch.uint8, device=dev),
+             torch.empty((bs, s * h, s * w, c), dtype=torch.uint8, pin_memory=True))
+            for _ in range(STREAM_IN_FLIGHT + 1)
+        ]
+        # (pinned output, frames, device output, download-done event)
+        pending: collections.deque = collections.deque()
+
+        def fetch() -> np.ndarray:
+            host_out, n, _, done = pending.popleft()
+            done.synchronize()
+            return host_out[:n].numpy().copy()
+
+        try:
+            for t, batch in enumerate(batches):
+                host_in, dev_in, host_out = slots[t % len(slots)]
+                n = len(batch)
+                staged = host_in[:n].numpy()
+                for k, frame in enumerate(batch):
+                    staged[k] = frame
+                with torch.cuda.stream(up):
+                    dev_in[:n].copy_(host_in[:n], non_blocking=True)
+                compute.wait_event(up.record_event())
+                out = self.forward_u8(dev_in[:n])
+                down.wait_event(compute.record_event())
+                with torch.cuda.stream(down):
+                    host_out[:n].copy_(out, non_blocking=True)
+                pending.append((host_out, n, out, down.record_event()))
+                while len(pending) > STREAM_IN_FLIGHT:
+                    yield from fetch()
+            while pending:
+                yield from fetch()
+        finally:  # an abandoned stream: nothing in flight may outlive its buffers
+            for entry in pending:
+                entry[3].synchronize()

@@ -35,6 +35,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # (x, alpha or skip, out, partial, B, HW, C, grid, per_wave, tile_px, eps,
 #  stream)
 _IN = [_P] * 4 + [_I] * 6 + [_F, _P]
+# (x, alpha or skip, valid_h, valid_w, out, partial, B, HW, W, C, grid,
+#  per_wave, tile_px, eps, stream)
+_IN_MASKED = [_P] * 6 + [_I] * 7 + [_F, _P]
 # (x, weight, bias, alpha, out, B, H, W, C, prelu, stream)
 _FUSED_UPSAMPLE = [_P] * 5 + [_I] * 5 + [_P]
 # (x, weight, mult, bias, alpha, rscale, out, B, H, W, Cin, Cout, n_tile, KH,
@@ -53,6 +56,10 @@ ENTRY_POINTS = {
     "fsr_instance_norm_prelu_f32": _IN,
     "fsr_instance_norm_add_bf16": _IN,
     "fsr_instance_norm_add_f32": _IN,
+    "fsr_instance_norm_prelu_masked_bf16": _IN_MASKED,
+    "fsr_instance_norm_prelu_masked_f32": _IN_MASKED,
+    "fsr_instance_norm_add_masked_bf16": _IN_MASKED,
+    "fsr_instance_norm_add_masked_f32": _IN_MASKED,
     "fsr_fused_upsample_bf16": _FUSED_UPSAMPLE,
     "fsr_fused_upsample_f32": _FUSED_UPSAMPLE,
     # (x, out, B, H, W, C in bytes, stream)

@@ -15,6 +15,14 @@ skip``. :func:`instance_norm_prelu` serves the 8 norms that feed a PReLU,
 * two launches (statistics, then normalize walking back), where a sample's
   tiles do not fit in the SMs' shared memory.
 
+Both epilogues also take ``valid_hw``, the valid (height, width) of each
+sample of a zero-padded batch (the bucketed forward): the masked form sums
+the statistics over the valid pixels only, divides by their count, and
+stores 0 (PReLU) or skip (residual add) at the padding. It is the
+counterpart of the JAX package's ``instance_norm_masked_nhwc``
+(``ops/norm.py:43``), which XLA lowered on the TPU; its launches are counted
+in ``masked_launches``, apart from the unmasked ones.
+
 Dispatch follows the tensor: a CPU tensor takes the plain version (the
 numerical contract); a CUDA tensor launches the kernel or raises
 ``ValueError`` for what the kernel does not take. There is no fallback
@@ -28,7 +36,10 @@ from typing import Optional, Tuple
 
 import torch
 
-from fast_srgan_torch.ops.norm import EPS, instance_norm
+from fast_srgan_torch.ops.norm import EPS, instance_norm, instance_norm_masked, valid_mask
+
+#: (valid_h, valid_w): int32 [B] tensors, the valid region of each sample.
+ValidHW = Optional[Tuple[torch.Tensor, torch.Tensor]]
 
 #: Pixels per tile of the two-launch form (gridDim.x = ceil(H*W / TILE_PX)).
 TILE_PX = 1024
@@ -46,21 +57,32 @@ _VEC = {torch.bfloat16: 8, torch.float32: 4}
 _MAX_GROUPS = 256
 
 
+def _norm(x: torch.Tensor, valid_hw: ValidHW) -> torch.Tensor:
+    if valid_hw is None:
+        return instance_norm(x, eps=EPS)
+    mask, count = valid_mask(x.shape[2], x.shape[3], *valid_hw)
+    return instance_norm_masked(x, mask, count, eps=EPS)
+
+
 def instance_norm_prelu_reference(
-    x: torch.Tensor, alpha: torch.Tensor
+    x: torch.Tensor, alpha: torch.Tensor, valid_hw: ValidHW = None
 ) -> torch.Tensor:
-    """Plain composition: ``ops.norm.instance_norm`` then a PReLU whose
-    slope is cast to the activation dtype (the JAX ``_reference_impl``)."""
-    y = instance_norm(x, eps=EPS)
+    """Plain composition: ``ops.norm.instance_norm`` (``instance_norm_masked``
+    with ``valid_hw``) then a PReLU whose slope is cast to the activation
+    dtype (the JAX ``_reference_impl``)."""
+    y = _norm(x, valid_hw)
     a = alpha.to(y.dtype)
     return torch.where(y >= 0, y, a * y)
 
 
-def instance_norm_add_reference(x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+def instance_norm_add_reference(
+    x: torch.Tensor, skip: torch.Tensor, valid_hw: ValidHW = None
+) -> torch.Tensor:
     """Plain composition: ``ops.norm.instance_norm(x) + skip`` (JAX's
-    ``instance_norm_nhwc(y) + x``): the normalized value is rounded to x's
-    dtype, then the sum is taken in fp32 and rounded again."""
-    return instance_norm(x, eps=EPS) + skip
+    ``instance_norm_nhwc(y) + x``; ``instance_norm_masked`` with
+    ``valid_hw``): the normalized value is rounded to x's dtype, then the
+    sum is taken in fp32 and rounded again."""
+    return _norm(x, valid_hw) + skip
 
 
 def check_kernel_inputs(x: torch.Tensor, alpha: torch.Tensor) -> None:
@@ -85,6 +107,24 @@ def check_add_inputs(x: torch.Tensor, skip: torch.Tensor) -> None:
         raise ValueError("skip must be contiguous in torch.channels_last")
     if skip.data_ptr() % 16:
         raise ValueError("skip must be 16-byte aligned")
+
+
+def check_valid_hw(x: torch.Tensor, valid_hw: ValidHW) -> None:
+    """Raise ValueError unless ``valid_hw`` is None or two contiguous int32
+    [B] tensors on x's device. Their values are not read on the host (that
+    would wait for the card): each must lie in [1, H] and [1, W]."""
+    if valid_hw is None:
+        return
+    if len(valid_hw) != 2:
+        raise ValueError("valid_hw must be a pair (valid_h, valid_w)")
+    for t in valid_hw:
+        if t.dtype != torch.int32 or t.shape != (x.shape[0],) or not t.is_contiguous():
+            raise ValueError(
+                f"valid_hw must hold contiguous int32 [{x.shape[0]}] tensors, got "
+                f"{t.dtype} {tuple(t.shape)}"
+            )
+        if t.device != x.device:
+            raise ValueError(f"valid_hw must be on x's device {x.device}, got {t.device}")
 
 
 def _check_activation(x: torch.Tensor, name: str) -> None:
@@ -161,9 +201,11 @@ def _sm_count(device: torch.device) -> int:
     return _SMS[index]
 
 
-def _launch(x: torch.Tensor, other: torch.Tensor, residual: bool) -> torch.Tensor:
+def _launch(
+    x: torch.Tensor, other: torch.Tensor, residual: bool, valid_hw: ValidHW = None
+) -> torch.Tensor:
     """One call of the kernel family: ``other`` is the slope (PReLU) or
-    skip (residual add)."""
+    skip (residual add); ``valid_hw`` selects the masked form."""
     from fast_srgan_torch.kernels._build import load_library
 
     lib = load_library()
@@ -181,22 +223,26 @@ def _launch(x: torch.Tensor, other: torch.Tensor, residual: bool) -> torch.Tenso
             scratch = 2 * b * (grid // per_wave + 1) * 2 * c
         out = torch.empty_like(x, memory_format=torch.channels_last)
         partial = torch.empty(scratch, dtype=torch.float32, device=x.device)
-        bf16 = x.dtype == torch.bfloat16
-        if residual:
-            fn = lib.fsr_instance_norm_add_bf16 if bf16 else lib.fsr_instance_norm_add_f32
-            second = other
+        name = "fsr_instance_norm_" + ("add" if residual else "prelu")
+        name += "_masked" if valid_hw is not None else ""
+        name += "_bf16" if x.dtype == torch.bfloat16 else "_f32"
+        fn = getattr(lib, name)
+        second = other if residual else other.detach().reshape(1).to(torch.float32).contiguous()
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if valid_hw is None:
+            err = fn(x.data_ptr(), second.data_ptr(), out.data_ptr(), partial.data_ptr(),
+                     b, hw, c, grid, per_wave, tile_px, EPS, stream)
         else:
-            fn = lib.fsr_instance_norm_prelu_bf16 if bf16 else lib.fsr_instance_norm_prelu_f32
-            second = other.detach().reshape(1).to(torch.float32).contiguous()
-        err = fn(
-            x.data_ptr(), second.data_ptr(), out.data_ptr(), partial.data_ptr(),
-            b, hw, c, grid, per_wave, tile_px, EPS,
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    name = "instance_norm_add" if residual else "instance_norm_prelu"
+            err = fn(x.data_ptr(), second.data_ptr(), valid_hw[0].data_ptr(),
+                     valid_hw[1].data_ptr(), out.data_ptr(), partial.data_ptr(),
+                     b, hw, w, c, grid, per_wave, tile_px, EPS, stream)
     if err:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
-    (instance_norm_add if residual else instance_norm_prelu).launches += 1
+    counted = instance_norm_add if residual else instance_norm_prelu
+    if valid_hw is None:
+        counted.launches += 1
+    else:
+        counted.masked_launches += 1
     return out
 
 
@@ -214,12 +260,14 @@ class InstanceNormPReLUFunction(torch.autograd.Function):
     composition (the JAX package's ``_bwd`` does the same)."""
 
     @staticmethod
-    def forward(ctx, x, alpha):
+    def forward(ctx, x, alpha, valid_hw):
         ctx.save_for_backward(x, alpha)
+        ctx.valid_hw = valid_hw
         if not _on_device(x, "instance_norm_prelu"):
-            return instance_norm_prelu_reference(x, alpha)
+            return instance_norm_prelu_reference(x, alpha, valid_hw)
         check_kernel_inputs(x, alpha)
-        return _launch(x, alpha, residual=False)
+        check_valid_hw(x, valid_hw)
+        return _launch(x, alpha, False, valid_hw)
 
     @staticmethod
     def backward(ctx, grad):
@@ -227,9 +275,9 @@ class InstanceNormPReLUFunction(torch.autograd.Function):
         with torch.enable_grad():
             xd = x.detach().requires_grad_(True)
             ad = alpha.detach().requires_grad_(True)
-            y = instance_norm_prelu_reference(xd, ad)
+            y = instance_norm_prelu_reference(xd, ad, ctx.valid_hw)
         gx, ga = torch.autograd.grad(y, (xd, ad), grad)
-        return gx, ga
+        return gx, ga, None
 
 
 class InstanceNormAddFunction(torch.autograd.Function):
@@ -238,12 +286,14 @@ class InstanceNormAddFunction(torch.autograd.Function):
     backward kernel for it either)."""
 
     @staticmethod
-    def forward(ctx, x, skip):
+    def forward(ctx, x, skip, valid_hw):
         ctx.save_for_backward(x)
+        ctx.valid_hw = valid_hw
         if not _on_device(x, "instance_norm_add"):
-            return instance_norm_add_reference(x, skip)
+            return instance_norm_add_reference(x, skip, valid_hw)
         check_add_inputs(x, skip)
-        return _launch(x, skip, residual=True)
+        check_valid_hw(x, valid_hw)
+        return _launch(x, skip, True, valid_hw)
 
     @staticmethod
     def backward(ctx, grad):
@@ -252,27 +302,38 @@ class InstanceNormAddFunction(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             with torch.enable_grad():
                 xd = x.detach().requires_grad_(True)
-                y = instance_norm(xd, eps=EPS)
+                y = _norm(xd, ctx.valid_hw)
             (gx,) = torch.autograd.grad(y, xd, grad)
-        return gx, grad
+        return gx, grad, None
 
 
-def instance_norm_prelu(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
-    """Fused IN + PReLU of [B, C, H, W] x with a one-value slope.
+def instance_norm_prelu(
+    x: torch.Tensor, alpha: torch.Tensor, valid_hw: ValidHW = None
+) -> torch.Tensor:
+    """Fused IN + PReLU of [B, C, H, W] x with a one-value slope; masked to
+    each sample's valid region with ``valid_hw`` (int32 [B] tensors on x's
+    device), 0 in the padding.
 
-    ``instance_norm_prelu.launches`` counts the calls that launched the
-    CUDA kernel family (one a call, whichever form it took)."""
-    return InstanceNormPReLUFunction.apply(x, alpha)
+    ``instance_norm_prelu.launches`` counts the unmasked calls that launched
+    the CUDA kernel family, ``masked_launches`` the masked ones (one a
+    call, whichever form it took)."""
+    return InstanceNormPReLUFunction.apply(x, alpha, valid_hw)
 
 
-def instance_norm_add(x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+def instance_norm_add(
+    x: torch.Tensor, skip: torch.Tensor, valid_hw: ValidHW = None
+) -> torch.Tensor:
     """Fused ``instance_norm(x) + skip`` of [B, C, H, W] x and skip (on
-    CUDA: the same shape, dtype and channels_last layout).
+    CUDA: the same shape, dtype and channels_last layout); masked to each
+    sample's valid region with ``valid_hw``, skip in the padding.
 
-    ``instance_norm_add.launches`` counts the calls that launched the CUDA
-    kernel family (one a call, whichever form it took)."""
-    return InstanceNormAddFunction.apply(x, skip)
+    ``instance_norm_add.launches`` counts the unmasked calls that launched
+    the CUDA kernel family, ``masked_launches`` the masked ones (one a
+    call, whichever form it took)."""
+    return InstanceNormAddFunction.apply(x, skip, valid_hw)
 
 
 instance_norm_prelu.launches = 0
 instance_norm_add.launches = 0
+instance_norm_prelu.masked_launches = 0
+instance_norm_add.masked_launches = 0

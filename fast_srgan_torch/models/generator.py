@@ -22,6 +22,13 @@ parameters. The compute dtype is the parameters' dtype: cast the module
 dtype, and norm statistics stay fp32. Each kernel's wrapper picks its path
 from the tensor's device (the kernel on CUDA, the plain version on the
 CPU); there is no switch for it, as the JAX package's ``use_pallas`` is.
+
+``valid_hw`` (int32 [B] valid heights and widths, on the input's device)
+runs the exact masked forward of a zero-padded (bucketed) batch: every norm
+takes its statistics over each sample's valid region (the kernels' masked
+form), and the padding is re-zeroed after each bias, so each valid output
+pixel is what the unpadded forward gives. The output's padded margin is
+garbage; the caller crops it.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ from fast_srgan_torch.kernels.pixel_shuffle import (
     phase_major_index,
     pixel_shuffle_phase_major,
 )
+from fast_srgan_torch.ops.norm import valid_mask, zero_outside
 
 _STAGES = {2: 1, 4: 2, 8: 3}
 
@@ -61,9 +69,9 @@ class ResidualBlock(nn.Module):
         self.relu1 = nn.PReLU(1)  # its slope feeds the fused kernel
         self.conv2 = _conv3x3(n_filters, n_filters, bias=False)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = instance_norm_prelu(self.conv1(x), self.relu1.weight)
-        return instance_norm_add(self.conv2(y), x)
+    def forward(self, x: torch.Tensor, valid_hw=None) -> torch.Tensor:
+        y = instance_norm_prelu(self.conv1(x), self.relu1.weight, valid_hw)
+        return instance_norm_add(self.conv2(y), x, valid_hw)
 
 
 class UpSamplingBlock(nn.Module):
@@ -80,11 +88,18 @@ class UpSamplingBlock(nn.Module):
         self.relu = nn.PReLU(1)
         self.fused = fused
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask=None) -> torch.Tensor:
+        """``mask`` ([B, 1, H, W], x's resolution) re-zeroes the padding that
+        the conv's bias fills in, before the shuffle (which carries the
+        zeros to the 2x grid; channel order does not matter to it)."""
         if self.fused:
+            if mask is not None:
+                raise ValueError("fused upsample does not support masking")
             return fused_upsample(x, self.conv.weight, self.conv.bias, self.relu.weight)
         perm = phase_major_index(self.conv.out_channels, x.device)
         y = F.conv2d(x, self.conv.weight[perm], self.conv.bias[perm], padding=1)
+        if mask is not None:
+            y = zero_outside(y, mask)
         y = pixel_shuffle_phase_major(y.contiguous(memory_format=torch.channels_last))
         return prelu(y, self.relu.weight)
 
@@ -121,21 +136,33 @@ class Generator(nn.Module):
         )
         self.head = nn.Sequential(_conv3x3(n_filters, 3))
 
-    def trunk(self, x: torch.Tensor) -> torch.Tensor:
-        """neck -> stem -> bottleneck (+ long skip): the LR feature map."""
+    def trunk(self, x: torch.Tensor, valid_hw=None) -> torch.Tensor:
+        """neck -> stem -> bottleneck (+ long skip): the LR feature map;
+        masked with ``valid_hw``."""
         x = x.to(self.neck[0].weight.dtype)
-        residual = prelu(self.neck[0](x), self.neck[1].weight)
+        residual = self.neck[0](x)
+        if valid_hw is not None:  # re-zero what the bias filled in
+            residual = zero_outside(residual, valid_mask(x.shape[2], x.shape[3], *valid_hw)[0])
+        residual = prelu(residual, self.neck[1].weight)
         y = residual
         for block in self.stem:
-            y = block(y)
-        return instance_norm_add(self.bottleneck(y), residual)
+            y = block(y, valid_hw)
+        return instance_norm_add(self.bottleneck(y), residual, valid_hw)
 
-    def tail(self, y: torch.Tensor) -> torch.Tensor:
-        """The canonical upsampling tail and head on a trunk output."""
-        for stage in self.upsampling:
-            y = stage(y)
+    def tail(self, y: torch.Tensor, valid_hw=None) -> torch.Tensor:
+        """The canonical upsampling tail and head on a trunk output; masked
+        with ``valid_hw`` (the LR valid sizes), the mask rebuilt at 2x
+        between stages."""
+        for i, stage in enumerate(self.upsampling):
+            mask = None
+            if valid_hw is not None:
+                k = 2**i
+                mask = valid_mask(y.shape[2], y.shape[3], valid_hw[0] * k, valid_hw[1] * k)[0]
+            y = stage(y, mask)
         return torch.tanh(self.head(y).float())
 
-    def forward(self, x: torch.Tensor, trunk_only: bool = False) -> torch.Tensor:
-        y = self.trunk(x)
-        return y if trunk_only else self.tail(y)
+    def forward(
+        self, x: torch.Tensor, trunk_only: bool = False, valid_hw=None
+    ) -> torch.Tensor:
+        y = self.trunk(x, valid_hw)
+        return y if trunk_only else self.tail(y, valid_hw)

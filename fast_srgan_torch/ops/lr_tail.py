@@ -15,6 +15,12 @@ dense 3x3 conv at LR over the 16F phase-packed channels emitting
 exists except the output. 2x is the one-stage analogue; 8x runs stage 0
 canonically and the 4x transform at 2x resolution.
 
+With a mask (the bucketed forward, ``generator_apply_lr_tail(valid_hw=)``)
+the padding is re-zeroed after stage 1 and after each phase: the whole tail
+stays at LR, so one LR mask serves every stage (8x: the 2x mask, each LR
+pixel repeated 2x2). Bias and PReLU run fused in the conv here, so the mask
+comes after the PReLU, which is the same for a 0/1 mask (PReLU(0) = 0).
+
 The rearranged kernels are built once, by :func:`prepare_lr_tail`, when the
 weights load, as tensors in the compute dtype on the device. (The JAX
 package rebuilds them inside every call because its params are jit inputs.)
@@ -28,6 +34,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from fast_srgan_torch.ops.norm import valid_mask, zero_outside
 
 # --- kernel rearrangements (HWIO, as in the JAX package) --------------------
 
@@ -222,20 +230,29 @@ def _summed_head(
     return z + bias32.view(1, -1, 1, 1)
 
 
-def lr_tail(y: torch.Tensor, w: Dict[str, Any], head: str = "auto") -> torch.Tensor:
+def _masked(v: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    return v if mask is None else zero_outside(v, mask)
+
+
+def lr_tail(
+    y: torch.Tensor, w: Dict[str, Any], head: str = "auto",
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
     """The 4x tail at LR: trunk output [B, F, H, W] -> [B, 3, 4H, 4W] fp32.
 
     ``w`` is :func:`prepare_lr_tail` of a 4x model. ``head``: ``"summed"``
     (the head as four partial convs, one per phase, summed in fp32; the
     [B, 16F, H, W] concat never exists), ``"concat"`` (one dense head conv
     over the concat) or ``"auto"`` (:func:`head_form_4x`). Both are exact.
+    ``mask`` ([B, 1, H, W]) re-zeroes the padding after each stage.
     """
     if head == "auto":
         head = head_form_4x(y.shape[0], y.shape[2] * y.shape[3])
     if head not in ("summed", "concat"):
         raise ValueError(f"head must be 'summed'/'concat'/'auto': {head!r}")
-    a1 = _conv_prelu(y.to(w["head_w"].dtype), w["up0"])  # [B, 4F, H, W]
-    phases = _phase_outputs(a1, w["phases"], w["up1_b"], w["up1_a"])
+    a1 = _masked(_conv_prelu(y.to(w["head_w"].dtype), w["up0"]), mask)  # [B, 4F, H, W]
+    phases = [_masked(ph, mask)
+              for ph in _phase_outputs(a1, w["phases"], w["up1_b"], w["up1_a"])]
     if head == "concat":
         a2 = torch.cat(phases, dim=1)  # [B, 16F, H, W], phase-major
         z = F.conv2d(a2, w["head_w"], padding=1).float() + w["head_b"].view(1, -1, 1, 1)
@@ -244,32 +261,45 @@ def lr_tail(y: torch.Tensor, w: Dict[str, Any], head: str = "auto") -> torch.Ten
     return F.pixel_shuffle(torch.tanh(z), 4)
 
 
-def lr_tail_2x(y: torch.Tensor, w: Dict[str, Any]) -> torch.Tensor:
+def lr_tail_2x(
+    y: torch.Tensor, w: Dict[str, Any], mask: Optional[torch.Tensor] = None
+) -> torch.Tensor:
     """The 2x tail at LR: one stage-1 conv, one dense head conv emitting the
     4 sub-pixel phases, one PixelShuffle(2)."""
-    a1 = _conv_prelu(y.to(w["head_w"].dtype), w["up0"])  # [B, 4F, H, W]
+    a1 = _masked(_conv_prelu(y.to(w["head_w"].dtype), w["up0"]), mask)  # [B, 4F, H, W]
     z = F.conv2d(a1, w["head_w"], w["head_b"], padding=1)
     return F.pixel_shuffle(torch.tanh(z.float()), 2)
 
 
-def lr_tail_8x(y: torch.Tensor, w: Dict[str, Any]) -> torch.Tensor:
+def mask_2x(mask: torch.Tensor) -> torch.Tensor:
+    """An LR mask at 2x: each pixel repeated 2x2 (valid region 2vh x 2vw)."""
+    return mask.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
+
+
+def lr_tail_8x(
+    y: torch.Tensor, w: Dict[str, Any], mask: Optional[torch.Tensor] = None
+) -> torch.Tensor:
     """The 8x tail with at most 2x-resolution tensors: stage 0 canonical
     (conv at LR, shuffle, PReLU), then the 4x transform at 2x resolution
-    with the summed head (the JAX package pins it there)."""
+    with the summed head (the JAX package pins it there). Masked: stage 0's
+    padding re-zeroed at LR before the shuffle, then the 2x mask."""
     st = w["up0"]
     y = y.to(st["w"].dtype)
-    y2 = F.prelu(F.pixel_shuffle(F.conv2d(y, st["w"], st["b"], padding=1), 2), st["a"])
-    return lr_tail(y2, w["sub"], head="summed")
+    a0 = _masked(F.conv2d(y, st["w"], st["b"], padding=1), mask)
+    y2 = F.prelu(F.pixel_shuffle(a0, 2), st["a"])
+    return lr_tail(y2, w["sub"], head="summed", mask=None if mask is None else mask_2x(mask))
 
 
 def generator_apply_lr_tail(
-    model, tail: Dict[str, Any], x: torch.Tensor
+    model, tail: Dict[str, Any], x: torch.Tensor, valid_hw=None
 ) -> torch.Tensor:
     """``model(x)`` with the LR-domain tail; ``tail`` is
-    :func:`prepare_lr_tail` of the same model."""
-    y = model.trunk(x)
+    :func:`prepare_lr_tail` of the same model. ``valid_hw`` runs the masked
+    forward (``Generator.forward``)."""
+    y = model.trunk(x, valid_hw)
+    mask = None if valid_hw is None else valid_mask(y.shape[2], y.shape[3], *valid_hw)[0]
     if model.scale_factor == 4:
-        return lr_tail(y, tail)  # head form by head_form_4x
+        return lr_tail(y, tail, mask=mask)  # head form by head_form_4x
     if model.scale_factor == 2:
-        return lr_tail_2x(y, tail)
-    return lr_tail_8x(y, tail)
+        return lr_tail_2x(y, tail, mask)
+    return lr_tail_8x(y, tail, mask)

@@ -30,6 +30,13 @@ mapped through the same channel packing. The JAX package rebuilds these in
 every call only because its params are jit inputs. Activations are NCHW
 tensors in channels_last memory, as everywhere in the port.
 
+The masked int8 forward of a zero-padded (bucketed) batch
+(:func:`sr_quant_forward_masked`) runs the masked float trunk
+(``Generator.trunk(x, valid_hw)``), so it takes the ``ups`` and ``tail``
+modes only, then the int8 tail with its padding re-zeroed after each stage:
+a masked zero quantizes to int8 zero, so the int8 convs see the zeros the
+unpadded forward's conv padding gives.
+
 The float form of the same executor (:func:`sr_float_forward`) is the
 calibration instrument and the topology oracle: tests hold it to the JAX
 function and to ``generator_apply_lr_tail``.
@@ -56,11 +63,14 @@ from fast_srgan_torch.kernels.quantize import quantize_act
 from fast_srgan_torch.ops.lr_tail import (
     _head_kernel_2x,
     _head_kernel_4x,
+    _masked,
     _phase_kernels_2x,
     _phase_outputs,
     _prepared,
     _summed_head,
+    mask_2x,
 )
+from fast_srgan_torch.ops.norm import valid_mask
 from fast_srgan_torch.ops.precision import cudnn_without_tf32
 
 # -- weight quantization ------------------------------------------------------
@@ -357,22 +367,26 @@ def _trunk(lay, ex: _Exec, x: torch.Tensor, n_layers: int) -> torch.Tensor:
     return instance_norm_add(ex.conv(y, "bottleneck", lay["bottleneck"]), r)
 
 
-def _tail_4x(lay, ex: _Exec, y: torch.Tensor, n0: str = "up0", n1: str = "up1"):
+def _tail_4x(lay, ex: _Exec, y: torch.Tensor, n0: str = "up0", n1: str = "up1",
+             mask: Optional[torch.Tensor] = None):
     """The 4x LR-domain tail. An int8 stage 2 takes its input quantized in
     stage 1's epilogue and runs its four phases in one launch. The head is
     phase-summed with fp32 partials when it is float and nothing is
     collecting; calibration and an int8 head take the 16F phase concat
-    (per-conv-input statistics are defined on it)."""
+    (per-conv-input statistics are defined on it). ``mask`` re-zeroes the
+    padding of stage 1's output (in int8, after its epilogue's quantize)
+    and of each phase."""
     st = lay[n1]
     if "phases_q" in st:  # a quantized plan: nothing collects
-        a1q = ex.conv(y, n0, lay[n0], quantize_for=n1)  # [B, 4F, H, W] int8
+        a1q = _masked(ex.conv(y, n0, lay[n0], quantize_for=n1), mask)  # [B, 4F, H, W] int8
         phases = int8_conv_phases(
             a1q, st["phases_q"], st["ws"], ex.scales[n1], st["b"], st["a"], ex.glue
         )
     else:
-        a1 = ex.conv(y, n0, lay[n0])  # [B, 4F, H, W], bias and PReLU applied
+        a1 = _masked(ex.conv(y, n0, lay[n0]), mask)  # [B, 4F, H, W], bias and PReLU applied
         ex.observe(n1, a1)
         phases = _phase_outputs(a1, st["phases"], st["b"], st["a"])
+    phases = [_masked(ph, mask) for ph in phases]
     head = lay["head"]
     if "parts" in head and ex.collect is None:
         z = _summed_head(phases, head["parts"], head["b32"])
@@ -382,17 +396,19 @@ def _tail_4x(lay, ex: _Exec, y: torch.Tensor, n0: str = "up0", n1: str = "up1"):
     return F.pixel_shuffle(torch.tanh(z), 4)
 
 
-def _tail_2x(lay, ex: _Exec, y: torch.Tensor) -> torch.Tensor:
-    a1 = ex.conv(y, "up0", lay["up0"])
+def _tail_2x(lay, ex: _Exec, y: torch.Tensor, mask=None) -> torch.Tensor:
+    a1 = _masked(ex.conv(y, "up0", lay["up0"]), mask)
     z = ex.conv(a1, "head", lay["head"])  # + the repeated bias, in glue
     return F.pixel_shuffle(torch.tanh(z.float()), 2)
 
 
-def _tail_8x(lay, ex: _Exec, y: torch.Tensor) -> torch.Tensor:
+def _tail_8x(lay, ex: _Exec, y: torch.Tensor, mask=None) -> torch.Tensor:
     """Stage 0 canonical (the one-slope PReLU commutes with the shuffle),
-    then the 4x transform at 2x resolution with the stage names shifted."""
-    y2 = F.pixel_shuffle(ex.conv(y, "up0", lay["up0"]), 2)
-    return _tail_4x(lay, ex, y2.contiguous(memory_format=torch.channels_last), "up1", "up2")
+    then the 4x transform at 2x resolution with the stage names shifted
+    (masked: the LR mask before the shuffle, then the 2x mask)."""
+    y2 = F.pixel_shuffle(_masked(ex.conv(y, "up0", lay["up0"]), mask), 2)
+    return _tail_4x(lay, ex, y2.contiguous(memory_format=torch.channels_last), "up1", "up2",
+                    None if mask is None else mask_2x(mask))
 
 
 _TAILS = {2: _tail_2x, 4: _tail_4x, 8: _tail_8x}
@@ -436,6 +452,30 @@ def sr_quant_forward(
         raise ValueError("sr_quant_forward takes a plan prepared with a mode")
     ex = _Exec(act_scales, None, plan.glue)
     return _forward(plan, ex, x.to(plan.glue))
+
+
+def sr_quant_forward_masked(
+    plan: PreparedGenerator,
+    act_scales: Dict[str, torch.Tensor],
+    x: torch.Tensor,
+    valid_hw: Tuple[torch.Tensor, torch.Tensor],
+) -> torch.Tensor:
+    """Masked (bucketed-exact) int8 forward of a zero-padded batch: the
+    masked float trunk, then the int8 tail with the padding re-zeroed.
+    ``valid_hw`` is (valid_h, valid_w), int32 [B] tensors on the plan's
+    device. Raises for the ``full`` and ``trunk`` modes: the masked norms'
+    per-sample statistics run on the float trunk only."""
+    if plan.mode is None:
+        raise ValueError("sr_quant_forward_masked takes a plan prepared with a mode")
+    if plan.trunk is None:
+        raise ValueError(
+            f"masked int8 requires a float trunk (the ups/tail modes), not {plan.mode!r}:"
+            " the per-sample masked instance-norm statistics are float-path only"
+        )
+    y = plan.trunk(x.to(plan.glue), valid_hw)
+    mask = valid_mask(y.shape[2], y.shape[3], *valid_hw)[0]
+    ex = _Exec(act_scales, None, plan.glue)
+    return _TAILS[plan.scale_factor](plan.layers, ex, y, mask=mask)
 
 
 def default_calibration_batch(

@@ -18,6 +18,11 @@ ulps: the plain version rounds after the conv and again after the bias),
 in both forms (with the PReLU, and the backward's pre-activation), at both
 widths (4C = 256 and 64); gradients fp32 rtol 1e-5, bf16 under autocast 3e-2
 of each one's max-abs.
+The masked forms (a zero-padded batch, statistics over each sample's
+valid region) are held to the same bars, with the padding exactly 0
+(IN+PReLU) or equal to skip (IN + add), in both forms; the bucketed engine
+and ``stream`` on the card: fp32 bucketed within 1 count of the CPU,
+``stream`` bitwise equal to ``upscale_batch`` on the same batches.
 Pixel shuffle: bitwise. int8 activation quantize and s8 x s8 -> s32 conv
 (with its dequantize + bias + PReLU epilogue, bf16 and fp32 glue, the
 fused requantize and the four-phase launch): bitwise;
@@ -595,3 +600,122 @@ def test_int8_engine_launches_and_matches_cpu(device):
     b = cpu.upscale_batch(images).astype(np.int16)
     diff = np.abs(a - b)  # the bounded-flip contract, fp32 glue
     assert diff.max() <= 3 and (diff > 1).mean() < 0.02
+
+
+# --- masked IN forms, the bucketed engine and stream -----------------------
+
+def _valid_hw(device, sizes):
+    vh = torch.tensor([h for h, _ in sizes], dtype=torch.int32, device=device)
+    vw = torch.tensor([w for _, w in sizes], dtype=torch.int32, device=device)
+    return vh, vw
+
+
+# (padded shape, valid sizes a sample): the serving bucket (resident in
+# bf16), a 540x960 frame in its 544x960 bucket (two launches), ragged
+_MASKED_CASES = [
+    ((8, 64, 192, 320), [(180, 320), (192, 320), (150, 300), (33, 47)] * 2),
+    ((1, 64, 544, 960), [(540, 960)]),
+    ((3, 64, 37, 53), [(37, 53), (20, 11), (1, 1)]),
+]
+
+
+@pytest.mark.parametrize("shape,sizes", _MASKED_CASES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("residual", [False, True])
+def test_masked_kernel_matches_plain(device, shape, sizes, dtype, residual):
+    from fast_srgan_torch.ops.norm import valid_mask
+
+    x = _activation(device, shape, dtype, seed=sum(shape) + 3)  # nonzero padding too
+    valid = _valid_hw(device, sizes)
+    fn = instance_norm_add if residual else instance_norm_prelu
+    plain = instance_norm_add_reference if residual else instance_norm_prelu_reference
+    other = _skip(device, shape, dtype, seed=5) if residual else torch.tensor([0.173], device=device)
+    tol = (3e-2 if residual else 2e-2) if dtype == torch.bfloat16 else 2e-5
+    before = fn.launches, fn.masked_launches
+    got = fn(x, other, valid)
+    want = plain(x, other, valid)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.masked_launches) == (before[0], before[1] + 1)
+    assert got.dtype == dtype and got.is_contiguous(memory_format=torch.channels_last)
+    pad = (valid_mask(shape[2], shape[3], *valid)[0] == 0).expand(shape)
+    assert torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    if residual:
+        assert torch.equal(got[pad], other[pad])
+    else:
+        assert torch.all(got[pad] == 0)
+
+
+def test_masked_rejects(device):
+    x = _activation(device, (2, 64, 5, 7), torch.bfloat16, seed=0)
+    a = torch.tensor([0.2], device=device)
+    with pytest.raises(ValueError, match="int32"):
+        instance_norm_prelu(x, a, (torch.ones(2, device=device, dtype=torch.int64),) * 2)
+    with pytest.raises(ValueError, match="x's device"):
+        instance_norm_prelu(x, a, _valid_hw("cpu", [(5, 7), (5, 7)]))
+
+
+def test_masked_generator_launch_counts(device):
+    from fast_srgan_torch.models.generator import Generator
+
+    model = Generator().to(device, torch.bfloat16, memory_format=torch.channels_last).eval()
+    x = torch.rand((3, 3, 32, 48), device=device).contiguous(memory_format=torch.channels_last)
+    counters = (instance_norm_prelu, instance_norm_add)
+    before = [(f.launches, f.masked_launches) for f in counters]
+    with torch.inference_mode():
+        out = model(x, valid_hw=_valid_hw(device, [(32, 48), (20, 30), (7, 9)]))
+    torch.cuda.synchronize()
+    got = [(f.launches - b[0], f.masked_launches - b[1]) for f, b in zip(counters, before)]
+    assert got == [(0, 8), (0, 9)]
+    assert out.shape == (3, 3, 128, 192) and torch.isfinite(out).all()
+
+
+@pytest.fixture
+def pretrained():
+    from fast_srgan_torch.checkpoints.npz_io import load_npz_params
+
+    return load_npz_params("models/generator_pretrained.npz")
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+def test_bucketed_engine_fp32_card_matches_cpu(device, pretrained, quantize):
+    from fast_srgan_torch.inference import SRInferenceEngine
+
+    rng = np.random.default_rng(3)
+    images = [rng.integers(0, 256, s + (3,), dtype=np.uint8) for s in ((24, 40), (17, 50), (32, 33))]
+    card = SRInferenceEngine(pretrained, device=device, dtype=torch.float32, bucket=32,
+                             quantize=quantize, calib_batches=[images[0]] if quantize else None)
+    cpu = SRInferenceEngine(pretrained, device="cpu", dtype=torch.float32, bucket=32,
+                            quantize=quantize,
+                            act_scales={k: v.cpu() for k, v in card.act_scales.items()}
+                            if quantize else None)
+    before = instance_norm_prelu.masked_launches, instance_norm_add.masked_launches
+    got = card.upscale_images(images, batch_size=8)
+    assert card.forward_calls == 1  # one 32x64 bucket
+    assert (instance_norm_prelu.masked_launches - before[0],
+            instance_norm_add.masked_launches - before[1]) == (8, 9)
+    for a, b in zip(got, cpu.upscale_images(images, batch_size=8)):
+        d = np.abs(a.astype(np.int16) - b.astype(np.int16))
+        if quantize:  # the bounded-flip contract, fp32 glue
+            assert d.max() <= 3 and (d > 1).mean() < 0.02
+        else:
+            assert d.max() <= 1
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_stream_is_bitwise_upscale_batch(device, pretrained, dtype):
+    from fast_srgan_torch.inference import SRInferenceEngine
+
+    engine = SRInferenceEngine(pretrained, device=device, dtype=dtype)
+    frames = list(np.random.default_rng(4).integers(0, 256, (11, 24, 40, 3), dtype=np.uint8))
+    got = list(engine.stream(iter(frames), batch_size=4))  # 4, 4 and a trailing 3
+    want = np.concatenate([engine.upscale_batch(np.stack(frames[i:i + 4]))
+                           for i in range(0, 11, 4)])
+    assert len(got) == 11
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w)
+    # an abandoned stream leaves nothing in flight behind
+    it = engine.stream(iter(frames), batch_size=2)
+    next(it)
+    it.close()
+    torch.cuda.synchronize()

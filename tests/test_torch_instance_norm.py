@@ -321,9 +321,9 @@ class TestCallSites:
         calls = []
         wrapper = module.instance_norm_add
 
-        def counting(x, skip):
+        def counting(x, skip, valid_hw=None):
             calls.append(x.shape)
-            return wrapper(x, skip)
+            return wrapper(x, skip, valid_hw)
 
         monkeypatch.setattr(module, "instance_norm_add", counting)
         return calls

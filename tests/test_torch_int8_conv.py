@@ -213,9 +213,10 @@ class TestTiledWeights:
         assert tiled.shape == (1, 1, 9, 2, 64, 16)  # Cin 16 zero-filled to 32
 
 
-def _unfused_tail_4x(lay, ex, y, n0="up0", n1="up1"):
+def _unfused_tail_4x(lay, ex, y, n0="up0", n1="up1", mask=None):
     """The int8 4x tail unfused: stage 1 in the glue dtype, a separate
-    quantize of its output, four single-phase convs."""
+    quantize of its output, four single-phase convs (unmasked)."""
+    assert mask is None
     a1 = ex.conv(y, n0, lay[n0])
     st = lay[n1]
     if "phases_q" in st:

@@ -176,9 +176,9 @@ def test_use_pallas_leaves_the_stem_on_the_dispatching_wrapper(
     calls = []
     wrapper = generator_module.instance_norm_prelu
 
-    def counting(x, alpha):
+    def counting(x, alpha, valid_hw=None):
         calls.append(x.shape)
-        return wrapper(x, alpha)
+        return wrapper(x, alpha, valid_hw)
 
     monkeypatch.setattr(generator_module, "instance_norm_prelu", counting)
     cfg = default_config(**tiny(), kernels={"use_pallas": use_pallas})
