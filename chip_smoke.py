@@ -77,8 +77,26 @@ own line; any failure exits non-zero and prints no result:
      phase 6's staged number, and bucketed against unbucketed frames/s at
      180x320 (padded to 192x320) (indicative).
 
+ 12. trainer: ``python -m fast_srgan_torch.train`` in-process on the card
+     (its ``main``) at the reference widths (64/8 4x G, 64-filter D, VGG19
+     with fixed-seed weights, bf16, the fused upsample, batch 24 of 96x96
+     crops) on 16 PNGs of 256x256 written from a seed: 20 pretrain + 10 GAN
+     steps, checkpoints every 10, logs every 5, the .pt export. Checks: the
+     native crop loader ran; metrics.jsonl holds the reference's tags,
+     finite PSNR and SSIM in [-1, 1]; the pretrain loss falls; the four
+     exports load strictly into the port's modules and torch AdamW; exact
+     launch counts with validation and panel forwards. A second launch with
+     training.iterations=15 resumes at step 10 and runs 5 GAN steps (rows
+     and launches). Then every training option on through build_bundle (5 +
+     5 steps, exact launches with remat's recomputed blocks), and fp32
+     parity (TF32 off) of one pretrain and one GAN step with grad_clip,
+     ema_decay, cosine, grad_accum=2 and remat, kernels on the card against
+     the plain versions on the CPU: losses and EMA within 1e-5. Prints ms a
+     step through the trainer beside phase 9's bare steps, and ms a
+     validation pass (indicative).
+
 Phases 7 and 8 run right after phase 3, phase 10 after phase 6, phase 11
-after phase 10, phase 9 last.
+after phase 10, phase 9 and then 12 last.
 
 The line before the last is a JSON object describing each kernel (its
 bound: the larger of its bytes over 3.35 TB/s and its operations over the
@@ -129,6 +147,8 @@ UPSAMPLE_BF16_TOL = 3e-2
 GRAD_RTOL = 1e-5
 PARITY_RTOL = 1e-5
 PRETRAIN_STEPS, GAN_STEPS = 20, 10
+# phase 12's trainer run: pretrain and GAN steps
+TRAINER_STEPS = (20, 10)
 # int8 against fp32, uint8 PSNR on tests/test_quant.py's input (the
 # synthetic batch 2x48x64, seed 3): ups is its bar, full its full-int8 bar;
 # tail (fewer int8 layers than full, no trunk ones) takes ups's, trunk
@@ -196,6 +216,23 @@ def cuda_ms(fn, iters: int) -> float:
     start.record()
     for _ in range(iters):
         graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def events_ms(fn, iters: int) -> float:
+    """Mean device milliseconds per call of fn(), by CUDA events around
+    back-to-back calls (no graph): for library calls that are long beside
+    their launch."""
+    for _ in range(3):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
@@ -577,12 +614,22 @@ def phase_int8_kernels(card: str) -> tuple:
             if shape[0] == 8 and dtype == torch.bfloat16:
                 ms, plain_ms = _timed_pair(lambda: quantize_act(x, s),
                                            lambda: quantize_act_reference(x, s))
+                # yardstick, not the same function: torch.quantize_per_tensor
+                # takes fp32 only, computes round(x / (s / 127)) where the
+                # kernel computes round(x * (127 / s)), and clamps to
+                # [-128, 127] where the kernel clamps to [-127, 127]
+                x32 = x.float()
+                yard_ms = events_ms(
+                    lambda: torch.quantize_per_tensor(x32, 3.7 / 127, 0, torch.qint8), 20)
+                del x32
                 quant_row = {"max_abs_err": (got.float() - want.float()).abs().max().item(),
                              "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                             "quantize_per_tensor_fp32_ms": yard_ms,
                              **bound(x.numel() * (x.element_size() + 1), 0, INT8_OPS)}
             print(
                 f"[10 kernel] quantize {label} {dtype} {list(shape)}: bitwise equal {equal}"
-                + (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms" if ms else ""),
+                + (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; yardstick"
+                   f" torch.quantize_per_tensor on the fp32 copy {yard_ms:.4f} ms" if ms else ""),
                 flush=True,
             )
             check(equal, f"quantize {label} {dtype} differs from its plain version")
@@ -931,16 +978,26 @@ def phase_shuffle_kernel() -> tuple:
         equal = torch.equal(got, want)
         ms = plain_ms = None
         if shape[0] == 24:
+            b, c4, h, w = shape
+
+            def library():  # the one strided copy (NCHW-contiguous output)
+                return x.view(b, 2, 2, c4 // 4, h, w).permute(0, 3, 4, 1, 5, 2).reshape(
+                    b, c4 // 4, 2 * h, 2 * w)
+
+            check(torch.equal(library(), got), "the strided-copy shuffle differs from the kernel")
             ms, plain_ms = _timed_pair(
                 lambda: pixel_shuffle_phase_major(x),
                 lambda: pixel_shuffle_phase_major_reference(x),
             )
+            library_ms = cuda_ms(library, 20)
             row = {"max_abs_err": (got.float() - want.float()).abs().max().item(),
-                   "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                   "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                    **bound(2 * x.numel() * x.element_size(), 0, BF16_FLOPS)}
         print(
             f"[8 kernel] pixel shuffle bf16 {list(shape)}: bitwise equal {equal}"
-            + (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms" if ms else ""),
+            + (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, the strided copy"
+               f" x.view(B,2,2,C,H,W).permute(0,3,4,1,5,2).reshape(B,C,2H,2W)"
+               f" {library_ms:.4f} ms" if ms else ""),
             flush=True,
         )
         check(equal, f"pixel shuffle {list(shape)} differs from its plain version")
@@ -1020,9 +1077,10 @@ def _train_config(fused: bool, bf16: bool = True):
     )
 
 
-def _run_training_arm(fused: bool, batch: torch.Tensor, card: str) -> list:
+def _run_training_arm(fused: bool, batch: torch.Tensor, card: str) -> tuple:
     """20 pretrain + 10 GAN steps; returns the launches of the four kernels
-    and then the fused upsample's backward (pre-activation) launches."""
+    and then the fused upsample's backward (pre-activation) launches, and
+    the ms a step of each kind."""
     from fast_srgan_torch.kernels.fused_upsample import fused_upsample
     from fast_srgan_torch.kernels.instance_norm import instance_norm_add, instance_norm_prelu
     from fast_srgan_torch.kernels.pixel_shuffle import pixel_shuffle_phase_major
@@ -1074,7 +1132,7 @@ def _run_training_arm(fused: bool, batch: torch.Tensor, card: str) -> list:
         f"{arm}: non-finite GAN metrics",
     )
     check(launches == want, f"{arm}: launches {launches} != {want}")
-    return launches
+    return launches, ms
 
 
 def phase_training(card: str) -> tuple:
@@ -1083,8 +1141,8 @@ def phase_training(card: str) -> tuple:
     rng = np.random.default_rng(4)
     crops = np.stack([make_frame(rng, 96, 96) for _ in range(24)])
     batch = torch.from_numpy(crops).to("cuda")
-    fused = _run_training_arm(True, batch, card)
-    unfused = _run_training_arm(False, batch, card)
+    fused, fused_ms = _run_training_arm(True, batch, card)
+    unfused, _ = _run_training_arm(False, batch, card)
 
     # fp32, TF32 off: one pretrain step from the same state (the same seed
     # draws the same weights), with the kernels (IN+PReLU, IN+add, fused
@@ -1114,7 +1172,248 @@ def phase_training(card: str) -> tuple:
         flush=True,
     )
     check(rel <= PARITY_RTOL, f"fp32 kernels vs plain loss: rel {rel}")
-    return fused, unfused
+    return fused, unfused, fused_ms
+
+
+def _fused_counts(n_layers: int, forwards: int, backwards: int, recomputed: int = 0) -> dict:
+    """Launches of the fused-upsample generator: n_layers IN+PReLU, n_layers
+    + 1 IN+add and two upsample stages a forward; two pre-activation
+    launches a backward; with remat, n_layers of each IN again for each
+    forward whose blocks the backward recomputes. No other kernel."""
+    counts = dict.fromkeys(_counters(), 0)
+    counts.update({"in_prelu": n_layers * (forwards + recomputed),
+                   "in_add": (n_layers + 1) * forwards + n_layers * recomputed,
+                   "upsample": 2 * forwards, "upsample_backward": 2 * backwards})
+    return counts
+
+
+def _trainer_args(root: str, iterations: int) -> list:
+    """The CLI's overrides for phase 12: the reference widths (64/8 4x G,
+    64-filter D, batch 24 of 96x96 crops, bf16) from configs/config.yaml,
+    VGG19 with fixed-seed weights, the fused upsample."""
+    return ["--device", "cuda", f"hydra.run.dir={root}/run",
+            f"data.image_dir={root}/images", f"data.numpy_dir={root}/npy",
+            "experiment.name=smoke", "training.vgg_weights=init",
+            "kernels.use_pallas=true", "kernels.fused_upsample=true",
+            f"training.pretrain_iterations={TRAINER_STEPS[0]}",
+            f"training.iterations={iterations}", "training.checkpoint_iter=10",
+            "training.log_iter=5", "training.export_pt=true"]
+
+
+def _metric_rows(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def _ms_between_logs(rows: list, tag: str, spans) -> float:
+    """ms a step between the log rows of ``tag`` at the ends of each span
+    (first, last]: each row is written after its loss was read back, so an
+    interval holds exactly its steps, loader and host included."""
+    at = {r["step"]: r["time"] for r in rows if r["tag"] == tag}
+    return float(np.mean([1000 * (at[b] - at[a]) / (b - a) for a, b in spans]))
+
+
+def phase_trainer(card: str, bare_ms: dict) -> dict:
+    """12: python -m fast_srgan_torch.train in-process on the card, then a
+    resumed launch; the options arm and fp32 parity through build_bundle.
+    Returns the trainer run's launches."""
+    import shutil
+
+    from fast_srgan_torch.models.discriminator import Discriminator
+    from fast_srgan_torch.models.generator import Generator
+    from fast_srgan_torch.train.__main__ import main as train_main
+    from fast_srgan_torch.utils.images import save_image_u8
+
+    root = os.path.join(REPO, ".chip_tmp", "trainer")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(os.path.join(root, "images"))
+    rng = np.random.default_rng(12)
+    n_images = 16
+    for i in range(n_images):
+        save_image_u8(os.path.join(root, "images", f"{i:04d}.png"), make_frame(rng, 256, 256))
+    cwd = os.getcwd()
+    _zero_counts()
+    try:
+        t0 = time.perf_counter()
+        trainer, sampler = train_main(_trainer_args(root, TRAINER_STEPS[1]))
+        wall_s = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    counts = _read_counts()
+    n_layers = trainer.config.generator.n_layers
+    batch = trainer.config.training.batch_size
+    steps = sum(TRAINER_STEPS)
+    # validation: pretrain at steps 0, 10, 20 and GAN at 0, 10, each
+    # ceil(16 / 24) batches; panels at pretrain 10, 20 and GAN 10
+    val_forwards = 5 * -(-n_images // batch)
+    want = _fused_counts(n_layers, steps + val_forwards + 3, steps)
+    run_dir = os.path.join(root, "run", "runs", "smoke")
+    rows = _metric_rows(os.path.join(run_dir, "metrics.jsonl"))
+    tags = {r["tag"] for r in rows}
+    need = {"Pretrain/Generator/Loss", "Pretrain/PSNR", "Pretrain/SSIM",
+            "Loss/Discriminator/Real", "Loss/Discriminator/Fake",
+            "Loss/Generator/Adversarial", "Loss/Generator/Content", "GAN/PSNR", "GAN/SSIM"}
+    psnrs = [r["value"] for r in rows if r["tag"].endswith("/PSNR")]
+    ssims = [r["value"] for r in rows if r["tag"].endswith("/SSIM")]
+    losses = [r["value"] for r in rows if r["tag"] == "Pretrain/Generator/Loss"]
+    # steps 6..10 of each phase: no validation, no checkpoint before them;
+    # pretrain steps 16..20 follow the step-10 checkpoint, whose write runs
+    # in the background beside them
+    ms = {"pretrain": _ms_between_logs(rows, "Pretrain/Generator/Loss", [(5, 10)]),
+          "gan": _ms_between_logs(rows, "Loss/Generator/Content", [(5, 10)])}
+    after_ckpt_ms = _ms_between_logs(rows, "Pretrain/Generator/Loss", [(15, 20)])
+    val_ms = 1000 * float(np.mean(trainer.validate_seconds[1:]))
+    print(f"[12 trainer] python -m fast_srgan_torch.train, {TRAINER_STEPS[0]} pretrain +"
+          f" {TRAINER_STEPS[1]} GAN steps of batch {batch} (64/8 4x G, 64-filter D, VGG init,"
+          f" bf16, fused upsample) on {n_images} PNGs of 256x256: {wall_s:.1f} s; crop loader"
+          f" {sampler.backend}; pretrain loss {losses[0]:.5f} -> {losses[-1]:.5f}; PSNR"
+          f" {psnrs[0]:.2f} -> {psnrs[-1]:.2f} dB, SSIM {ssims[0]:.4f} -> {ssims[-1]:.4f};"
+          f" launches {counts} (want {want})", flush=True)
+    print(f"[12 trainer] ms a step through the trainer (loader, H2D, logging included),"
+          f" steps 6..10: pretrain {ms['pretrain']:.2f}, GAN {ms['gan']:.2f} (pretrain"
+          f" steps 16..20, beside the step-10 checkpoint's write: {after_ckpt_ms:.2f});"
+          f" phase 9's bare steps"
+          f" (fused arm): pretrain {bare_ms['pretrain']:.2f}, GAN {bare_ms['gan']:.2f};"
+          f" trainer/bare {ms['pretrain'] / bare_ms['pretrain']:.3f},"
+          f" {ms['gan'] / bare_ms['gan']:.3f}; a validation pass ({n_images} images)"
+          f" {val_ms:.2f} ms ({card}; indicative)", flush=True)
+    check(sampler.backend == "native", f"the crop loader ran {sampler.backend}, not native")
+    check(need <= tags, f"metrics.jsonl lacks {sorted(need - tags)}")
+    check(all(np.isfinite(psnrs)), f"PSNR not finite: {psnrs}")
+    check(all(-1.0 <= v <= 1.0 for v in ssims), f"SSIM outside [-1, 1]: {ssims}")
+    check(losses[-1] < losses[0], f"the pretrain loss did not fall: {losses}")
+    check(counts == want, f"trainer launches {counts} != {want}")
+
+    # the reference-format export loads strictly into the port's modules
+    step = TRAINER_STEPS[1]
+    cfg = trainer.config
+    g = Generator(n_filters=cfg.generator.n_filters, n_layers=n_layers,
+                  scale_factor=cfg.data.scale_factor)
+    d = Discriminator(n_filters=cfg.discriminator.n_filters)
+    for model, name in ((g, "generator"), (d, "discriminator")):
+        path = os.path.join(run_dir, f"{name}_epoch_{step}.pt")
+        model.load_state_dict(torch.load(path, map_location="cpu", weights_only=True), strict=True)
+        opt = torch.optim.AdamW(model.parameters(), lr=1.0)
+        opt.load_state_dict(torch.load(os.path.join(run_dir, f"{name}_optim_epoch_{step}.pt"),
+                                       map_location="cpu", weights_only=True))
+        taken = int(opt.state_dict()["state"][0]["step"])
+        check(taken == step + (TRAINER_STEPS[0] if name == "generator" else 0),
+              f"{name} optimizer exported at {taken} updates")
+
+    # a second launch with a larger budget resumes at step 10: 5 GAN steps
+    _zero_counts()
+    try:
+        train_main(_trainer_args(root, 15))
+    finally:
+        os.chdir(cwd)
+    resumed = _read_counts()
+    new = _metric_rows(os.path.join(run_dir, "metrics.jsonl"))[len(rows):]
+    logged = {(r["tag"], r["step"]) for r in new}
+    # one validation at the resume point, 5 steps, the end-of-phase snapshot
+    want_resumed = _fused_counts(n_layers, 5 + -(-n_images // batch), 5)
+    print(f"[12 trainer] resumed with training.iterations=15: rows {sorted(logged)};"
+          f" launches {resumed} (want {want_resumed})", flush=True)
+    check(("GAN/PSNR", 10) in logged and ("Loss/Generator/Content", 15) in logged
+          and not any(t.startswith("Pretrain/") for t, _ in logged),
+          "the resumed launch did not run GAN steps 11..15 only")
+    check(resumed == want_resumed, f"resumed launches {resumed} != {want_resumed}")
+    check(os.path.exists(os.path.join(run_dir, "generator_epoch_15.pt")), "no step-15 export")
+    _trainer_options_arm(card)
+    _trainer_fp32_parity()
+    shutil.rmtree(root, ignore_errors=True)
+    return counts
+
+
+#: every training option the port took from the JAX package, as one config
+TRAINING_OPTIONS = {"ema_decay": 0.999, "grad_clip": 1.0, "lr_schedule": "cosine",
+                    "grad_accum": 2, "augment": True, "remat": True, "remat_vgg": True,
+                    "vgg_concat": True}
+
+
+def _trainer_options_arm(card: str) -> None:
+    """12b: every option on through build_bundle, 5 pretrain + 5 GAN steps
+    (accumulation takes the recompute GAN form); exact launches, remat's
+    recomputed block forwards included."""
+    from fast_srgan_torch.config import default_config
+    from fast_srgan_torch.train.steps import build_bundle
+
+    config = default_config(kernels={"use_pallas": True, "fused_upsample": True},
+                            training={"vgg_weights": "init", **TRAINING_OPTIONS})
+    bundle = build_bundle(config, "cuda", torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(13)
+    batch = torch.from_numpy(np.stack([make_frame(rng, 96, 96) for _ in range(24)])).cuda()
+    _zero_counts()
+    losses = [bundle.pretrain_step(batch) for _ in range(5)]
+    metrics = [bundle.gan_step(batch) for _ in range(5)]
+    counts = _read_counts()
+    k, n = TRAINING_OPTIONS["grad_accum"], config.generator.n_layers
+    # a micro-batch: pretrain fwd + bwd (blocks recomputed); GAN a detached
+    # forward for D, then fwd + bwd (blocks recomputed) for G
+    want = _fused_counts(n, 5 * k * 3, 5 * k * 2, recomputed=5 * k * 2)
+    values = [float(v) for v in losses] + [float(v) for m in metrics for v in m.values()]
+    print(f"[12 options] {json.dumps(TRAINING_OPTIONS)}: pretrain loss"
+          f" {float(losses[0]):.5f} -> {float(losses[-1]):.5f}; last GAN metrics"
+          f" {json.dumps({k: round(float(v), 5) for k, v in metrics[-1].items()})};"
+          f" launches {counts} (want {want}); {card}", flush=True)
+    check(all(np.isfinite(values)), "options arm: non-finite metrics")
+    check(counts == want, f"options arm launches {counts} != {want}")
+
+
+def _trainer_fp32_parity() -> None:
+    """12c: fp32, TF32 off, one pretrain and one GAN step (explicit noise)
+    with grad_clip, ema_decay, cosine, grad_accum=2 and remat, from the same
+    state: the kernels on the card against the plain versions on the CPU.
+
+    The discriminator's LR is 0 here. AdamW's first step moves each weight
+    by about lr*sign(g), so where a gradient is near 0 the two devices step
+    it apart by up to 2*lr; the G losses are taken against the updated D and
+    would carry that (2.6e-5 rel at lr 1e-4 on an H100), which says nothing
+    of the kernels. The EMA is held over the whole model (the largest
+    difference over the largest |value|): zero-initialized biases carry only
+    those steps, scaled by 1 - d."""
+    from fast_srgan_torch.config import default_config
+    from fast_srgan_torch.train.steps import build_bundle
+
+    opts = {k: TRAINING_OPTIONS[k]
+            for k in ("grad_clip", "ema_decay", "lr_schedule", "grad_accum", "remat")}
+    config = default_config(kernels={"fused_upsample": True},
+                            training={"vgg_weights": "init", "bf16": False,
+                                      "discriminator_lr": 0.0, **opts})
+    rng = np.random.default_rng(14)
+    batch = torch.from_numpy(np.stack([make_frame(rng, 96, 96) for _ in range(24)]))
+    out = {}
+    with _no_tf32():
+        for device in ("cuda", "cpu"):
+            bundle = build_bundle(config, device, torch.Generator().manual_seed(0))
+            with torch.no_grad():
+                probe = torch.zeros((1, 3, 96, 96), device=device)
+                shape = (24,) + tuple(bundle.discriminator(probe).shape[1:])
+            gen = torch.Generator().manual_seed(15)
+            noise = [torch.rand(shape, generator=gen) for _ in range(3)]
+            x = batch.to(device)
+            _zero_counts()
+            loss = float(bundle.pretrain_step(x))
+            metrics = {k: float(v) for k, v in bundle.gan_step(x, noise=noise).items()}
+            ema = [p.detach().cpu() for p in bundle.g_ema.parameters()]
+            out[device] = (loss, metrics, ema)
+            # k micro-batches a step: pretrain fwd + bwd; GAN a detached
+            # forward and fwd + bwd; each backward recomputes the blocks
+            k = opts["grad_accum"]
+            want = _fused_counts(config.generator.n_layers, 3 * k, 2 * k, recomputed=2 * k)
+            if device == "cpu":
+                want = dict.fromkeys(want, 0)
+            got = _read_counts()
+            check(got == want, f"fp32 parity launches on {device}: {got} != {want}")
+    (l_c, m_c, e_c), (l_p, m_p, e_p) = out["cuda"], out["cpu"]
+    rels = {"pretrain": abs(l_c - l_p) / abs(l_p)}
+    rels.update({k: abs(m_c[k] - m_p[k]) / max(abs(m_p[k]), 1e-12) for k in m_p})
+    ema_rel = (max(float((a - b).abs().max()) for a, b in zip(e_c, e_p))
+               / max(float(b.abs().max()) for b in e_p))
+    print(f"[12 parity] fp32 {json.dumps(opts)}: card kernels vs CPU plain, loss rel"
+          f" {json.dumps({k: f'{v:.2e}' for k, v in rels.items()})}; EMA parameters max rel"
+          f" {ema_rel:.2e} (tol {PARITY_RTOL:g})", flush=True)
+    check(max(rels.values()) <= PARITY_RTOL, f"fp32 trainer parity: {rels}")
+    check(ema_rel <= PARITY_RTOL, f"fp32 EMA parity: {ema_rel}")
 
 
 def _valid_hw(sizes) -> tuple:
@@ -1214,6 +1513,7 @@ BUCKET_SIZES = ((90, 160), (100, 170), (180, 320), (175, 310))
 
 
 def _counters():
+    from fast_srgan_torch.kernels.fused_upsample import fused_upsample
     from fast_srgan_torch.kernels.instance_norm import instance_norm_add, instance_norm_prelu
     from fast_srgan_torch.kernels.int8_conv import int8_conv, int8_conv_phases
     from fast_srgan_torch.kernels.pixel_shuffle import pixel_shuffle_phase_major
@@ -1225,7 +1525,9 @@ def _counters():
             "in_add_masked": (instance_norm_add, "masked_launches"),
             "s8_stage1": (int8_conv, "launches"), "s8_phases": (int8_conv_phases, "launches"),
             "quantize": (quantize_act, "launches"),
-            "shuffle": (pixel_shuffle_phase_major, "launches")}
+            "shuffle": (pixel_shuffle_phase_major, "launches"),
+            "upsample": (fused_upsample, "launches"),
+            "upsample_backward": (fused_upsample, "backward_launches")}
 
 
 def _zero_counts() -> None:
@@ -1244,7 +1546,8 @@ def _bucketed_counts(forwards: int, n_layers: int, int8: bool = False, shuffle: 
     return {"in_prelu": 0, "in_add": 0, "in_prelu_masked": n_layers * forwards,
             "in_add_masked": (n_layers + 1) * forwards,
             "s8_stage1": forwards if int8 else 0, "s8_phases": forwards if int8 else 0,
-            "quantize": forwards if int8 else 0, "shuffle": shuffle * forwards}
+            "quantize": forwards if int8 else 0, "shuffle": shuffle * forwards,
+            "upsample": 0, "upsample_backward": 0}
 
 
 def phase_bucketed_engine(params) -> dict:
@@ -1489,7 +1792,8 @@ def main() -> None:
     bucketed = phase_bucketed_engine(params)
     phase_masked_int8(params, frames)
     phase_stream(params, frames, staged_fps, card)
-    fused, unfused = phase_training(card)
+    fused, unfused, bare_ms = phase_training(card)
+    trainer = phase_trainer(card, bare_ms)
 
     check("jax" not in sys.modules, "jax was imported")
     check(
@@ -1500,7 +1804,8 @@ def main() -> None:
     # conv (stage 1 and the four-phase launch) and the quantize from the int8
     # engine (phase 10), the fused upsample from the fused training arm, the
     # shuffle from the unfused arm (phase 9), the masked IN forms from the
-    # bucketed server path (phase 11). The IN rows' times are the
+    # bucketed server path (phase 11); trainer_launches are phase 12's
+    # trainer run (training, validation and panels). The IN rows' times are the
     # serving shape's (resident form), two_launch_* the 540x960 frame's;
     # the s8 conv's are the four-phase launch's. library_ms is null where no
     # one PyTorch call computes the kernel's function (f_instance_norm_ms
@@ -1508,11 +1813,14 @@ def main() -> None:
     print(json.dumps({"kernels": [
         {"name": "instance_norm_prelu", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": KERNEL_REPLACES, "launches": launches[0],
-         **in_rows["instance_norm_prelu"]},
+         "trainer_launches": trainer["in_prelu"], **in_rows["instance_norm_prelu"]},
         {"name": "instance_norm_add", "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": ADD_REPLACES, "launches": launches[1], **in_rows["instance_norm_add"]},
+         "replaces": ADD_REPLACES, "launches": launches[1],
+         "trainer_launches": trainer["in_add"], **in_rows["instance_norm_add"]},
         {"name": "fused_upsample", "route": "cuda", "source": UPSAMPLE_SOURCE,
          "replaces": UPSAMPLE_REPLACES, "launches": fused[2], "backward_launches": fused[4],
+         "trainer_launches": trainer["upsample"],
+         "trainer_backward_launches": trainer["upsample_backward"],
          **up_row, "stage_ms": stage_ms["train stage 2"]},
         {"name": "pixel_shuffle_phase_major", "route": "cuda",
          "source": SHUFFLE_SOURCE, "replaces": SHUFFLE_REPLACES,

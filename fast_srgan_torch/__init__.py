@@ -13,8 +13,9 @@ add, each also masked for the bucketed forward), the fused upsample stage,
 the phase-major pixel shuffle, and the int8 tier's activation quantize and
 s8 conv (``quant.py``); float convolutions run through cuDNN. The serving
 entry points are ``python -m fast_srgan_torch.infer`` (images, video) and
-``python -m fast_srgan_torch.serve`` (HTTP); the training steps are in
-``train/steps.py``.
+``python -m fast_srgan_torch.serve`` (HTTP); training is ``python -m
+fast_srgan_torch.train`` (``train/trainer.py`` over ``train/steps.py``, the
+data pipeline in ``data/``, PSNR/SSIM in ``metrics/``).
 """
 
 __version__ = "0.1.0"

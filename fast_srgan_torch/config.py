@@ -100,8 +100,8 @@ DEFAULTS: dict = {
         # into SmoothL1 content loss; "init" runs random-VGG (profiling).
         # null + a GAN phase fails at startup (see train/steps.py).
         "vgg_weights": None,
-        # Not ported yet: train/steps.py raises NotImplementedError on any
-        # value but these defaults (fast_srgan_tpu/config.py documents them).
+        # the JAX package's training options (fast_srgan_tpu/config.py
+        # documents them; train/steps.py runs each)
         "remat": False,
         "grad_accum": 1,
         "gan_shared_forward": True,
@@ -114,7 +114,7 @@ DEFAULTS: dict = {
         "lr_min_ratio": 0.1,
         "augment": False,
         "ema_decay": 0.0,
-        # read by the JAX trainer; the port has no trainer yet
+        # read by the trainers (train/trainer.py)
         "resume": True,
         "checkpoint_dir": None,
         "keep_checkpoints": 5,
@@ -122,7 +122,7 @@ DEFAULTS: dict = {
         "init_generator_pt": None,
         "init_generator_optim_pt": None,
     },
-    # read by the JAX package only (the port runs on one card so far)
+    # the port trains on one device: num_devices > 1 and multihost raise
     "parallel": {
         "data_axis": "data",
         "num_devices": None,

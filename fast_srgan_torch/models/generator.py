@@ -36,6 +36,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from fast_srgan_torch.kernels.fused_upsample import fused_upsample
 from fast_srgan_torch.kernels.instance_norm import (
@@ -114,6 +115,7 @@ class Generator(nn.Module):
         n_layers: int = 8,
         scale_factor: int = 4,
         fused_upsample: bool = False,
+        remat: bool = False,
     ):
         super().__init__()
         if scale_factor not in _STAGES:
@@ -123,6 +125,10 @@ class Generator(nn.Module):
         self.n_filters = n_filters
         self.n_layers = n_layers
         self.scale_factor = scale_factor
+        # training.remat: each ResidualBlock under torch.utils.checkpoint
+        # when autograd records (the JAX package's nn.remat(ResidualBlock));
+        # the backward recomputes the block, its IN kernels' forwards too
+        self.remat = remat
         self.neck = nn.Sequential(_conv3x3(3, n_filters), nn.PReLU(1))
         self.stem = nn.ModuleList(
             ResidualBlock(n_filters) for _ in range(n_layers)
@@ -146,7 +152,11 @@ class Generator(nn.Module):
         residual = prelu(residual, self.neck[1].weight)
         y = residual
         for block in self.stem:
-            y = block(y, valid_hw)
+            if self.remat and torch.is_grad_enabled():
+                y = checkpoint(block, y, valid_hw, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                y = block(y, valid_hw)
         return instance_norm_add(self.bottleneck(y), residual, valid_hw)
 
     def tail(self, y: torch.Tensor, valid_hw=None) -> torch.Tensor:

@@ -1,1 +1,2 @@
-"""Training steps of the port: losses and the pretrain/GAN steps."""
+"""Training on the port: losses, the steps, the two-phase trainer and its
+CLI (``python -m fast_srgan_torch.train``)."""

@@ -3,6 +3,7 @@ trace, where a step's time goes.
 
     python -m fast_srgan_torch.train.profile_steps [--steps 30] [--profiled 5]
         [--order FUUF] [--out FILE]
+    python -m fast_srgan_torch.train.profile_steps --feed [--steps 40] [--out FILE]
 
 The reference configuration (64/8 4x generator, 64-filter discriminator,
 VGG19 features with fixed-seed weights, batch 24 of 96x96 uint8 crops,
@@ -21,13 +22,21 @@ for each step kind (pretrain, GAN), in the same run:
 
 Prints one JSON line per arm and step kind, and writes all of them, with
 the card's name and power limit, to ``--out``.
+
+``--feed`` times, instead, what the trainer adds around the steps (fused
+arm): ms a step over ``--steps`` steps ended by one synchronize, in turns,
+with the batch already on the card, with a host batch through the
+trainer's ``PinnedFeed``, and with a ``PrefetchLoader`` of 16 or 1 crop
+threads running beside the steps, with and without the feed.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
+import tempfile
 import time
 
 import numpy as np
@@ -36,7 +45,9 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from fast_srgan_torch.config import default_config
+from fast_srgan_torch.data.pipeline import CropSampler, PrefetchLoader
 from fast_srgan_torch.train.steps import build_bundle
+from fast_srgan_torch.train.trainer import PinnedFeed
 
 
 def reference_config(fused: bool):
@@ -90,6 +101,50 @@ def profile_kind(fn, n: int, top: int = 12) -> dict:
     }
 
 
+def feed_records(bundle, batch, steps: int) -> list:
+    """The ``--feed`` arms for each step kind, in turns: one round, then the
+    same arms in reverse order (a drift of the host's speed over the run
+    then weighs on every arm alike). An arm is (crop threads, pinned feed):
+    (0, False) is the bare step on a batch already on the card; (0, True)
+    feeds one host batch through ``PinnedFeed`` each step; (n, False) takes
+    each batch from a settled loader of n threads but steps on the card's
+    batch; (n, True) is the trainer's path."""
+    feed = PinnedFeed(torch.device("cuda"))
+    host_batch = batch.cpu().numpy()
+    records = []
+    with tempfile.TemporaryDirectory() as root:
+        rng = np.random.default_rng(0)
+        paths = []
+        for i in range(16):
+            paths.append(os.path.join(root, f"{i}.npy"))
+            np.save(paths[-1], rng.integers(0, 256, (256, 256, 3), dtype=np.uint8))
+        arms = [(0, False), (0, True), (16, False), (16, True), (1, True)]
+        for kind in ("pretrain", "gan"):
+            fn = bundle.pretrain_step if kind == "pretrain" else bundle.gan_step
+            for turn in range(2):
+                for workers, fed in arms if turn == 0 else arms[::-1]:
+                    it = None
+                    if workers:
+                        loader = PrefetchLoader(CropSampler(paths, 24, 4, seed=1), 24,
+                                                10 * steps, workers=workers)
+                        it = loader.iter_from(0)
+                        next(it)
+                        time.sleep(1.0)  # the lead window fills, the threads rest
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(steps):
+                        host = next(it) if it is not None else host_batch
+                        fn(feed(host) if fed else batch)
+                    torch.cuda.synchronize()
+                    rec = {"kind": kind, "threads": workers, "pinned_feed": fed,
+                           "ms": 1000 * (time.perf_counter() - t0) / steps}
+                    if it is not None:
+                        it.close()
+                    records.append(rec)
+                    print(json.dumps(rec), flush=True)
+    return records
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=30)
@@ -97,6 +152,8 @@ def main(argv=None) -> None:
     ap.add_argument("--order", default="FUUF")
     ap.add_argument("--seed", type=int, default=4)
     ap.add_argument("--out", default=None)
+    ap.add_argument("--feed", action="store_true",
+                    help="time the trainer's loader and H2D around the steps")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_steps needs a CUDA card")
@@ -108,7 +165,13 @@ def main(argv=None) -> None:
     batch = torch.from_numpy(rng.integers(0, 256, (24, 96, 96, 3), dtype=np.uint8))
     batch = batch.to("cuda")
     records = []
-    for arm in args.order:
+    if args.feed:
+        bundle = build_bundle(reference_config(True), "cuda", torch.Generator().manual_seed(0))
+        for _ in range(3):
+            bundle.pretrain_step(batch)
+            bundle.gan_step(batch)
+        records = feed_records(bundle, batch, args.steps)
+    for arm in "" if args.feed else args.order:
         fused = {"F": True, "U": False}[arm]
         bundle = build_bundle(reference_config(fused), "cuda", torch.Generator().manual_seed(0))
         steps = {

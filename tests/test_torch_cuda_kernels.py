@@ -719,3 +719,45 @@ def test_stream_is_bitwise_upscale_batch(device, pretrained, dtype):
     next(it)
     it.close()
     torch.cuda.synchronize()
+
+
+# --- the training slice: SSIM's filter, remat through the kernels ----------
+
+def test_ssim_is_fp32_with_tf32_on(device, monkeypatch):
+    """SSIM's depthwise convs run with TF32 off inside, whatever the global
+    flags say: within 1e-5 of the CPU per image."""
+    from fast_srgan_torch.metrics.psnr_ssim import ssim_per_image
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    gen = torch.Generator().manual_seed(9)
+    x = torch.rand((4, 3, 96, 96), generator=gen)
+    y = (x + 0.05 * torch.randn((4, 3, 96, 96), generator=gen)).clamp(0, 1)
+    want = ssim_per_image(x, y)
+    got = ssim_per_image(x.to(device), y.to(device)).cpu()
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    assert torch.backends.cudnn.allow_tf32  # restored
+
+
+def test_remat_pretrain_step_matches_cpu(device):
+    """One fp32 pretrain step with remat at the reference widths (TF32 off):
+    the kernels on the card, their recomputed forwards included, against
+    the plain versions on the CPU from the same weights; loss rel 1e-5."""
+    from fast_srgan_torch.config import default_config
+    from fast_srgan_torch.train.steps import build_bundle
+
+    config = default_config(kernels={"fused_upsample": True},
+                            training={"bf16": False, "remat": True, "vgg_weights": "pixel"})
+    batch = torch.from_numpy(
+        np.random.default_rng(5).integers(0, 256, (4, 96, 96, 3), dtype=np.uint8))
+    losses = []
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        for dev in (device, torch.device("cpu")):
+            bundle = build_bundle(config, dev, torch.Generator().manual_seed(0))
+            before = instance_norm_prelu.launches, instance_norm_add.launches
+            losses.append(float(bundle.pretrain_step(batch.to(dev))))
+            after = instance_norm_prelu.launches, instance_norm_add.launches
+            # forward 8 + 9; the backward recomputes the 8 blocks
+            want = (16, 17) if dev.type == "cuda" else (0, 0)
+            assert (after[0] - before[0], after[1] - before[1]) == want
+    assert abs(losses[0] - losses[1]) <= 1e-5 * abs(losses[1])

@@ -1,6 +1,7 @@
 """The port's training pieces (fast_srgan_torch/train, ops/resize, config)
 against the JAX package, on the CPU in fp32. The discriminator and VGG19
-forwards are in tests/test_torch_train_models.py.
+forwards are in tests/test_torch_train_models.py, the training options in
+tests/test_torch_train_options.py.
 
 Tolerances: losses, resize and prepare_batch to float32 rounding (rtol
 1e-6 / atol 1e-4 on 0..255 values); one pretrain and one GAN step at the tiny config of
@@ -36,12 +37,7 @@ from fast_srgan_torch.config import DEFAULTS, default_config
 from fast_srgan_torch.models.vgg import VGG19Features
 from fast_srgan_torch.ops.resize import resize_bicubic
 from fast_srgan_torch.train import losses
-from fast_srgan_torch.train.steps import (
-    METRICS,
-    UNPORTED_TRAINING_OPTIONS,
-    build_bundle,
-    prepare_batch,
-)
+from fast_srgan_torch.train.steps import METRICS, build_bundle, prepare_batch
 
 torch.set_num_threads(1)
 
@@ -153,16 +149,6 @@ class TestVggGate:
         vgg = build_bundle(default_config(**tiny(vgg_weights=str(path))), "cpu").vgg
         for k, v in src.state_dict().items():
             assert torch.equal(vgg.state_dict()[k], v), k
-
-
-@pytest.mark.parametrize("key", sorted(UNPORTED_TRAINING_OPTIONS))
-def test_unported_option_raises(key):
-    value = {"lr_schedule": "cosine", "gan_shared_forward": False}.get(key)
-    if value is None:
-        default = UNPORTED_TRAINING_OPTIONS[key]
-        value = (not default) if isinstance(default, bool) else default + 2
-    with pytest.raises(NotImplementedError, match=f"training.{key}"):
-        build_bundle(default_config(**tiny(**{key: value})), "cpu")
 
 
 @pytest.mark.parametrize("use_pallas", [False, True])
@@ -278,9 +264,9 @@ class TestStepsAgainstJax:
         bundle = _port_bundle(g0)
         if fault == "skipped":
             bundle.g_opt.step = lambda: None
-        else:
-            for group in bundle.g_opt.param_groups:
-                group["lr"] = -group["lr"]
+        else:  # the LR each update is set to (the schedule's) is negated
+            schedule = bundle.g_lr
+            bundle.g_lr = lambda count: -schedule(count)
         p0 = _params(bundle.generator)
         bundle.pretrain_step(torch.from_numpy(hr_batch))
         with pytest.raises(AssertionError, match="above 1e-3"):
