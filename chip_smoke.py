@@ -94,9 +94,31 @@ own line; any failure exits non-zero and prints no result:
      the plain versions on the CPU: losses and EMA within 1e-5. Prints ms a
      step through the trainer beside phase 9's bare steps, and ms a
      validation pass (indicative).
+ 13. export and the checkpoint tools: ``python -m
+     fast_srgan_torch.scripts.export_model`` (in-process, with its check)
+     exports the pretrained 4x generator as torch.export artifacts: bf16 LR
+     tail at 8x180x320 and 1x540x960 (the IN family's two-launch form), fp32
+     at 1x180x320, int8 ups in bf16 glue at 8x180x320 calibrated on the
+     smoke's frames, bf16 canonical tail at 1x90x160; and one fused
+     UpSamplingBlock at training stage 2. Each loaded artifact: its bytes,
+     export and load seconds; fast_srgan.* op nodes in its graph; the exact
+     launches a call (8 IN+PReLU and 9 IN+add; int8 adds 2 s8 and 1
+     quantize; the canonical tail 2 shuffles; the fused stage 1); within 1
+     uint8 count of the live engine in fp32, 2 in bf16 and int8 (the
+     script's check), the fused stage bitwise against the eager block. The
+     bf16 and int8 artifacts' frames/s at batch 8 beside phase 6's and
+     phase 10's engines, in turns (indicative). The host µs an IN+PReLU and
+     a quantize call take through the op, through the autograd.Function
+     around it, and without the op (indicative). Then the tools on the card:
+     ``evaluate --fp32`` on 4 of phase 12's PNGs against the same CLI on
+     the CPU (aggregate PSNR within 0.01 dB, SSIM within 1e-4), and in bf16;
+     ``convert_checkpoint`` npz -> pt -> npz bitwise; ``interp_checkpoints``
+     of the pretrained .npz and its .pt at alpha 0.5 bitwise equal to it;
+     ``infer --checkpoint`` phase 12's ``generator_epoch_15.pt`` on 2 images,
+     equal to an engine built from the same file.
 
 Phases 7 and 8 run right after phase 3, phase 10 after phase 6, phase 11
-after phase 10, phase 9 and then 12 last.
+after phase 10, phase 9 and then 12 and 13 last.
 
 The line before the last is a JSON object describing each kernel (its
 bound: the larger of its bytes over 3.35 TB/s and its operations over the
@@ -396,7 +418,8 @@ def phase_kernel() -> dict:
                                        "f_instance_norm_ms": yard_ms})
                 elif case == "540x960 bf16":
                     rows[name].update({"two_launch_ms": ms, "two_launch_plain_ms": plain_ms,
-                                       "two_launch_bound_ms": bnd["bound_ms"]})
+                                       "two_launch_bound_ms": bnd["bound_ms"],
+                                       "two_launch_f_instance_norm_ms": yard_ms})
             print(line, flush=True)
             check(err <= tol, f"{label}: max_abs_err {err} > {tol}")
     check(taken == {False, True}, "phase 3 did not run both forms")
@@ -512,19 +535,19 @@ def _stage_frames(frames) -> torch.Tensor:
     return staged.to("cuda")
 
 
-def _frames_per_s(engine, staged: torch.Tensor, bs: int) -> tuple:
-    """(frames, ms): forward_u8 over the staged frames in batches of bs,
-    after two warm-up batches, CUDA events around the timed loop."""
+def _frames_per_s(forward, staged: torch.Tensor, bs: int) -> tuple:
+    """(frames, ms) of forward(batch) over the staged frames in batches of
+    bs, after two warm-up batches, CUDA events around the timed loop."""
     n = (len(staged) // bs) * bs
     batches = [staged[i:i + bs] for i in range(0, n, bs)]
     for x in batches[:2]:
-        engine.forward_u8(x)
+        forward(x)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
     for x in batches:
-        out = engine.forward_u8(x)
+        out = forward(x)
     end.record()
     torch.cuda.synchronize()
     check(out.shape == (bs, 720, 1280, 3), "throughput output shape")
@@ -533,7 +556,7 @@ def _frames_per_s(engine, staged: torch.Tensor, bs: int) -> tuple:
 
 def phase_throughput(engine, frames, card: str) -> float:
     bs = engine.effective_batch_size(180, 320, 8)
-    n, ms = _frames_per_s(engine, _stage_frames(frames), bs)
+    n, ms = _frames_per_s(engine.forward_u8, _stage_frames(frames), bs)
     print(
         f"[6 throughput] 180x320 -> 720p bf16, batch {bs}: {n} frames in"
         f" {ms:.1f} ms = {1000 * n / ms:.1f} frames/s ({card}; indicative)",
@@ -815,7 +838,7 @@ def phase_int8_throughput(params, frames, card: str) -> None:
         fps = {"bf16": [], "int8": []}
         for name in ("bf16", "int8", "int8", "bf16"):
             torch.cuda.reset_peak_memory_stats()
-            n, ms = _frames_per_s(engines[name], staged, bs)
+            n, ms = _frames_per_s(engines[name].forward_u8, staged, bs)
             fps[name].append(1000 * n / ms)
         peak = torch.cuda.max_memory_allocated() / 2**30
         b, q = np.mean(fps["bf16"]), np.mean(fps["int8"])
@@ -1320,7 +1343,7 @@ def phase_trainer(card: str, bare_ms: dict) -> dict:
     check(os.path.exists(os.path.join(run_dir, "generator_epoch_15.pt")), "no step-15 export")
     _trainer_options_arm(card)
     _trainer_fp32_parity()
-    shutil.rmtree(root, ignore_errors=True)
+    # phase 13 reads the images and the step-15 export, then removes root
     return counts
 
 
@@ -1744,7 +1767,7 @@ def phase_stream(params, frames, staged_fps: float, card: str) -> None:
     fps = {"unbucketed": [], "bucketed": []}
     for arm in ("unbucketed", "bucketed", "bucketed", "unbucketed"):
         if arm == "unbucketed":
-            n, ms = _frames_per_s(engine, staged, bs)
+            n, ms = _frames_per_s(engine.forward_u8, staged, bs)
         else:
             for x in batches[:2]:
                 engine.forward_u8_masked(x, vh, vw)
@@ -1764,6 +1787,287 @@ def phase_stream(params, frames, staged_fps: float, card: str) -> None:
           f" ({fps['unbucketed'][0]:.1f}, {fps['unbucketed'][1]:.1f}); bucketed (192x320,"
           f" masked) {b:.1f} ({fps['bucketed'][0]:.1f}, {fps['bucketed'][1]:.1f});"
           f" bucketed/unbucketed {b / u:.3f} ({card}; indicative)", flush=True)
+
+
+#: each launch counter's op in an exported graph
+COUNTER_OPS = {"in_prelu": "instance_norm_prelu", "in_add": "instance_norm_add",
+               "s8_stage1": "int8_conv", "s8_phases": "int8_conv_phases",
+               "quantize": "quantize_act", "shuffle": "pixel_shuffle_phase_major",
+               "upsample": "fused_upsample"}
+#: phase 13's artifacts: export_model flags, the form, and the most uint8
+#: counts the loaded artifact may differ from the live engine (fp32 is the
+#: engine's own program, bitwise expected; bf16 and int8 the JAX script's gate)
+EXPORTS = {
+    "bf16": (["--shape", "8x180x320", "--shape", "1x540x960"], "lr_tail", 2),
+    "fp32": (["--fp32", "--shape", "1x180x320"], "lr_tail", 1),
+    "int8": (["--int8", "--shape", "8x180x320"], "int8", 2),
+    "canonical": (["--no-lr-tail", "--shape", "1x90x160"], "canonical", 2),
+}
+
+
+def _export_counts(form: str, n_layers: int) -> dict:
+    """A loaded artifact's launches a call: n_layers IN+PReLU and n_layers +
+    1 IN+add; the int8 tier's stage 1, four-phase launch and quantize; the
+    canonical tail's two shuffles."""
+    counts = dict.fromkeys(_counters(), 0)
+    counts.update({"in_prelu": n_layers, "in_add": n_layers + 1})
+    if form == "int8":
+        counts.update({"s8_stage1": 1, "s8_phases": 1, "quantize": 1})
+    if form == "canonical":
+        counts["shuffle"] = 2
+    return counts
+
+
+def _graph_ops(module) -> dict:
+    """{op: nodes} of the fast_srgan ops in a loaded program's graph."""
+    ops = {}
+    for node in module.graph.nodes:
+        name = str(node.target)
+        if name.startswith("fast_srgan."):
+            op = name.split(".")[1]
+            ops[op] = ops.get(op, 0) + 1
+    return ops
+
+
+def _ops_of(counts: dict) -> dict:
+    return {COUNTER_OPS[k]: v for k, v in counts.items() if v}
+
+
+def phase_export(params, frames, engine, card: str) -> dict:
+    """13a: the export CLI's four artifacts and a fused stage, loaded and
+    held to the engine, their op nodes and launches, and frames/s beside
+    the engines. Returns the launches of the artifacts' checked calls
+    (``total``; ``two_launch``: the 540x960 call's)."""
+    import shutil
+
+    from fast_srgan_torch.export import load_exported_dir
+    from fast_srgan_torch.inference import SRInferenceEngine
+    from fast_srgan_torch.models.generator import UpSamplingBlock
+    from fast_srgan_torch.scripts import export_model
+    from fast_srgan_torch.utils.images import save_image_u8
+
+    root = os.path.join(REPO, ".chip_tmp", "export")
+    shutil.rmtree(root, ignore_errors=True)
+    calib_dir = os.path.join(root, "calib")
+    os.makedirs(calib_dir)
+    base = [f for f in frames if f.shape[:2] == (180, 320)]
+    for i, frame in enumerate(base):  # phase 10's calibration frames, as PNGs
+        save_image_u8(os.path.join(calib_dir, f"{i:02d}.png"), frame)
+    n_layers = engine.model.n_layers
+    rng = np.random.default_rng(13)
+    total = dict.fromkeys(_counters(), 0)
+    two_launch, calls = None, {}
+    for name, (flags, form, tol) in EXPORTS.items():
+        out = os.path.join(root, name)
+        if form == "int8":
+            flags = [*flags, "--calib_dir", calib_dir]
+        res = export_model.main(["--checkpoint", CHECKPOINT, "--output", out, *flags])
+        art = load_exported_dir(out)
+        want = _export_counts(form, n_layers)
+        for e in res["manifest"]["entries"]:
+            shape = (e["batch"], e["height"], e["width"])
+            call = art["forwards"][shape]
+            calls[(name, shape)] = call
+            x = torch.from_numpy(rng.integers(0, 256, (*shape, 3), dtype=np.uint8)).cuda()
+            call(x)  # first use of the shape
+            torch.cuda.synchronize()
+            _zero_counts()
+            y = call(x)
+            torch.cuda.synchronize()
+            counts = _read_counts()
+            ops = _graph_ops(call.module)
+            dmax = res["check"][shape]["max_diff"]
+            share = res["check"][shape]["share_differ"]
+            label = f"{name} {'x'.join(map(str, shape))}"
+            print(f"[13 export] {label} ({form}): {e['bytes']} bytes, export"
+                  f" {res['export_s'][shape]:.2f} s, load {res['load_s'][shape]:.2f} s; vs live"
+                  f" engine max {dmax} count(s) (tol {tol}), {100 * share:.4f}% differ; graph"
+                  f" ops {ops}; launches a call {counts} (want {want})", flush=True)
+            check(y.dtype == torch.uint8 and tuple(y.shape) == (shape[0], 4 * shape[1],
+                                                                 4 * shape[2], 3),
+                  f"{label}: bad output {y.dtype} {tuple(y.shape)}")
+            check(dmax <= tol, f"{label}: {dmax} counts from the live engine")
+            check(ops == _ops_of(want), f"{label}: graph ops {ops} != {_ops_of(want)}")
+            check(counts == want, f"{label}: launches {counts} != {want}")
+            for k in total:
+                total[k] += counts[k]
+            if shape == (1, 540, 960):
+                two_launch = counts
+        if form == "int8":
+            scales = res["module"].act_scales
+
+    # one fused upsample stage (training stage 2), bitwise against the eager block
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    torch.manual_seed(13)
+    block = UpSamplingBlock(64, fused=True).to("cuda", torch.bfloat16,
+                                               memory_format=torch.channels_last).eval()
+    x = torch.randn((24, 64, 48, 48), device="cuda", generator=gen).to(torch.bfloat16)
+    x = x.contiguous(memory_format=torch.channels_last)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        program = torch.export.export(block, (x,))
+    program.example_inputs = None  # as export_shape: the file holds no input
+    export_s = time.perf_counter() - t0
+    path = os.path.join(root, "fused_stage.pt2")
+    torch.export.save(program, path)
+    t0 = time.perf_counter()
+    module = torch.export.load(path).module()
+    load_s = time.perf_counter() - t0
+    with torch.no_grad():
+        want_y = block(x)
+    _zero_counts()
+    with torch.inference_mode():
+        got_y = module(x)
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    want = dict.fromkeys(_counters(), 0)
+    want["upsample"] = 1
+    ops = _graph_ops(module)
+    equal = torch.equal(got_y, want_y)
+    print(f"[13 export] fused UpSamplingBlock bf16 [24,64,48,48]: {os.path.getsize(path)} bytes,"
+          f" export {export_s:.2f} s, load {load_s:.2f} s; bitwise equal to the eager block"
+          f" {equal}; graph ops {ops}; launches a call {counts}", flush=True)
+    check(equal, "fused stage artifact differs from the eager block")
+    check(ops == _ops_of(want) and counts == want, "fused stage artifact: ops or launches")
+    total["upsample"] += counts["upsample"]
+
+    # frames/s at batch 8: the engines of phases 6 and 10 against the
+    # artifacts, in turns
+    staged = _stage_frames(frames)
+    int8_engine = SRInferenceEngine(params, device="cuda", quantize=True,
+                                    calib_batches=[np.stack(base)])
+    same = all(torch.equal(scales[k], int8_engine.act_scales[k]) for k in scales)
+    # the CLI calibrates on the PNGs normalized to [-1, 1] by numpy, the
+    # engine on the uint8 frames normalized on the card: not the same bits
+    print(f"[13 export] int8 artifact's activation scales equal to a phase-10 engine's:"
+          f" {same} ({ {k: round(float(v), 6) for k, v in scales.items()} } against"
+          f" { {k: round(float(int8_engine.act_scales[k]), 6) for k in scales} })", flush=True)
+    for tier, eng in (("bf16", engine), ("int8", int8_engine)):
+        call = calls[(tier, (8, 180, 320))]
+        fps = {"engine": [], "artifact": []}
+        for arm in ("engine", "artifact", "artifact", "engine"):
+            forward = eng.forward_u8 if arm == "engine" else call
+            n, ms = _frames_per_s(forward, staged, 8)
+            fps[arm].append(1000 * n / ms)
+        e, a = np.mean(fps["engine"]), np.mean(fps["artifact"])
+        print(f"[13 export] 180x320 -> 720p {tier}, batch 8: engine {e:.1f} frames/s"
+              f" ({fps['engine'][0]:.1f}, {fps['engine'][1]:.1f}); artifact {a:.1f}"
+              f" ({fps['artifact'][0]:.1f}, {fps['artifact'][1]:.1f}); artifact/engine"
+              f" {a / e:.3f} ({card}; indicative)", flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    return {"total": total, "two_launch": two_launch}
+
+
+def _host_us(fn, n: int = 400) -> float:
+    """Host µs a call of fn(): the enqueue loop between two syncs, timed
+    without the final one (the kernels here take less than a launch)."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = 1e6 * (time.perf_counter() - t0) / n
+    torch.cuda.synchronize()
+    return us
+
+
+def phase_dispatch(card: str) -> dict:
+    """13c: what the torch.library op adds to a kernel call on the card's
+    host: the wrappers as the engine calls them (the op, no gradient), the
+    autograd.Function around the op (the training path), and each op's
+    CUDA implementation called directly (the checks and the launch alone,
+    as a wrapper ran them before the ops). Arms in turns, then reversed;
+    medians."""
+    from fast_srgan_torch.kernels import instance_norm as inm
+    from fast_srgan_torch.kernels import quantize as qm
+
+    x = torch.randn((1, 64, 16, 16), device="cuda").to(torch.bfloat16)
+    x = x.contiguous(memory_format=torch.channels_last)
+    alpha = torch.full((1,), 0.2, device="cuda")
+    scale = torch.tensor(2.0, device="cuda")
+    arms = {
+        "in_prelu_op": lambda: inm.instance_norm_prelu(x, alpha),
+        "in_prelu_function": lambda: inm.InstanceNormPReLUFunction.apply(x, alpha, None),
+        "in_prelu_direct": lambda: inm._prelu_cuda(x, alpha),
+        "quantize_op": lambda: qm.quantize_act(x, scale),
+        "quantize_direct": lambda: qm._launch(x, scale),
+    }
+    times = {k: [] for k in arms}
+    with torch.no_grad():
+        for order in (list(arms), list(reversed(arms))) * 3:
+            for k in order:
+                times[k].append(_host_us(arms[k]))
+    us = {k: float(np.median(v)) for k, v in times.items()}
+    print(f"[13 dispatch] host µs a call, bf16 [1,64,16,16], medians of 6: IN+PReLU wrapper"
+          f" (op) {us['in_prelu_op']:.2f}, autograd.Function around the op"
+          f" {us['in_prelu_function']:.2f}, checks + launch without the op"
+          f" {us['in_prelu_direct']:.2f}; quantize wrapper (op) {us['quantize_op']:.2f},"
+          f" launch without the op {us['quantize_direct']:.2f} ({card})", flush=True)
+    return us
+
+
+def phase_tools() -> None:
+    """13b: evaluate, convert_checkpoint, interp_checkpoints and infer
+    --checkpoint on the card, on phase 12's images and step-15 export."""
+    import shutil
+
+    from fast_srgan_torch import infer
+    from fast_srgan_torch.checkpoints.convert import load_generator_params
+    from fast_srgan_torch.inference import SRInferenceEngine
+    from fast_srgan_torch.scripts import convert_checkpoint, evaluate, interp_checkpoints
+    from fast_srgan_torch.utils.images import list_image_files, load_image_u8
+
+    trainer_root = os.path.join(REPO, ".chip_tmp", "trainer")
+    images = os.path.join(trainer_root, "images")
+    pt = os.path.join(trainer_root, "run", "runs", "smoke", "generator_epoch_15.pt")
+    root = os.path.join(REPO, ".chip_tmp", "tools")
+    shutil.rmtree(root, ignore_errors=True)
+    names = list_image_files(images)
+    for sub, take in (("eval", names[:4]), ("infer_in", names[:2])):
+        os.makedirs(os.path.join(root, sub))
+        for n in take:
+            shutil.copy(os.path.join(images, n), os.path.join(root, sub, n))
+
+    four = os.path.join(root, "eval")
+    card32 = evaluate.main(["--image_dir", four, "--fp32"])
+    cpu32 = evaluate.main(["--image_dir", four, "--fp32", "--device", "cpu"])
+    bf16 = evaluate.main(["--image_dir", four])
+    dpsnr, dssim = abs(card32["psnr"] - cpu32["psnr"]), abs(card32["ssim"] - cpu32["ssim"])
+    print(f"[13 tools] evaluate --fp32 on 4 of phase 12's PNGs: card PSNR {card32['psnr']:.4f}"
+          f" dB, SSIM {card32['ssim']:.6f}; CPU {cpu32['psnr']:.4f} dB, {cpu32['ssim']:.6f};"
+          f" |diff| {dpsnr:.2e} dB (tol 0.01), {dssim:.2e} (tol 1e-4); bf16 on the card"
+          f" {bf16['psnr']:.4f} dB, SSIM {bf16['ssim']:.6f}", flush=True)
+    check(dpsnr <= 0.01 and dssim <= 1e-4, "evaluate: card fp32 vs CPU fp32")
+
+    pt_out, npz_out = os.path.join(root, "g.pt"), os.path.join(root, "g.npz")
+    convert_checkpoint.main([CHECKPOINT, pt_out])
+    convert_checkpoint.main([pt_out, npz_out])
+    blend = os.path.join(root, "blend.npz")
+    interp_checkpoints.main([CHECKPOINT, pt_out, "--alpha", "0.5", "-o", blend])
+    with np.load(CHECKPOINT) as a, np.load(npz_out) as b, np.load(blend) as c:
+        round_trip = sorted(a.files) == sorted(b.files) and all(
+            np.array_equal(a[k], b[k]) and a[k].dtype == b[k].dtype for k in a.files)
+        blended = sorted(a.files) == sorted(c.files) and all(
+            np.array_equal(a[k], c[k]) for k in a.files)
+    print(f"[13 tools] convert_checkpoint npz -> pt -> npz bitwise {round_trip};"
+          f" interp_checkpoints of the .npz and its .pt at alpha 0.5 bitwise equal to it"
+          f" {blended}", flush=True)
+    check(round_trip and blended, "convert_checkpoint / interp_checkpoints not bitwise")
+
+    src, out = os.path.join(root, "infer_in"), os.path.join(root, "infer_out")
+    infer.main(["--image_dir", src, "--output_dir", out, "--checkpoint", pt])
+    ins = [load_image_u8(os.path.join(src, n)) for n in names[:2]]
+    want = SRInferenceEngine(load_generator_params(pt), device="cuda").upscale_images(ins)
+    got = [load_image_u8(os.path.join(out, n)) for n in names[:2]]
+    equal = all(g.shape == (4 * i.shape[0], 4 * i.shape[1], 3) and np.array_equal(g, w)
+                for g, w, i in zip(got, want, ins))
+    print(f"[13 tools] infer --checkpoint {os.path.relpath(pt, REPO)} on 2 images:"
+          f" {[g.shape for g in got]}, equal to an engine built from the same .pt {equal}",
+          flush=True)
+    check(equal, "infer --checkpoint .pt differs from the engine")
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.rmtree(trainer_root, ignore_errors=True)
 
 
 def main() -> None:
@@ -1794,6 +2098,10 @@ def main() -> None:
     phase_stream(params, frames, staged_fps, card)
     fused, unfused, bare_ms = phase_training(card)
     trainer = phase_trainer(card, bare_ms)
+    exported = phase_export(params, frames, engine, card)
+    phase_dispatch(card)
+    phase_tools()
+    art = exported["total"]
 
     check("jax" not in sys.modules, "jax was imported")
     check(
@@ -1805,38 +2113,52 @@ def main() -> None:
     # engine (phase 10), the fused upsample from the fused training arm, the
     # shuffle from the unfused arm (phase 9), the masked IN forms from the
     # bucketed server path (phase 11); trainer_launches are phase 12's
-    # trainer run (training, validation and panels). The IN rows' times are the
-    # serving shape's (resident form), two_launch_* the 540x960 frame's;
-    # the s8 conv's are the four-phase launch's. library_ms is null where no
-    # one PyTorch call computes the kernel's function (f_instance_norm_ms
-    # and cudnn_bf16_ms are yardsticks only)
+    # trainer run (training, validation and panels); artifact_launches are
+    # phase 13's checked calls of the loaded artifacts (the IN rows'
+    # two_launch_artifact_launches the 540x960 artifact's one call). The IN
+    # rows' times are the serving shape's (resident form), two_launch_* the
+    # 540x960 frame's; the s8 conv's are the four-phase launch's. library_ms
+    # is null where no one PyTorch call computes the kernel's function
+    # (f_instance_norm_ms and cudnn_bf16_ms are yardsticks only). op is the
+    # torch.library op each wrapper calls
+    two = exported["two_launch"]
     print(json.dumps({"kernels": [
         {"name": "instance_norm_prelu", "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": KERNEL_REPLACES, "launches": launches[0],
-         "trainer_launches": trainer["in_prelu"], **in_rows["instance_norm_prelu"]},
+         "replaces": KERNEL_REPLACES, "op": "torch.ops.fast_srgan.instance_norm_prelu",
+         "launches": launches[0], "trainer_launches": trainer["in_prelu"],
+         "artifact_launches": art["in_prelu"], "two_launch_artifact_launches": two["in_prelu"],
+         **in_rows["instance_norm_prelu"]},
         {"name": "instance_norm_add", "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": ADD_REPLACES, "launches": launches[1],
-         "trainer_launches": trainer["in_add"], **in_rows["instance_norm_add"]},
+         "replaces": ADD_REPLACES, "op": "torch.ops.fast_srgan.instance_norm_add",
+         "launches": launches[1], "trainer_launches": trainer["in_add"],
+         "artifact_launches": art["in_add"], "two_launch_artifact_launches": two["in_add"],
+         **in_rows["instance_norm_add"]},
         {"name": "fused_upsample", "route": "cuda", "source": UPSAMPLE_SOURCE,
-         "replaces": UPSAMPLE_REPLACES, "launches": fused[2], "backward_launches": fused[4],
+         "replaces": UPSAMPLE_REPLACES, "op": "torch.ops.fast_srgan.fused_upsample",
+         "launches": fused[2], "backward_launches": fused[4],
          "trainer_launches": trainer["upsample"],
          "trainer_backward_launches": trainer["upsample_backward"],
+         "artifact_launches": art["upsample"],
          **up_row, "stage_ms": stage_ms["train stage 2"]},
         {"name": "pixel_shuffle_phase_major", "route": "cuda",
          "source": SHUFFLE_SOURCE, "replaces": SHUFFLE_REPLACES,
-         "launches": unfused[3], **shuffle_row},
+         "op": "torch.ops.fast_srgan.pixel_shuffle_phase_major",
+         "launches": unfused[3], "artifact_launches": art["shuffle"], **shuffle_row},
         {"name": "int8_conv", "route": "cuda", "source": INT8_CONV_SOURCE,
-         "replaces": INT8_CONV_REPLACES, "launches": int8_launches[0] + int8_launches[1],
+         "replaces": INT8_CONV_REPLACES,
+         "op": "torch.ops.fast_srgan.int8_conv, torch.ops.fast_srgan.int8_conv_phases",
+         "launches": int8_launches[0] + int8_launches[1],
          "launches_stage1": int8_launches[0], "launches_phases": int8_launches[1],
-         **conv_row},
+         "artifact_launches": art["s8_stage1"] + art["s8_phases"], **conv_row},
         {"name": "quantize_act", "route": "cuda", "source": QUANTIZE_SOURCE,
-         "replaces": QUANTIZE_REPLACES, "launches": int8_launches[2], **quant_row},
+         "replaces": QUANTIZE_REPLACES, "op": "torch.ops.fast_srgan.quantize_act",
+         "launches": int8_launches[2], "artifact_launches": art["quantize"], **quant_row},
         {"name": "instance_norm_prelu_masked", "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": MASKED_REPLACES, "launches": bucketed["in_prelu_masked"],
-         **masked_rows["instance_norm_prelu_masked"]},
+         "replaces": MASKED_REPLACES, "op": "torch.ops.fast_srgan.instance_norm_prelu",
+         "launches": bucketed["in_prelu_masked"], **masked_rows["instance_norm_prelu_masked"]},
         {"name": "instance_norm_add_masked", "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": MASKED_REPLACES, "launches": bucketed["in_add_masked"],
-         **masked_rows["instance_norm_add_masked"]},
+         "replaces": MASKED_REPLACES, "op": "torch.ops.fast_srgan.instance_norm_add",
+         "launches": bucketed["in_add_masked"], **masked_rows["instance_norm_add_masked"]},
     ]}))
     print(json.dumps({
         "ok": True,

@@ -15,7 +15,12 @@ s8 conv (``quant.py``); float convolutions run through cuDNN. The serving
 entry points are ``python -m fast_srgan_torch.infer`` (images, video) and
 ``python -m fast_srgan_torch.serve`` (HTTP); training is ``python -m
 fast_srgan_torch.train`` (``train/trainer.py`` over ``train/steps.py``, the
-data pipeline in ``data/``, PSNR/SSIM in ``metrics/``).
+data pipeline in ``data/``, PSNR/SSIM in ``metrics/``). Each kernel is a
+``torch.library`` op (``torch.ops.fast_srgan.*``), so ``export.py`` can
+save the serving forward as ``torch.export`` programs; the tools
+(``export_model``, ``evaluate``, ``interp_checkpoints``,
+``convert_checkpoint``, ``plot_metrics``) are ``python -m
+fast_srgan_torch.scripts.<name>``.
 """
 
 __version__ = "0.1.0"

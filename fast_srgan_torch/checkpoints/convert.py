@@ -20,10 +20,16 @@ prefix stripped) loads through ``load_state_dict`` as it is:
 Conv kernels go HWIO -> OIHW. No pixel-shuffle channel permutation is
 needed: the JAX package's ``pixel_shuffle_nhwc`` already uses torch's
 channel order (c*r*r + i*r + j).
+
+:func:`params_from_state_dict` is the inverse map (OIHW -> HWIO), and
+:func:`load_generator_params` reads any generator checkpoint the port
+meets: a native ``.npz``, the reference's ``.pt`` (keys prefixed
+``_orig_mod.``) or the port trainer's ``generator_epoch_N.pt``.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, Mapping
 
 import numpy as np
@@ -66,6 +72,73 @@ def state_dict_from_jax_params(
         sd[f"upsampling.{j}.conv.bias"] = _vec(blk["conv"]["bias"])
         sd[f"upsampling.{j}.relu.weight"] = _vec(blk["relu"]["alpha"])
     return sd
+
+
+def _hwio(weight: Any) -> np.ndarray:
+    return np.ascontiguousarray(_np32(weight).transpose(2, 3, 1, 0))
+
+
+def _np32(leaf: Any) -> np.ndarray:
+    if isinstance(leaf, torch.Tensor):
+        leaf = leaf.detach().to("cpu", torch.float32).numpy()
+    return np.array(leaf, dtype=np.float32)
+
+
+def _stage_indices(sd: Mapping[str, Any], prefix: str) -> range:
+    """range(n) for the keys ``prefix.{i}.*`` of a state_dict."""
+    found = [int(k.split(".")[1]) for k in sd if k.startswith(prefix + ".")]
+    return range(1 + max(found)) if found else range(0)
+
+
+def params_from_state_dict(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
+    """The inverse of :func:`state_dict_from_jax_params`: a generator
+    state_dict in the reference's names (tensors or arrays, any float dtype;
+    torch.compile's ``_orig_mod.`` prefix stripped) -> the numpy fp32 param
+    tree with the ``{'params': ...}`` wrapper, kernels HWIO. Raises
+    ValueError for a state_dict that is not a generator's."""
+    sd = {k.replace("_orig_mod.", ""): v for k, v in state_dict.items()}
+    ups = _stage_indices(sd, "upsampling")
+    if not ups or "neck.0.weight" not in sd:
+        raise ValueError(
+            "not a generator state_dict (no 'neck.0.weight' or 'upsampling.*' keys);"
+            f" got keys like {sorted(sd)[:5]}"
+        )
+    p: Dict[str, Any] = {
+        "neck_conv": {"kernel": _hwio(sd["neck.0.weight"]), "bias": _np32(sd["neck.0.bias"])},
+        "neck_relu": {"alpha": _np32(sd["neck.1.weight"])},
+        "bottleneck_conv": {"kernel": _hwio(sd["bottleneck.0.weight"])},
+        "head_conv": {"kernel": _hwio(sd["head.0.weight"]), "bias": _np32(sd["head.0.bias"])},
+    }
+    for i in _stage_indices(sd, "stem"):
+        p[f"stem_{i}"] = {
+            "conv1": {"kernel": _hwio(sd[f"stem.{i}.conv1.weight"])},
+            "relu1": {"alpha": _np32(sd[f"stem.{i}.relu1.weight"])},
+            "conv2": {"kernel": _hwio(sd[f"stem.{i}.conv2.weight"])},
+        }
+    for j in ups:
+        p[f"upsampling_{j}"] = {
+            "conv": {"kernel": _hwio(sd[f"upsampling.{j}.conv.weight"]),
+                     "bias": _np32(sd[f"upsampling.{j}.conv.bias"])},
+            "relu": {"alpha": _np32(sd[f"upsampling.{j}.relu.weight"])},
+        }
+    return {"params": p}
+
+
+def load_generator_params(path: str) -> Dict[str, Any]:
+    """Generator params (numpy, ``{'params': ...}``) from a native ``.npz``
+    or a ``.pt`` generator state_dict (the reference's, ``_orig_mod.``
+    prefixes stripped, or the port trainer's ``generator_epoch_N.pt``).
+    Raises FileNotFoundError for a missing file."""
+    if not os.path.exists(path):
+        raise FileNotFoundError(
+            f"checkpoint not found: {path!r} (expected a native .npz or a .pt generator"
+            " state_dict)"
+        )
+    if path.endswith(".npz"):
+        from fast_srgan_torch.checkpoints.npz_io import load_npz_params
+
+        return load_npz_params(path)
+    return params_from_state_dict(torch.load(path, map_location="cpu", weights_only=True))
 
 
 def discriminator_state_dict_from_jax_params(

@@ -1,13 +1,15 @@
 """Upscale a directory of images, or video files, with the PyTorch port.
 
     python -m fast_srgan_torch.infer --image_dir D --output_dir O
-        [--checkpoint X.npz] [--batch_size N] [--bucket N] [--fp32] [--int8]
+        [--checkpoint X.npz|X.pt] [--batch_size N] [--bucket N] [--fp32] [--int8]
         [--device cuda]
     python -m fast_srgan_torch.infer --video IN.mp4 [IN2.mp4 ...]
         (--video_out OUT.mp4 | --output_dir O) [--int8] [--device cuda]
 
 Loads the generator from a native ``.npz`` checkpoint (default
-``models/generator_pretrained.npz``), reads png/jpg/jpeg files
+``models/generator_pretrained.npz``) or a ``.pt`` generator state_dict
+(the reference's, or the port trainer's ``generator_epoch_N.pt``:
+``checkpoints.convert.load_generator_params``), reads png/jpg/jpeg files
 case-insensitively, upscales each at its own resolution, and writes the
 result under the same name in the output directory.
 
@@ -32,7 +34,7 @@ import numpy as np
 import torch
 
 from fast_srgan_torch import quant
-from fast_srgan_torch.checkpoints.npz_io import load_npz_params
+from fast_srgan_torch.checkpoints.convert import load_generator_params
 from fast_srgan_torch.config import default_config
 from fast_srgan_torch.inference import SRInferenceEngine, load_image
 
@@ -137,7 +139,7 @@ def main(argv=None) -> None:
                 f" {batch.shape[1]}x{batch.shape[2]} from the input images"
             )
     engine = SRInferenceEngine(
-        load_npz_params(args.checkpoint),
+        load_generator_params(args.checkpoint),
         dtype=torch.float32 if args.fp32 else torch.bfloat16,
         device=args.device,
         bucket=bucket,

@@ -27,7 +27,6 @@ is not ported yet.
 from __future__ import annotations
 
 import collections
-import contextlib
 from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -38,7 +37,7 @@ from fast_srgan_torch.checkpoints.convert import state_dict_from_jax_params
 from fast_srgan_torch.models.generator import Generator
 from fast_srgan_torch.ops.lr_tail import generator_apply_lr_tail, prepare_lr_tail
 from fast_srgan_torch.ops.norm import valid_mask, zero_outside
-from fast_srgan_torch.ops.precision import cudnn_without_tf32
+from fast_srgan_torch.ops.precision import fp32_precision
 
 #: Batches a stream keeps in flight on the card (the JAX engine's window).
 STREAM_IN_FLIGHT = 2
@@ -204,9 +203,7 @@ class SRInferenceEngine:
         self.act_scales = quant.calibrate_scales(self._calib_plan, batches)
 
     def _precision(self):
-        if self.dtype == torch.float32 and self.device.type == "cuda":
-            return cudnn_without_tf32()
-        return contextlib.nullcontext()
+        return fp32_precision(self.dtype == torch.float32, self.device)
 
     def _apply(self, x: torch.Tensor, valid_hw=None) -> torch.Tensor:
         if self.quantize:

@@ -6,11 +6,13 @@ in one implicit-GEMM kernel for every H and W). The kernel reads the input
 once and writes the shuffled 2x-resolution output once: the [B, 4C, H, W]
 conv output is never stored.
 
-``fused_upsample`` is an autograd Function. Its forward takes the plain
-version on a CPU tensor and launches the kernel on a CUDA tensor (or raises
-``ValueError`` for what the kernel does not take). Its backward recomputes
-only the pre-activation z = shuffle(conv(x) + b) (the same kernel without
-the PReLU on a CUDA tensor, the plain composition on a CPU one), takes the
+The stage is the ``torch.library`` op ``fast_srgan::fused_upsample(x,
+weight, bias, alpha, prelu=True)`` (opaque to ``torch.export``): its CPU
+implementation is the plain version, its CUDA one launches the kernel (or
+raises ``ValueError`` for what the kernel does not take). ``prelu=False``
+is the pre-activation z = shuffle(conv(x) + b). ``fused_upsample`` calls
+the op through an autograd Function where a gradient is recorded. Its
+backward recomputes only z (the op with ``prelu=False``), takes the
 PReLU's gradients from z, and leaves dx, dW and db to the library's conv
 backward, as the JAX ``_fused_bwd`` leaves them to ``jax.vjp`` of the lax
 composition. Autocast is off inside: the activation's dtype is the compute
@@ -185,16 +187,36 @@ def _launch(x, weight, bias, alpha, prelu: bool = True) -> torch.Tensor:
     return launch_prepared(x, params, prelu)
 
 
+def _plain(x, weight, bias, alpha, prelu: bool = True) -> torch.Tensor:
+    with torch.autocast("cpu", enabled=False):
+        if prelu:
+            return fused_upsample_reference(x, weight, bias, alpha)
+        return upsample_preact_reference(x, weight, bias)
+
+
+def _fake(x, weight, bias, alpha, prelu: bool = True) -> torch.Tensor:
+    b, _, h, w = x.shape
+    # the kernel writes channels_last; so does the plain version on a
+    # channels_last x (F.pixel_shuffle keeps x's layout)
+    cl = x.is_contiguous(memory_format=torch.channels_last)
+    y = x.new_empty((b, weight.shape[0] // 4, 2 * h, 2 * w))
+    return y.contiguous(memory_format=torch.channels_last if cl else torch.contiguous_format)
+
+
+_LIB = torch.library.Library("fast_srgan", "FRAGMENT")
+_LIB.define("fused_upsample(Tensor x, Tensor weight, Tensor bias, Tensor alpha,"
+            " bool prelu=True) -> Tensor")
+_LIB.impl("fused_upsample", _plain, "CPU")
+_LIB.impl("fused_upsample", _launch, "CUDA")
+torch.library.register_fake("fast_srgan::fused_upsample", _fake, lib=_LIB)
+_OP = torch.ops.fast_srgan.fused_upsample.default
+
+
 class FusedUpsampleFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, weight, bias, alpha):
         ctx.save_for_backward(x, weight, bias, alpha)
-        if x.device.type == "cpu":
-            with torch.autocast("cpu", enabled=False):
-                return fused_upsample_reference(x, weight, bias, alpha)
-        if x.device.type != "cuda":
-            raise ValueError(f"fused_upsample runs on cpu or cuda, not {x.device}")
-        return _launch(x, weight, bias, alpha)
+        return _OP(x, weight, bias, alpha)
 
     @staticmethod
     def backward(ctx, grad):
@@ -207,10 +229,7 @@ class FusedUpsampleFunction(torch.autograd.Function):
         x, weight, bias, alpha = ctx.saved_tensors
         needs = ctx.needs_input_grad
         with torch.autocast(grad.device.type, enabled=False):
-            if x.device.type == "cpu":
-                z = upsample_preact_reference(x, weight, bias)
-            else:
-                z = _launch(x, weight, bias, alpha, prelu=False)
+            z = _OP(x, weight, bias, alpha, False)
             g = grad.to(z.dtype)
             neg = z < 0
             dy = F.pixel_unshuffle(torch.where(neg, alpha.to(z.dtype) * g, g), 2)
@@ -237,7 +256,11 @@ def fused_upsample(
     ``fused_upsample.launches`` counts the forwards that launched the
     kernel, ``fused_upsample.backward_launches`` the backwards' launches of
     its pre-activation form."""
-    return FusedUpsampleFunction.apply(x, weight, bias, alpha)
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_upsample runs on cpu or cuda, not {x.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, weight, bias, alpha)):
+        return FusedUpsampleFunction.apply(x, weight, bias, alpha)
+    return _OP(x, weight, bias, alpha)
 
 
 fused_upsample.launches = 0

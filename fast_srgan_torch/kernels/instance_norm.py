@@ -23,10 +23,14 @@ counterpart of the JAX package's ``instance_norm_masked_nhwc``
 (``ops/norm.py:43``), which XLA lowered on the TPU; its launches are counted
 in ``masked_launches``, apart from the unmasked ones.
 
-Dispatch follows the tensor: a CPU tensor takes the plain version (the
-numerical contract); a CUDA tensor launches the kernel or raises
-``ValueError`` for what the kernel does not take. There is no fallback
-between the two.
+Both are ``torch.library`` ops, ``fast_srgan::instance_norm_prelu`` and
+``fast_srgan::instance_norm_add`` (``valid_h``/``valid_w`` an optional
+pair): opaque to ``torch.export``, which records the op and not what it
+does. Dispatch follows the tensor: the op's CPU implementation is the plain
+version (the numerical contract); its CUDA implementation launches the
+kernel or raises ``ValueError`` for what the kernel does not take, and
+counts the launch; its fake implementation gives the output's shape, dtype
+and strides. There is no fallback between the two.
 """
 
 from __future__ import annotations
@@ -246,28 +250,81 @@ def _launch(
     return out
 
 
-def _on_device(x: torch.Tensor, name: str) -> bool:
-    """True for a CUDA tensor (launch), False for a CPU one (plain)."""
-    if x.device.type == "cpu":
-        return False
-    if x.device.type != "cuda":
+def _check_device(x: torch.Tensor, name: str) -> None:
+    """The ops run on the CPU (plain) or the card (kernel), nowhere else."""
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name} runs on cpu or cuda, not {x.device}")
-    return True
+
+
+def _split(valid_hw: ValidHW) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """``valid_hw`` as the ops' (valid_h, valid_w) arguments."""
+    if valid_hw is None:
+        return None, None
+    if len(valid_hw) != 2:
+        raise ValueError("valid_hw must be a pair (valid_h, valid_w)")
+    return valid_hw[0], valid_hw[1]
+
+
+def _join(valid_h, valid_w) -> ValidHW:
+    if (valid_h is None) != (valid_w is None):
+        raise ValueError("valid_h and valid_w are given together or not at all")
+    return None if valid_h is None else (valid_h, valid_w)
+
+
+_LIB = torch.library.Library("fast_srgan", "FRAGMENT")
+_LIB.define("instance_norm_prelu(Tensor x, Tensor alpha, Tensor? valid_h=None,"
+            " Tensor? valid_w=None) -> Tensor")
+_LIB.define("instance_norm_add(Tensor x, Tensor skip, Tensor? valid_h=None,"
+            " Tensor? valid_w=None) -> Tensor")
+
+
+def _prelu_cpu(x, alpha, valid_h=None, valid_w=None):
+    return instance_norm_prelu_reference(x, alpha, _join(valid_h, valid_w))
+
+
+def _prelu_cuda(x, alpha, valid_h=None, valid_w=None):
+    valid_hw = _join(valid_h, valid_w)
+    check_kernel_inputs(x, alpha)
+    check_valid_hw(x, valid_hw)
+    return _launch(x, alpha, False, valid_hw)
+
+
+def _add_cpu(x, skip, valid_h=None, valid_w=None):
+    return instance_norm_add_reference(x, skip, _join(valid_h, valid_w))
+
+
+def _add_cuda(x, skip, valid_h=None, valid_w=None):
+    valid_hw = _join(valid_h, valid_w)
+    check_add_inputs(x, skip)
+    check_valid_hw(x, valid_hw)
+    return _launch(x, skip, True, valid_hw)
+
+
+def _fake(x, other, valid_h=None, valid_w=None):
+    # the kernel writes x's shape, dtype and (channels_last) layout; the
+    # plain version keeps x's layout
+    return torch.empty_like(x)
+
+
+_LIB.impl("instance_norm_prelu", _prelu_cpu, "CPU")
+_LIB.impl("instance_norm_prelu", _prelu_cuda, "CUDA")
+_LIB.impl("instance_norm_add", _add_cpu, "CPU")
+_LIB.impl("instance_norm_add", _add_cuda, "CUDA")
+torch.library.register_fake("fast_srgan::instance_norm_prelu", _fake, lib=_LIB)
+torch.library.register_fake("fast_srgan::instance_norm_add", _fake, lib=_LIB)
+_PRELU_OP = torch.ops.fast_srgan.instance_norm_prelu.default
+_ADD_OP = torch.ops.fast_srgan.instance_norm_add.default
 
 
 class InstanceNormPReLUFunction(torch.autograd.Function):
-    """Forward through the kernel; backward differentiates the plain
+    """Forward through the op; backward differentiates the plain
     composition (the JAX package's ``_bwd`` does the same)."""
 
     @staticmethod
     def forward(ctx, x, alpha, valid_hw):
         ctx.save_for_backward(x, alpha)
         ctx.valid_hw = valid_hw
-        if not _on_device(x, "instance_norm_prelu"):
-            return instance_norm_prelu_reference(x, alpha, valid_hw)
-        check_kernel_inputs(x, alpha)
-        check_valid_hw(x, valid_hw)
-        return _launch(x, alpha, False, valid_hw)
+        return _PRELU_OP(x, alpha, *_split(valid_hw))
 
     @staticmethod
     def backward(ctx, grad):
@@ -281,7 +338,7 @@ class InstanceNormPReLUFunction(torch.autograd.Function):
 
 
 class InstanceNormAddFunction(torch.autograd.Function):
-    """Forward through the kernel; backward differentiates the plain
+    """Forward through the op; backward differentiates the plain
     composition ``instance_norm(x) + skip`` (the JAX package has no
     backward kernel for it either)."""
 
@@ -289,11 +346,7 @@ class InstanceNormAddFunction(torch.autograd.Function):
     def forward(ctx, x, skip, valid_hw):
         ctx.save_for_backward(x)
         ctx.valid_hw = valid_hw
-        if not _on_device(x, "instance_norm_add"):
-            return instance_norm_add_reference(x, skip, valid_hw)
-        check_add_inputs(x, skip)
-        check_valid_hw(x, valid_hw)
-        return _launch(x, skip, True, valid_hw)
+        return _ADD_OP(x, skip, *_split(valid_hw))
 
     @staticmethod
     def backward(ctx, grad):
@@ -316,8 +369,12 @@ def instance_norm_prelu(
 
     ``instance_norm_prelu.launches`` counts the unmasked calls that launched
     the CUDA kernel family, ``masked_launches`` the masked ones (one a
-    call, whichever form it took)."""
-    return InstanceNormPReLUFunction.apply(x, alpha, valid_hw)
+    call, whichever form it took). Without a gradient to record, the op is
+    called directly: an ``autograd.Function`` adds host time to each call."""
+    _check_device(x, "instance_norm_prelu")
+    if torch.is_grad_enabled() and (x.requires_grad or alpha.requires_grad):
+        return InstanceNormPReLUFunction.apply(x, alpha, valid_hw)
+    return _PRELU_OP(x, alpha, *_split(valid_hw))
 
 
 def instance_norm_add(
@@ -329,8 +386,12 @@ def instance_norm_add(
 
     ``instance_norm_add.launches`` counts the unmasked calls that launched
     the CUDA kernel family, ``masked_launches`` the masked ones (one a
-    call, whichever form it took)."""
-    return InstanceNormAddFunction.apply(x, skip, valid_hw)
+    call, whichever form it took). Without a gradient to record, the op is
+    called directly."""
+    _check_device(x, "instance_norm_add")
+    if torch.is_grad_enabled() and (x.requires_grad or skip.requires_grad):
+        return InstanceNormAddFunction.apply(x, skip, valid_hw)
+    return _ADD_OP(x, skip, *_split(valid_hw))
 
 
 instance_norm_prelu.launches = 0

@@ -22,9 +22,14 @@ Every conv of the int8 tier is "same"-sized: 3x3 with padding (1, 1), or
 
 The plain version runs the conv in float64 on the int8 values, which is
 exact (|acc| <= 9 * 1024 * 127^2 < 2^53; fp32 is not, a 3x3x256 sum
-reaches 3.7e7 > 2^24), so the kernel is held to it bitwise. Dispatch
-follows the tensor: a CPU tensor takes the plain version; a CUDA tensor
-launches the kernel or raises ``ValueError`` for what the kernel does not
+reaches 3.7e7 > 2^24), so the kernel is held to it bitwise.
+
+Both entry points are ``torch.library`` ops, ``fast_srgan::int8_conv`` and
+``fast_srgan::int8_conv_phases`` (opaque to ``torch.export``). They take a
+weight's tensors and ints, not the :class:`Int8Weight` object: ``packed``
+for the plain version, ``tiled`` for the kernel. Dispatch follows the
+tensor: the ops' CPU implementations are the plain versions; their CUDA
+ones launch the kernel or raise ``ValueError`` for what the kernel does not
 take. There is no fallback between the two.
 """
 
@@ -271,6 +276,76 @@ def _launch(xq, weight, wscale, act_scale, padding, bias, alpha, out_dtype, out_
     return out
 
 
+_LIB = torch.library.Library("fast_srgan", "FRAGMENT")
+_LIB.define(
+    "int8_conv(Tensor xq, Tensor packed, Tensor tiled, int cout, int cin, int n_tile,"
+    " Tensor wscale, Tensor act_scale, int[] padding, Tensor? bias, Tensor? alpha,"
+    " ScalarType out_dtype, Tensor? out_scale) -> Tensor"
+)
+# the four phases' outputs as one [4, B, H, W, Cout] tensor (an op's outputs
+# do not alias each other); the wrapper hands out the four views
+_LIB.define(
+    "int8_conv_phases(Tensor xq, Tensor[] packed, Tensor tiled, int cout, int cin,"
+    " int n_tile, Tensor wscale, Tensor act_scale, Tensor? bias, Tensor? alpha,"
+    " ScalarType out_dtype) -> Tensor"
+)
+
+
+def _conv_cpu(xq, packed, tiled, cout, cin, n_tile, wscale, act_scale, padding, bias, alpha,
+              out_dtype, out_scale):
+    return int8_conv_reference(xq, Int8Weight(packed, cout, cin, tiled, n_tile), wscale,
+                               act_scale, tuple(padding), bias, alpha, out_dtype, out_scale)
+
+
+def _conv_cuda(xq, packed, tiled, cout, cin, n_tile, wscale, act_scale, padding, bias, alpha,
+               out_dtype, out_scale):
+    return _launch(xq, Int8Weight(packed, cout, cin, tiled, n_tile), wscale, act_scale,
+                   tuple(padding), bias, alpha, out_dtype, out_scale)
+
+
+def _conv_fake(xq, packed, tiled, cout, cin, n_tile, wscale, act_scale, padding, bias, alpha,
+               out_dtype, out_scale):
+    b, _, h, w = xq.shape
+    return xq.new_empty((b, cout, h, w), dtype=out_dtype if out_scale is None else torch.int8
+                        ).contiguous(memory_format=torch.channels_last)
+
+
+def _phases_weights(packed, tiled, cout, cin, n_tile) -> Int8Phases:
+    """The Int8Phases the ops' arguments describe (the four phases' packed
+    kernels, and the four tiled together)."""
+    ws = tuple(Int8Weight(p, cout, cin, None, n_tile) for p in packed)
+    return Int8Phases(ws, cout, cin, tiled, n_tile)
+
+
+def _phases_cpu(xq, packed, tiled, cout, cin, n_tile, wscale, act_scale, bias, alpha,
+                out_dtype):
+    outs = int8_conv_phases_reference(xq, _phases_weights(packed, tiled, cout, cin, n_tile),
+                                      wscale, act_scale, bias, alpha, out_dtype)
+    return torch.stack([o.permute(0, 2, 3, 1) for o in outs])
+
+
+def _phases_cuda(xq, packed, tiled, cout, cin, n_tile, wscale, act_scale, bias, alpha,
+                 out_dtype):
+    return _launch_phases(xq, _phases_weights(packed, tiled, cout, cin, n_tile), wscale,
+                          act_scale, bias, alpha, out_dtype)
+
+
+def _phases_fake(xq, packed, tiled, cout, cin, n_tile, wscale, act_scale, bias, alpha,
+                 out_dtype):
+    b, _, h, w = xq.shape
+    return xq.new_empty((4, b, h, w, cout), dtype=out_dtype)
+
+
+_LIB.impl("int8_conv", _conv_cpu, "CPU")
+_LIB.impl("int8_conv", _conv_cuda, "CUDA")
+_LIB.impl("int8_conv_phases", _phases_cpu, "CPU")
+_LIB.impl("int8_conv_phases", _phases_cuda, "CUDA")
+torch.library.register_fake("fast_srgan::int8_conv", _conv_fake, lib=_LIB)
+torch.library.register_fake("fast_srgan::int8_conv_phases", _phases_fake, lib=_LIB)
+_CONV_OP = torch.ops.fast_srgan.int8_conv.default
+_PHASES_OP = torch.ops.fast_srgan.int8_conv_phases.default
+
+
 def int8_conv(
     xq: torch.Tensor,
     weight: Int8Weight,
@@ -291,13 +366,10 @@ def int8_conv(
     ``padding`` = (top, left) zero rows and columns.
 
     ``int8_conv.launches`` counts the calls that launched the kernel."""
-    if xq.device.type == "cpu":
-        return int8_conv_reference(
-            xq, weight, wscale, act_scale, padding, bias, alpha, out_dtype, out_scale
-        )
-    if xq.device.type != "cuda":
+    if xq.device.type not in ("cpu", "cuda"):
         raise ValueError(f"int8_conv runs on cpu or cuda, not {xq.device}")
-    return _launch(xq, weight, wscale, act_scale, padding, bias, alpha, out_dtype, out_scale)
+    return _CONV_OP(xq, weight.packed, weight.tiled, weight.cout, weight.cin, weight.n_tile,
+                    wscale, act_scale, list(padding), bias, alpha, out_dtype, out_scale)
 
 
 int8_conv.launches = 0
@@ -328,7 +400,7 @@ def _launch_phases(xq, weights, wscale, act_scale, bias, alpha, out_dtype):
     if err:
         raise RuntimeError(f"int8_conv_phases launch failed: cudaError {err}")
     int8_conv_phases.launches += 1
-    return [out[i].permute(0, 3, 1, 2) for i in range(4)]
+    return out
 
 
 def int8_conv_phases(
@@ -343,18 +415,16 @@ def int8_conv_phases(
     """The four stage-2 phases of int8 [B, Cin, H, W] ``xq`` (channels_last):
     phase (p, q) is :func:`int8_conv` by its 2x2 kernel at padding
     (1 - p, 1 - q), with the same scales, bias and slope. Returns the four
-    [B, Cout, H, W] outputs in :data:`PHASES` order, each channels_last; on
-    the card they are slices of one [4, B, H, W, Cout] allocation, written
-    by one launch that stages each input tile once for all four.
+    [B, Cout, H, W] outputs in :data:`PHASES` order, each channels_last:
+    views of the op's one [4, B, H, W, Cout] output, which on the card one
+    launch writes, staging each input tile once for all four.
 
     ``int8_conv_phases.launches`` counts the calls that launched the kernel."""
-    if xq.device.type == "cpu":
-        return int8_conv_phases_reference(
-            xq, weights, wscale, act_scale, bias, alpha, out_dtype
-        )
-    if xq.device.type != "cuda":
+    if xq.device.type not in ("cpu", "cuda"):
         raise ValueError(f"int8_conv_phases runs on cpu or cuda, not {xq.device}")
-    return _launch_phases(xq, weights, wscale, act_scale, bias, alpha, out_dtype)
+    out = _PHASES_OP(xq, [w.packed for w in weights.phases], weights.tiled, weights.cout,
+                     weights.cin, weights.n_tile, wscale, act_scale, bias, alpha, out_dtype)
+    return [out[i].permute(0, 3, 1, 2) for i in range(4)]
 
 
 int8_conv_phases.launches = 0

@@ -9,9 +9,11 @@ the result is bitwise equal to the plain version.
 
 The unfused upsample stage (``models/generator.py``) runs its conv with
 phase-major weights and shuffles through this op, so the permutation
-gathers the weights, not the activation. Dispatch follows the tensor, as
-in ``kernels/instance_norm.py``: CPU takes the plain version; CUDA
-launches the kernel or raises ``ValueError``.
+gathers the weights, not the activation. The op is
+``fast_srgan::pixel_shuffle_phase_major`` (``torch.library``; opaque to
+``torch.export``). Dispatch follows the tensor, as in
+``kernels/instance_norm.py``: its CPU implementation is the plain version;
+its CUDA one launches the kernel or raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -92,20 +94,27 @@ def _launch(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _fake(x):
+    b, c4, h, w = x.shape
+    return x.new_empty((b, c4 // 4, 2 * h, 2 * w)).contiguous(memory_format=torch.channels_last)
+
+
+_LIB = torch.library.Library("fast_srgan", "FRAGMENT")
+_LIB.define("pixel_shuffle_phase_major(Tensor x) -> Tensor")
+_LIB.impl("pixel_shuffle_phase_major", pixel_shuffle_phase_major_reference, "CPU")
+_LIB.impl("pixel_shuffle_phase_major", _launch, "CUDA")
+torch.library.register_fake("fast_srgan::pixel_shuffle_phase_major", _fake, lib=_LIB)
+_OP = torch.ops.fast_srgan.pixel_shuffle_phase_major.default
+
+
 class PixelShufflePhaseMajorFunction(torch.autograd.Function):
-    """Forward through the kernel; the backward of a copy is the inverse
-    copy, one pass on channels_last memory: grad pixel (2h+i, 2w+j) channel
-    c goes to pixel (h, w) channel (2i + j) * C + c."""
+    """Forward through the op; the backward of a copy is the inverse copy,
+    one pass on channels_last memory: grad pixel (2h+i, 2w+j) channel c
+    goes to pixel (h, w) channel (2i + j) * C + c."""
 
     @staticmethod
     def forward(ctx, x):
-        if x.device.type == "cpu":
-            return pixel_shuffle_phase_major_reference(x)
-        if x.device.type != "cuda":
-            raise ValueError(
-                f"pixel_shuffle_phase_major runs on cpu or cuda, not {x.device}"
-            )
-        return _launch(x)
+        return _OP(x)
 
     @staticmethod
     def backward(ctx, grad):
@@ -120,7 +129,11 @@ def pixel_shuffle_phase_major(x: torch.Tensor) -> torch.Tensor:
 
     ``pixel_shuffle_phase_major.launches`` counts the calls that launched
     the CUDA kernel."""
-    return PixelShufflePhaseMajorFunction.apply(x)
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"pixel_shuffle_phase_major runs on cpu or cuda, not {x.device}")
+    if torch.is_grad_enabled() and x.requires_grad:
+        return PixelShufflePhaseMajorFunction.apply(x)
+    return _OP(x)
 
 
 pixel_shuffle_phase_major.launches = 0

@@ -10,9 +10,11 @@ even. The kernel is bitwise equal to the plain version. The output keeps
 the input's memory order (a channels_last activation gives a channels_last
 int8 tensor).
 
-Dispatch follows the tensor: a CPU tensor takes :func:`quantize_act_reference`;
-a CUDA tensor launches the kernel or raises ``ValueError`` for what the
-kernel does not take. There is no fallback between the two.
+The ``torch.library`` op ``fast_srgan::quantize_act`` (opaque to
+``torch.export``) dispatches on the tensor: its CPU implementation is
+:func:`quantize_act_reference`; its CUDA one launches the kernel or raises
+``ValueError`` for what the kernel does not take. There is no fallback
+between the two.
 """
 
 from __future__ import annotations
@@ -73,15 +75,25 @@ def _launch(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _fake(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return torch.empty_like(x, dtype=torch.int8)
+
+
+_LIB = torch.library.Library("fast_srgan", "FRAGMENT")
+_LIB.define("quantize_act(Tensor x, Tensor scale) -> Tensor")
+_LIB.impl("quantize_act", quantize_act_reference, "CPU")
+_LIB.impl("quantize_act", _launch, "CUDA")
+torch.library.register_fake("fast_srgan::quantize_act", _fake, lib=_LIB)
+_OP = torch.ops.fast_srgan.quantize_act.default
+
+
 def quantize_act(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """int8 of ``x`` at the per-tensor scale ``scale`` (a one-value tensor).
 
     ``quantize_act.launches`` counts the calls that launched the kernel."""
-    if x.device.type == "cpu":
-        return quantize_act_reference(x, scale)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"quantize_act runs on cpu or cuda, not {x.device}")
-    return _launch(x, scale)
+    return _OP(x, scale)
 
 
 quantize_act.launches = 0

@@ -44,7 +44,7 @@ from fast_srgan_torch.kernels.instance_norm import (
     instance_norm_prelu,
 )
 from fast_srgan_torch.kernels.pixel_shuffle import (
-    phase_major_index,
+    phase_major_permutation,
     pixel_shuffle_phase_major,
 )
 from fast_srgan_torch.ops.norm import valid_mask, zero_outside
@@ -81,13 +81,18 @@ class UpSamplingBlock(nn.Module):
     Fused: the whole stage is one kernel. Unfused: the conv runs with its
     output channels permuted to phase-major order (a gather of weight and
     bias, not of the activation), so the shuffle is a plain copy. The parameters are
-    the same either way, in torch channel order."""
+    the same either way, in torch channel order. The permutation is a
+    buffer (not saved in the state_dict), so ``torch.export`` holds it as
+    module state and it follows the module to its device."""
 
     def __init__(self, n_filters: int, fused: bool = False):
         super().__init__()
         self.conv = _conv3x3(n_filters, 4 * n_filters)
         self.relu = nn.PReLU(1)
         self.fused = fused
+        self.register_buffer(
+            "perm", torch.from_numpy(phase_major_permutation(4 * n_filters)), persistent=False
+        )
 
     def forward(self, x: torch.Tensor, mask=None) -> torch.Tensor:
         """``mask`` ([B, 1, H, W], x's resolution) re-zeroes the padding that
@@ -97,8 +102,7 @@ class UpSamplingBlock(nn.Module):
             if mask is not None:
                 raise ValueError("fused upsample does not support masking")
             return fused_upsample(x, self.conv.weight, self.conv.bias, self.relu.weight)
-        perm = phase_major_index(self.conv.out_channels, x.device)
-        y = F.conv2d(x, self.conv.weight[perm], self.conv.bias[perm], padding=1)
+        y = F.conv2d(x, self.conv.weight[self.perm], self.conv.bias[self.perm], padding=1)
         if mask is not None:
             y = zero_outside(y, mask)
         y = pixel_shuffle_phase_major(y.contiguous(memory_format=torch.channels_last))

@@ -250,7 +250,7 @@ def lr_tail(
         head = head_form_4x(y.shape[0], y.shape[2] * y.shape[3])
     if head not in ("summed", "concat"):
         raise ValueError(f"head must be 'summed'/'concat'/'auto': {head!r}")
-    a1 = _masked(_conv_prelu(y.to(w["head_w"].dtype), w["up0"]), mask)  # [B, 4F, H, W]
+    a1 = _masked(_conv_prelu(y.to(w["up0"]["w"].dtype), w["up0"]), mask)  # [B, 4F, H, W]
     phases = [_masked(ph, mask)
               for ph in _phase_outputs(a1, w["phases"], w["up1_b"], w["up1_a"])]
     if head == "concat":

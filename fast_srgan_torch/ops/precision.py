@@ -18,3 +18,11 @@ def cudnn_without_tf32():
         allow_tf32=False,
     ):
         yield
+
+
+def fp32_precision(fp32: bool, device: torch.device):
+    """:func:`cudnn_without_tf32` where fp32 convolutions run on the card,
+    else a context that changes nothing."""
+    if fp32 and torch.device(device).type == "cuda":
+        return cudnn_without_tf32()
+    return contextlib.nullcontext()

@@ -1,7 +1,7 @@
 """Batched HTTP super-resolution server on the PyTorch port.
 
     python -m fast_srgan_torch.serve [--host 127.0.0.1] [--port 8000]
-        [--checkpoint X.npz] [--bucket 32] [--max_batch 8] [--max_wait_ms 5]
+        [--checkpoint X.npz|X.pt] [--bucket 32] [--max_batch 8] [--max_wait_ms 5]
         [--fp32] [--int8 [--calib_dir DIR]] [--warm H1xW1,...|none]
         [--device cuda]
 
@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from fast_srgan_torch import quant
-from fast_srgan_torch.checkpoints.npz_io import load_npz_params
+from fast_srgan_torch.checkpoints.convert import load_generator_params
 from fast_srgan_torch.infer import DEFAULT_CHECKPOINT, image_names
 from fast_srgan_torch.inference import SRInferenceEngine, load_image
 from fast_srgan_torch.serving import make_server
@@ -97,7 +97,7 @@ def build_server(args: argparse.Namespace):
             raise SystemExit(f"--calib_dir {args.calib_dir}: no usable image of >= 32x32")
         calib = [batch]
     engine = SRInferenceEngine(
-        load_npz_params(args.checkpoint),
+        load_generator_params(args.checkpoint),
         dtype=torch.float32 if args.fp32 else torch.bfloat16,
         device=args.device,
         bucket=args.bucket,
