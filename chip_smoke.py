@@ -117,8 +117,31 @@ own line; any failure exits non-zero and prints no result:
      ``infer --checkpoint`` phase 12's ``generator_epoch_15.pt`` on 2 images,
      equal to an engine built from the same file.
 
+ 14. width-sharded serving (``fast_srgan_torch/parallel``), on 4 shards of
+     the one card (a repeated device: the halo and statistics exchange of
+     several cards, for correctness; the times are the cost of the halos
+     and split norms on one card, not a scaling number): the split form of
+     the IN family (statistics, then normalize with every shard's partials)
+     against its plain versions at [1,64,540,240] a shard in bf16 and fp32
+     (2e-2 / 3e-2 / 2e-5), the statistics bitwise equal on every shard,
+     timed; the s8 conv's halo form bitwise against its plain version
+     (stage 1 with and without the quantize, a trunk conv, the four
+     phases) at a [1,Cin,540,242] shard, timed; the pretrained 4x
+     generator on a 4K frame (540x960 -> 2160x3840): bf16 >= 40 dB against
+     the one-device fp32 engine with exact split-form launch counts (the
+     main path), fp32 (TF32 off) within 1 count of it, int8 ups in fp32
+     glue in the bounded-flip contract against the one-device int8 engine
+     (halo-form launch counts), bf16 glue >= 33 dB; ms a 4K frame sharded
+     against one device (indicative); a 2-D ("data", "sp") 2x2 mesh at
+     batch 2, the canonical tail, 2x and 8x generators at depth 2, each
+     within 1 count of its one-device fp32 forward; the data-parallel
+     engine on [cuda:0, cuda:0] at batch 8 (fp32, bf16, int8): bitwise
+     equal to one device on the same slices, within 1 count at batch 8;
+     ``infer --tile 1`` (fp32, and ``--int8``) on two PNGs against the
+     engine.
+
 Phases 7 and 8 run right after phase 3, phase 10 after phase 6, phase 11
-after phase 10, phase 9 and then 12 and 13 last.
+after phase 10, phase 14 after phase 11, phase 9 and then 12 and 13 last.
 
 The line before the last is a JSON object describing each kernel (its
 bound: the larger of its bytes over 3.35 TB/s and its operations over the
@@ -1542,11 +1565,22 @@ def _counters():
     from fast_srgan_torch.kernels.pixel_shuffle import pixel_shuffle_phase_major
     from fast_srgan_torch.kernels.quantize import quantize_act
 
+    from fast_srgan_torch.kernels.instance_norm import (
+        instance_norm_add_from_stats,
+        instance_norm_prelu_from_stats,
+        instance_norm_stats,
+    )
+
     return {"in_prelu": (instance_norm_prelu, "launches"),
             "in_add": (instance_norm_add, "launches"),
             "in_prelu_masked": (instance_norm_prelu, "masked_launches"),
             "in_add_masked": (instance_norm_add, "masked_launches"),
+            "in_stats": (instance_norm_stats, "launches"),
+            "in_prelu_split": (instance_norm_prelu_from_stats, "launches"),
+            "in_add_split": (instance_norm_add_from_stats, "launches"),
             "s8_stage1": (int8_conv, "launches"), "s8_phases": (int8_conv_phases, "launches"),
+            "s8_halo": (int8_conv, "halo_launches"),
+            "s8_phases_halo": (int8_conv_phases, "halo_launches"),
             "quantize": (quantize_act, "launches"),
             "shuffle": (pixel_shuffle_phase_major, "launches"),
             "upsample": (fused_upsample, "launches"),
@@ -1566,11 +1600,12 @@ def _bucketed_counts(forwards: int, n_layers: int, int8: bool = False, shuffle: 
     """A bucketed 4x forward's launches: n_layers masked IN+PReLU, n_layers +
     1 masked IN+add, no unmasked IN; int8 ups adds stage 1 (with stage 2's
     quantize), the four-phase launch and one quantize."""
-    return {"in_prelu": 0, "in_add": 0, "in_prelu_masked": n_layers * forwards,
-            "in_add_masked": (n_layers + 1) * forwards,
-            "s8_stage1": forwards if int8 else 0, "s8_phases": forwards if int8 else 0,
-            "quantize": forwards if int8 else 0, "shuffle": shuffle * forwards,
-            "upsample": 0, "upsample_backward": 0}
+    counts = dict.fromkeys(_counters(), 0)
+    counts.update({"in_prelu_masked": n_layers * forwards,
+                   "in_add_masked": (n_layers + 1) * forwards,
+                   "s8_stage1": forwards if int8 else 0, "s8_phases": forwards if int8 else 0,
+                   "quantize": forwards if int8 else 0, "shuffle": shuffle * forwards})
+    return counts
 
 
 def phase_bucketed_engine(params) -> dict:
@@ -2070,6 +2105,427 @@ def phase_tools() -> None:
     shutil.rmtree(trainer_root, ignore_errors=True)
 
 
+# --- phase 14: width-sharded serving ----------------------------------------
+
+#: the 4K frame (540x960 LR) and the shards it is cut into on the one card
+TILE_FRAME = (540, 960)
+TILE_SHARDS = 4
+SPLIT_REPLACES = "fast_srgan_tpu/parallel/spatial.py:241"
+HALO_REPLACES = "fast_srgan_tpu/parallel/spatial.py:427"
+
+
+def _tile_mesh(rows: int = 0):
+    """TILE_SHARDS shards of cuda:0 on an "sp" axis; with rows, a 2-D
+    ("data", "sp") grid of it."""
+    from fast_srgan_torch.parallel.mesh import Mesh
+
+    dev = torch.device("cuda", 0)
+    if rows:
+        return Mesh([[dev] * (TILE_SHARDS // rows)] * rows, ("data", "sp"))
+    return Mesh([dev] * TILE_SHARDS, ("sp",))
+
+
+def phase_split_in(card: str) -> dict:
+    """14a: the split form of the IN family on a 540x960 frame cut into 4
+    width shards of [1,64,540,240]: each shard's statistics kernel against
+    the plain sums, each normalize kernel against its plain version on the
+    same joined partials and the whole frame's plain norm; every shard's
+    statistics bitwise the same (shard 0 normalized with each shard's copy
+    of the joined partials). Timed a shard. Returns the three ops' rows."""
+    from fast_srgan_torch.kernels.instance_norm import (
+        instance_norm_add_from_stats,
+        instance_norm_add_from_stats_reference,
+        instance_norm_add_reference,
+        instance_norm_prelu_from_stats,
+        instance_norm_prelu_from_stats_reference,
+        instance_norm_prelu_reference,
+        instance_norm_stats,
+        instance_norm_stats_reference,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(14)
+    alpha = torch.tensor([0.173], device=dev)
+    h, w = TILE_FRAME
+    count = h * w
+    rows = {"instance_norm_stats": {}, "instance_norm_prelu_from_stats": {},
+            "instance_norm_add_from_stats": {}}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = "bf16" if dtype == torch.bfloat16 else "fp32"
+        shape = (1, 64, h, w)
+        scale = torch.rand((1, 64, 1, 1), device=dev, generator=gen) * 1.5 + 0.5
+        shift = torch.rand((1, 64, 1, 1), device=dev, generator=gen) * 4 - 2
+        frame = ((torch.rand(shape, device=dev, generator=gen) * 2 - 1) * scale + shift)
+        frame = frame.to(dtype).contiguous(memory_format=torch.channels_last)
+        skip = (torch.rand(shape, device=dev, generator=gen) * 2 - 1).to(dtype)
+        skip = skip.contiguous(memory_format=torch.channels_last)
+        xs = [t.contiguous(memory_format=torch.channels_last) for t in frame.chunk(TILE_SHARDS, 3)]
+        ss = [t.contiguous(memory_format=torch.channels_last) for t in skip.chunk(TILE_SHARDS, 3)]
+        parts = [instance_norm_stats(x) for x in xs]
+        plain_parts = [instance_norm_stats_reference(x) for x in xs]
+        stats_err = max((p - q).abs().max().item() for p, q in zip(parts, plain_parts))
+        stats_rel = stats_err / max(q.abs().max().item() for q in plain_parts)
+        joined = [torch.cat([p.clone() for p in parts], dim=1) for _ in xs]  # a copy a shard
+        pre = [instance_norm_prelu_from_stats(x, alpha, j, count) for x, j in zip(xs, joined)]
+        add = [instance_norm_add_from_stats(x, k, j, count) for x, k, j in zip(xs, ss, joined)]
+        torch.cuda.synchronize()
+        err_pre = max((a.float() - instance_norm_prelu_from_stats_reference(x, alpha, j, count)
+                       .float()).abs().max().item() for a, x, j in zip(pre, xs, joined))
+        err_add = max((a.float() - instance_norm_add_from_stats_reference(x, k, j, count)
+                       .float()).abs().max().item() for a, x, k, j in zip(add, xs, ss, joined))
+        whole_pre = (torch.cat(pre, 3).float()
+                     - instance_norm_prelu_reference(frame, alpha).float()).abs().max().item()
+        whole_add = (torch.cat(add, 3).float()
+                     - instance_norm_add_reference(frame, skip).float()).abs().max().item()
+        same = all(torch.equal(instance_norm_prelu_from_stats(xs[0], alpha, j, count), pre[0])
+                   and torch.equal(instance_norm_add_from_stats(xs[0], ss[0], j, count), add[0])
+                   for j in joined)
+        tol = BF16_TOL if dtype == torch.bfloat16 else FP32_TOL
+        add_tol = ADD_BF16_TOL if dtype == torch.bfloat16 else FP32_TOL
+        line = (f"[14 kernel] split IN {name}, {TILE_SHARDS} shards of {[1, 64, h, w // TILE_SHARDS]}"
+                f" ({parts[0].shape[1]} partials a shard): stats max_abs_err {stats_err:.3e}"
+                f" (rel {stats_rel:.2e}, tol 1e-5); IN+PReLU {err_pre:.3e} (tol {tol:g}), whole"
+                f" frame {whole_pre:.3e}; IN+add {err_add:.3e} (tol {add_tol:g}), whole frame"
+                f" {whole_add:.3e}; statistics bitwise equal on every shard {same}")
+        if dtype == torch.bfloat16:
+            x0, k0, j0 = xs[0], ss[0], joined[0]
+            xb = x0.numel() * x0.element_size()
+            jb = j0.numel() * 4
+            timed = {
+                "instance_norm_stats": (
+                    lambda: instance_norm_stats(x0), lambda: instance_norm_stats_reference(x0),
+                    bound(xb + parts[0].numel() * 4, 3 * x0.numel(), FP32_FLOPS), stats_err),
+                "instance_norm_prelu_from_stats": (
+                    lambda: instance_norm_prelu_from_stats(x0, alpha, j0, count),
+                    lambda: instance_norm_prelu_from_stats_reference(x0, alpha, j0, count),
+                    bound(2 * xb + jb, 4 * x0.numel(), FP32_FLOPS), err_pre),
+                "instance_norm_add_from_stats": (
+                    lambda: instance_norm_add_from_stats(x0, k0, j0, count),
+                    lambda: instance_norm_add_from_stats_reference(x0, k0, j0, count),
+                    bound(3 * xb + jb, 4 * x0.numel(), FP32_FLOPS), err_add),
+            }
+            for op, (kernel, plain, bnd, err) in timed.items():
+                ms, plain_ms = _timed_pair(kernel, plain)
+                rows[op].update({"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                 "library_ms": None, **bnd,
+                                 "shape": [1, 64, h, w // TILE_SHARDS]})
+                line += (f"; {op} {ms:.4f} ms, {100 * bnd['bound_ms'] / ms:.1f}% of its"
+                         f" {bnd['bound_ms']:.4f} ms bound ({bnd['bound_by']}), plain"
+                         f" {plain_ms:.4f} ms")
+            line += f" ({card})"
+        print(line, flush=True)
+        check(stats_rel <= 1e-5, f"split IN {name}: statistics off by {stats_rel:.2e}")
+        check(err_pre <= tol and whole_pre <= tol, f"split IN+PReLU {name}: {err_pre}, {whole_pre}")
+        check(err_add <= add_tol and whole_add <= add_tol,
+              f"split IN+add {name}: {err_add}, {whole_add}")
+        check(same, f"split IN {name}: the shards' statistics differ")
+    return rows
+
+
+def phase_halo_kernels(card: str) -> dict:
+    """14b: the s8 conv's halo form, bitwise against its plain version, at
+    the sharded 4K path's shapes (a [1,Cin,540,242] halo-extended shard):
+    stage 1 with stage 2's quantize and without, a 64-channel trunk conv,
+    and the four phases in one launch; stage 1 + quantize and the phases
+    timed in bf16. Returns the kernels line's row."""
+    from fast_srgan_torch.kernels.int8_conv import (
+        int8_conv,
+        int8_conv_phases,
+        int8_conv_phases_reference,
+        int8_conv_reference,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(15)
+    h, w = TILE_FRAME[0], TILE_FRAME[1] // TILE_SHARDS + 2
+    s_next = torch.tensor(5.1, device=dev)
+    row = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = "bf16" if dtype == torch.bfloat16 else "fp32"
+        for label, cin, cout, fused in (("stage 1 + quantize", 64, 256, True),
+                                        ("stage 1", 64, 256, False), ("trunk", 64, 64, True)):
+            xq, weight, ws, s, bias, alpha = _int8_conv_args(gen, 1, cin, h, w, 3, dtype, cout)
+            args = (xq, weight, ws, s, (1, 0, 0), bias, alpha, dtype, s_next if fused else None)
+            got = int8_conv(*args)
+            want = int8_conv_reference(*args)
+            torch.cuda.synchronize()
+            equal = torch.equal(got, want) and got.shape[3] == w - 2
+            print(f"[14 kernel] int8 conv halo form {label} {name} [1,{cin},{h},{w}] -> {cout},"
+                  f" 3x3 pad (1, 0, 0): bitwise equal {equal}", flush=True)
+            check(equal, f"int8 halo {label} {name} differs from its plain version")
+            if label == "stage 1 + quantize" and dtype == torch.bfloat16:
+                ops = 2 * h * (w - 2) * cin * 9 * cout
+                nbytes = xq.numel() + weight.packed.numel() + got.numel()
+                ms, plain_ms = _timed_pair(lambda: int8_conv(*args),
+                                           lambda: int8_conv_reference(*args), 20, 3)
+                bnd = bound(nbytes, ops, INT8_OPS)
+                row.update({"stage1_quantize_ms": ms, "stage1_quantize_plain_ms": plain_ms,
+                            "stage1_quantize_bound_ms": bnd["bound_ms"]})
+                print(f"[14 time] int8 conv halo stage 1 + quantize bf16: "
+                      + _rate("kernel", ms, ops, bnd) + f"; plain (float64) {plain_ms:.4f} ms"
+                      f" ({card})", flush=True)
+        args = _int8_phases_args(gen, 1, 256, h, w, dtype)
+        got = int8_conv_phases(*args, padding=(0, 0))
+        want = int8_conv_phases_reference(*args, padding=(0, 0))
+        torch.cuda.synchronize()
+        equal = all(torch.equal(a, c) and a.shape[3] == w - 2 for a, c in zip(got, want))
+        print(f"[14 kernel] int8 conv four phases halo form {name} [1,256,{h},{w}] -> 4 x 256,"
+              f" padding (0, 0): bitwise equal {equal}", flush=True)
+        check(equal, f"int8 halo phases {name} differ from their plain version")
+        if dtype == torch.bfloat16:
+            ops = 4 * 2 * h * (w - 2) * 256 * 4 * 256
+            nbytes = (args[0].numel() + args[1].tiled.numel()
+                      + sum(a.numel() * a.element_size() for a in got))
+            ms, plain_ms = _timed_pair(lambda: int8_conv_phases(*args, padding=(0, 0)),
+                                       lambda: int8_conv_phases_reference(*args, padding=(0, 0)),
+                                       20, 2)
+            bnd = bound(nbytes, ops, INT8_OPS)
+            row.update({"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, **bnd,
+                        "library_ms": None, "shape": [1, 256, h, w]})
+            print(f"[14 time] int8 conv four phases halo form bf16: "
+                  + _rate("kernel", ms, ops, bnd) + f"; plain (float64) {plain_ms:.4f} ms"
+                  f" ({card})", flush=True)
+    return row
+
+
+def _split_counts(forwards: int, n_layers: int, shards: int, int8: bool = False) -> dict:
+    """A width-sharded 4x forward's launches: every norm's statistics on
+    each shard, n_layers IN+PReLU and n_layers + 1 IN+add a shard in the
+    split form, no other IN; int8 ups adds a shard's stage 1 (with stage
+    2's quantize) and four phases, both in the halo form, and the quantize
+    of stage 1's input."""
+    counts = dict.fromkeys(_counters(), 0)
+    k = forwards * shards
+    counts.update({"in_stats": (2 * n_layers + 1) * k, "in_prelu_split": n_layers * k,
+                   "in_add_split": (n_layers + 1) * k})
+    if int8:
+        counts.update({"s8_halo": k, "s8_phases_halo": k, "quantize": k})
+    return counts
+
+
+def _nchw_input(frames_u8: np.ndarray) -> torch.Tensor:
+    x = torch.from_numpy(np.ascontiguousarray(frames_u8)).cuda()
+    return x.permute(0, 3, 1, 2).to(torch.float32) / 127.5 - 1.0
+
+
+def _u8_out(y: torch.Tensor) -> np.ndarray:
+    return ((y + 1.0) * 127.5).clamp(0, 255).to(torch.uint8).permute(0, 2, 3, 1).cpu().numpy()
+
+
+def phase_tiled(params, frames, card: str) -> dict:
+    """14c: the width-sharded forward of a 4K frame (540x960 -> 2160x3840),
+    the pretrained 4x generator on 4 shards of the card: bf16 is the main
+    path (counts zeroed before, read after), then fp32 against the
+    one-device fp32 engine, int8 ups in fp32 and bf16 glue; ms a 4K frame
+    sharded against one device, in turns. Returns the main path's counts,
+    the int8 run's, and the times."""
+    from fast_srgan_torch import quant
+    from fast_srgan_torch.inference import SRInferenceEngine
+    from fast_srgan_torch.parallel.spatial import build_tiled_forward, build_tiled_quant_forward
+
+    mesh = _tile_mesh()
+    frame = make_frame(np.random.default_rng(14), *TILE_FRAME)
+    x = _nchw_input(frame[None])
+    one32 = SRInferenceEngine(params, device="cuda", dtype=torch.float32)
+    one16 = SRInferenceEngine(params, device="cuda", dtype=torch.bfloat16)
+    ref32 = one32.upscale_batch(frame[None])[0]
+    ref16 = one16.upscale_batch(frame[None])[0]
+    n_layers = one16.model.n_layers
+
+    tiled16 = build_tiled_forward(mesh, dtype=torch.bfloat16)
+    tiled16(params, x)  # first call: weights on the card, cuDNN's choices
+    torch.cuda.synchronize()
+    _zero_counts()
+    y16 = tiled16(params, x)
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    want = _split_counts(1, n_layers, TILE_SHARDS)
+    got16 = _u8_out(y16)[0]
+    check(got16.shape == (4 * TILE_FRAME[0], 4 * TILE_FRAME[1], 3), "tiled 4K output shape")
+    mx16, _, _ = _u8_compare(got16, ref16)
+    db16 = psnr(got16, ref32)
+    print(f"[14 tiled] 4K bf16, {TILE_SHARDS} shards of cuda:0: PSNR {db16:.2f} dB against the"
+          f" one-device fp32 engine (floor {PSNR_MIN_DB}); max {mx16} count(s) from the"
+          f" one-device bf16 engine; launches {counts} (want {want})", flush=True)
+    check(db16 >= PSNR_MIN_DB, f"tiled bf16 PSNR {db16:.2f}")
+    check(counts == want, "tiled bf16 launch count mismatch")
+
+    got32 = _u8_out(build_tiled_forward(mesh, dtype=torch.float32)(params, x))[0]
+    mx32, frac32, _ = _u8_compare(got32, ref32)
+    print(f"[14 tiled] 4K fp32 (TF32 off): max {mx32} count(s) from the one-device fp32 engine,"
+          f" {100 * np.mean(got32 == ref32):.4f}% equal", flush=True)
+    check(mx32 <= 1, f"tiled fp32: {mx32} counts from the one-device engine")
+
+    calib = np.stack([f for f in frames if f.shape[:2] == (180, 320)])
+    q32 = SRInferenceEngine(params, device="cuda", dtype=torch.float32, quantize=True,
+                            calib_batches=[calib])
+    refq = q32.upscale_batch(frame[None])[0]
+    forward = build_tiled_quant_forward(mesh, glue_dtype=torch.float32)
+    forward(params, q32.act_scales, x)
+    torch.cuda.synchronize()
+    _zero_counts()
+    yq = forward(params, q32.act_scales, x)
+    torch.cuda.synchronize()
+    q_counts = _read_counts()
+    q_want = _split_counts(1, n_layers, TILE_SHARDS, int8=True)
+    mxq, fracq, _ = _u8_compare(_u8_out(yq)[0], refq)
+    print(f"[14 tiled] 4K int8 ups, fp32 glue: max {mxq} count(s) from the one-device int8"
+          f" engine on the same scales, >1: {100 * fracq:.4f}% (share bar < 2%);"
+          f" launches {q_counts} (want {q_want})", flush=True)
+    check(q_counts == q_want, "tiled int8 launch count mismatch")
+    # End to end the sharded fp32 trunk differs from the one-device one by
+    # reassociation (cuDNN takes other algorithms for a 242-wide shard than
+    # for the 960-wide frame), and a value on a rounding boundary of stage
+    # 1's input quantizes one step apart: rare pixels move by more than the
+    # contract's 3 counts, as phase 11c's bucketed trunk does. So end to
+    # end the run is held to the contract's share, and the sharding of the
+    # int8 tail itself exactly: the sharded tail (halo-form s8 launches) on
+    # the one-device trunk output against the one-device tail, within 1
+    # count (the int8 convs are exact; only the float head reassociates).
+    from fast_srgan_torch.kernels.quantize import quantize_act
+    from fast_srgan_torch.parallel import spatial
+
+    model, _ = forward.replicas(params)[mesh.devices[0]]
+    lays = [forward.replicas(params)[mesh.devices[0]][1].layers] * TILE_SHARDS
+    scales = q32.act_scales
+    with torch.inference_mode(), _no_tf32():
+        y1 = q32._plan.trunk(x)
+        xs = [t.contiguous(memory_format=torch.channels_last) for t in x.chunk(TILE_SHARDS, 3)]
+        y4 = torch.cat(spatial.generator_forward(
+            [model] * TILE_SHARDS, xs, spatial.halo_conv, spatial.dist_norm_prelu,
+            spatial.dist_norm_add, lambda v: v), dim=3)
+        flips = int((quantize_act(y1, scales["up0"]) != quantize_act(
+            y4.contiguous(memory_format=torch.channels_last), scales["up0"])).sum())
+        trunk_err = (y1 - y4).abs().max().item()
+        ex = quant._Exec(scales, None, torch.float32)
+        shards = [t.contiguous(memory_format=torch.channels_last) for t in y1.chunk(TILE_SHARDS, 3)]
+        tail4 = torch.cat(spatial._q_tail_4x([ex] * TILE_SHARDS, lays, shards), dim=3)
+        tail1 = quant._tail_4x(q32._plan.layers, ex, y1)
+    tail_mx, _, _ = _u8_compare(_u8_out(tail4)[0], _u8_out(tail1)[0])
+    print(f"[14 tiled] 4K int8 ups, fp32 glue: trunk sharded vs one device max_abs"
+          f" {trunk_err:.3e}, {flips} of {y1.numel()} int8 values of stage 1's input one step"
+          f" apart; the sharded int8 tail on the one-device trunk output: max {tail_mx}"
+          f" count(s) from the one-device tail", flush=True)
+    check(fracq < 0.02, "tiled int8 fp32 glue: over 2% of values off by more than 1")
+    check(tail_mx <= 1, f"sharded int8 tail: {tail_mx} counts")
+    gotq16 = _u8_out(build_tiled_quant_forward(mesh, glue_dtype=torch.bfloat16)(
+        params, q32.act_scales, x))[0]
+    dbq = psnr(gotq16, ref32)
+    print(f"[14 tiled] 4K int8 ups, bf16 glue: PSNR {dbq:.2f} dB against the one-device fp32"
+          f" engine (floor {min(INT8_PSNR_MIN_DB.values())})", flush=True)
+    check(dbq >= min(INT8_PSNR_MIN_DB.values()), f"tiled int8 bf16 PSNR {dbq:.2f}")
+
+    # ms a 4K frame, bf16, the float forward alone: one device, sharded, in turns
+    arms = {"one device": lambda: one16._apply(x), "sharded": lambda: tiled16(params, x)}
+    ms = {k: [] for k in arms}
+    with torch.inference_mode():
+        for k in ("one device", "sharded", "sharded", "one device"):
+            ms[k].append(events_ms(arms[k], 10))
+    one_ms, tiled_ms = np.mean(ms["one device"]), np.mean(ms["sharded"])
+    print(f"[14 time] 4K bf16 forward: {TILE_SHARDS} shards of one card {tiled_ms:.2f} ms a frame"
+          f" ({ms['sharded'][0]:.2f}, {ms['sharded'][1]:.2f}), one device {one_ms:.2f} ms"
+          f" ({ms['one device'][0]:.2f}, {ms['one device'][1]:.2f}); sharded/one device"
+          f" {tiled_ms / one_ms:.3f} (the halos' and split norms' cost on one card, not a"
+          f" scaling number; {card}; indicative)", flush=True)
+    return {"counts": counts, "int8_counts": q_counts, "tiled_ms": tiled_ms, "one_ms": one_ms}
+
+
+def _random_params(scale: int, seed: int, n_layers: int = 2) -> dict:
+    """A 64-filter generator param tree of the given scale and depth, with
+    torch's default init from a seed."""
+    from fast_srgan_torch.checkpoints.convert import params_from_state_dict
+    from fast_srgan_torch.models.generator import Generator
+
+    torch.manual_seed(seed)
+    return params_from_state_dict(Generator(64, n_layers, scale).state_dict())
+
+
+def phase_tiled_meshes(params, frames) -> None:
+    """14d: a 2-D ("data", "sp") mesh of 2 x 2 at batch 2 of 180x320, the
+    canonical tail, and 2x and 8x generators at depth 2, each against its
+    one-device forward in fp32: at most 1 count."""
+    from fast_srgan_torch.inference import SRInferenceEngine
+    from fast_srgan_torch.parallel.spatial import build_tiled_forward
+
+    batch = np.stack([f for f in frames if f.shape[:2] == (180, 320)][:2])
+    x = _nchw_input(batch)
+    cases = [("2-D mesh 2x2, 4x pretrained, batch 2", params, _tile_mesh(rows=2), True),
+             ("canonical tail, 4x pretrained", params, _tile_mesh(), False),
+             ("2x, depth 2", _random_params(2, 21), _tile_mesh(), True),
+             ("8x, depth 2", _random_params(8, 22), _tile_mesh(), True)]
+    for label, p, mesh, lr_tail in cases:
+        want = SRInferenceEngine(p, device="cuda", dtype=torch.float32,
+                                 lr_tail=lr_tail).upscale_batch(batch)
+        got = _u8_out(build_tiled_forward(mesh, dtype=torch.float32, lr_tail=lr_tail)(p, x))
+        mx, _, _ = _u8_compare(got, want)
+        print(f"[14 tiled] {label}, fp32, {list(batch.shape)} -> {list(got.shape)}: max {mx}"
+              f" count(s) from its one-device fp32 forward", flush=True)
+        check(got.shape == want.shape and mx <= 1, f"tiled {label}: {mx} counts")
+
+
+def phase_mesh_engine(params, frames) -> None:
+    """14e: the data-parallel engine on [cuda:0, cuda:0] at batch 8 of
+    180x320 (slices of 4): bitwise equal to the one-device engine on the
+    same slices, and within 1 count of it at batch 8; fp32, bf16, int8."""
+    from fast_srgan_torch.inference import SRInferenceEngine
+
+    batch = np.stack([f for f in frames if f.shape[:2] == (180, 320)][:8])
+    for label, kw in (("fp32", {"dtype": torch.float32}), ("bf16", {}),
+                      ("int8 ups", {"quantize": True, "calib_batches": [batch]})):
+        one = SRInferenceEngine(params, device="cuda", **kw)
+        if "quantize" in kw:
+            kw = {"quantize": True, "act_scales": one.act_scales}
+        two = SRInferenceEngine(params, mesh=["cuda:0", "cuda:0"], **kw)
+        eff = two.effective_batch_size(180, 320, 8)
+        got = two.upscale_batch(batch)
+        sliced = np.concatenate([one.upscale_batch(batch[:4]), one.upscale_batch(batch[4:])])
+        whole = one.upscale_batch(batch)
+        mx, frac, _ = _u8_compare(got, whole)
+        exact = np.array_equal(got, sliced)
+        print(f"[14 mesh engine] {label}, mesh [cuda:0, cuda:0], batch {eff} of 180x320: bitwise"
+              f" equal to one device on the same slices {exact}; max {mx} count(s) from one"
+              f" device at batch 8, >1: {100 * frac:.4f}%", flush=True)
+        check(eff == 8 and exact, f"mesh engine {label} differs from its slices")
+        check(mx <= 1, f"mesh engine {label}: {mx} counts from one device at batch 8")
+
+
+def phase_infer_tile(params, frames) -> None:
+    """14f: ``python -m fast_srgan_torch.infer --tile 1`` (fp32, and int8
+    ups in fp32 glue) in-process on two PNGs, against the one-device
+    engine on the same calibration: fp32 within 1 count, int8 in the
+    bounded-flip contract."""
+    import shutil
+
+    from PIL import Image
+
+    from fast_srgan_torch import infer, quant
+    from fast_srgan_torch.inference import SRInferenceEngine
+    from fast_srgan_torch.utils.images import load_image_u8
+
+    root = os.path.join(REPO, ".chip_tmp", "tile")
+    shutil.rmtree(root, ignore_errors=True)
+    src = os.path.join(root, "in")
+    os.makedirs(src)
+    images = [f for f in frames if f.shape[:2] == (180, 320)][:2]
+    for i, im in enumerate(images):
+        Image.fromarray(im).save(os.path.join(src, f"f{i}.png"))
+    for int8 in (False, True):
+        out = os.path.join(root, "int8" if int8 else "fp32")
+        infer.main(["--image_dir", src, "--output_dir", out, "--checkpoint", CHECKPOINT,
+                    "--tile", "1", "--fp32"] + (["--int8"] if int8 else []))
+        calib = [quant.calibration_batch_from_images(images)] if int8 else None
+        want = SRInferenceEngine(params, device="cuda", dtype=torch.float32, quantize=int8,
+                                 calib_batches=calib).upscale_images(images)
+        got = [load_image_u8(os.path.join(out, f"f{i}.png")) for i in range(len(images))]
+        stats = [_u8_compare(g, w) for g, w in zip(got, want)]
+        mx, frac = max(s[0] for s in stats), max(s[1] for s in stats)
+        label = "--tile 1 --int8 --fp32" if int8 else "--tile 1 --fp32"
+        print(f"[14 infer] {label} on 2 PNGs of 180x320: {[g.shape for g in got]}; max {mx}"
+              f" count(s) from the one-device engine, >1: {100 * frac:.4f}%", flush=True)
+        check(mx <= (3 if int8 else 1) and frac < 0.02, f"infer {label}: {mx} counts")
+    shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> None:
     kind, card = phase_device()
     phase_build()
@@ -2096,6 +2552,12 @@ def main() -> None:
     bucketed = phase_bucketed_engine(params)
     phase_masked_int8(params, frames)
     phase_stream(params, frames, staged_fps, card)
+    split_rows = phase_split_in(card)
+    halo_row = phase_halo_kernels(card)
+    tiled = phase_tiled(params, frames, card)
+    phase_tiled_meshes(params, frames)
+    phase_mesh_engine(params, frames)
+    phase_infer_tile(params, frames)
     fused, unfused, bare_ms = phase_training(card)
     trainer = phase_trainer(card, bare_ms)
     exported = phase_export(params, frames, engine, card)
@@ -2120,8 +2582,15 @@ def main() -> None:
     # 540x960 frame's; the s8 conv's are the four-phase launch's. library_ms
     # is null where no one PyTorch call computes the kernel's function
     # (f_instance_norm_ms and cudnn_bf16_ms are yardsticks only). op is the
-    # torch.library op each wrapper calls
+    # torch.library op each wrapper calls. The split IN rows' launches are
+    # phase 14's bf16 4K tiled forward (int8_launches its int8 one), the s8
+    # halo form's the int8 one; their times are a shard's
     two = exported["two_launch"]
+    split = tiled["counts"]
+    split_q = tiled["int8_counts"]
+    print(f"[14 tiled] 4K bf16 ms a frame: {TILE_SHARDS} shards of one card {tiled['tiled_ms']:.2f},"
+          f" one device {tiled['one_ms']:.2f}; split-form launches {split}; int8 {split_q}",
+          flush=True)
     print(json.dumps({"kernels": [
         {"name": "instance_norm_prelu", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": KERNEL_REPLACES, "op": "torch.ops.fast_srgan.instance_norm_prelu",
@@ -2159,6 +2628,26 @@ def main() -> None:
         {"name": "instance_norm_add_masked", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": MASKED_REPLACES, "op": "torch.ops.fast_srgan.instance_norm_add",
          "launches": bucketed["in_add_masked"], **masked_rows["instance_norm_add_masked"]},
+        {"name": "instance_norm_stats", "route": "cuda", "source": KERNEL_SOURCE,
+         "replaces": SPLIT_REPLACES, "op": "torch.ops.fast_srgan.instance_norm_stats",
+         "launches": split["in_stats"], "int8_launches": split_q["in_stats"],
+         **split_rows["instance_norm_stats"]},
+        {"name": "instance_norm_prelu_from_stats", "route": "cuda", "source": KERNEL_SOURCE,
+         "replaces": SPLIT_REPLACES,
+         "op": "torch.ops.fast_srgan.instance_norm_prelu_from_stats",
+         "launches": split["in_prelu_split"], "int8_launches": split_q["in_prelu_split"],
+         **split_rows["instance_norm_prelu_from_stats"]},
+        {"name": "instance_norm_add_from_stats", "route": "cuda", "source": KERNEL_SOURCE,
+         "replaces": SPLIT_REPLACES, "op": "torch.ops.fast_srgan.instance_norm_add_from_stats",
+         "launches": split["in_add_split"], "int8_launches": split_q["in_add_split"],
+         **split_rows["instance_norm_add_from_stats"]},
+        {"name": "int8_conv_halo", "route": "cuda", "source": INT8_CONV_SOURCE,
+         "replaces": HALO_REPLACES,
+         "op": "torch.ops.fast_srgan.int8_conv (padding (1, 0, 0)),"
+               " torch.ops.fast_srgan.int8_conv_phases (padding (0, 0))",
+         "launches": split_q["s8_halo"] + split_q["s8_phases_halo"],
+         "launches_stage1": split_q["s8_halo"], "launches_phases": split_q["s8_phases_halo"],
+         **halo_row},
     ]}))
     print(json.dumps({
         "ok": True,

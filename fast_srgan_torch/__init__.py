@@ -11,7 +11,10 @@ NHWC, the JAX package's layout). The hand-written kernels (``kernels/``,
 CUDA C++ in ``csrc/``) are the instance-norm family (+ PReLU, + residual
 add, each also masked for the bucketed forward), the fused upsample stage,
 the phase-major pixel shuffle, and the int8 tier's activation quantize and
-s8 conv (``quant.py``); float convolutions run through cuDNN. The serving
+s8 conv (``quant.py``); float convolutions run through cuDNN.
+``parallel/`` serves across devices: the exact width-sharded forward
+(``spatial.py``, with the IN family's split form and the s8 conv's halo
+form) and the device meshes the engine's data-parallel ``mesh=`` takes. The serving
 entry points are ``python -m fast_srgan_torch.infer`` (images, video) and
 ``python -m fast_srgan_torch.serve`` (HTTP); training is ``python -m
 fast_srgan_torch.train`` (``train/trainer.py`` over ``train/steps.py``, the

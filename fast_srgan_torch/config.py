@@ -122,7 +122,9 @@ DEFAULTS: dict = {
         "init_generator_pt": None,
         "init_generator_optim_pt": None,
     },
-    # the port trains on one device: num_devices > 1 and multihost raise
+    # training's devices: the port's trainer runs on one device (num_devices
+    # > 1 and multihost raise); serving spreads over devices by its own
+    # arguments (the engine's mesh=, infer --tile / inference.tile)
     "parallel": {
         "data_axis": "data",
         "num_devices": None,
@@ -136,8 +138,9 @@ DEFAULTS: dict = {
         # the fused conv + shuffle + PReLU kernel for each upsample stage
         "fused_upsample": False,
     },
-    # Defaults for infer.py's CLI flags (a flag given on the command line
-    # wins). Semantics match the flags exactly: tile = shard each frame's
+    # Defaults for the infer CLIs' flags (a flag given on the command line
+    # wins; python -m fast_srgan_torch.infer reads tile and bucket).
+    # Semantics match the flags exactly: tile = shard each frame's
     # width across N devices (exact halo tiling); bucket = LR bucket
     # granularity in pixels (exact masked forward; 0 = one program per
     # distinct shape).

@@ -56,6 +56,17 @@
 //   The apply pass walks the tiles and samples in reverse of the statistics
 //   pass, so the tiles read last, still in the 50 MB L2, are re-read first.
 //
+// Split form (the width-sharded forward, fast_srgan_torch/parallel/
+// spatial.py): the two passes as their own entry points. It replaces
+// `_dist_instance_norm` (fast_srgan_tpu/parallel/spatial.py), which XLA
+// lowered on the TPU: per-shard fp32 sums and sums of squares, psum'd over
+// the shards, count = H x the whole frame's width. Here each shard's
+// statistics pass writes its tiles' partials; the caller gathers every
+// shard's partials, in one order, to every shard; each shard's apply pass
+// sums all of them (n_parts, not its own grid) over the global count. The
+// sum runs in one fixed order for a given n_parts and C, so every shard
+// normalizes with bitwise the same statistics. Bound: bytes, as above.
+//
 // Masked forms (M = true, the bucketed forward): x is a zero-padded frame of
 // width W, and sample b's valid region is y < vh[b], x < vw[b]. They replace
 // `instance_norm_masked_nhwc` (fast_srgan_tpu/ops/norm.py), which XLA
@@ -615,6 +626,8 @@ __global__ void __launch_bounds__(kThreads)
                 [&](int j, float v) { mine[j] = v; });
 }
 
+// n_parts: the partials a sample has (partial[b][n_parts][2c]); count: the
+// pixels they sum over (unmasked; the masked form counts vh[b] * vw[b]).
 template <typename T, int E, bool M>
 __global__ void __launch_bounds__(kThreads)
     in_apply_kernel(const T* __restrict__ x, const T* __restrict__ skip,
@@ -622,7 +635,7 @@ __global__ void __launch_bounds__(kThreads)
                     const float* __restrict__ alpha,
                     const int* __restrict__ vh, const int* __restrict__ vw,
                     T* __restrict__ out, int hw, int w, int c, int tile_px,
-                    float eps) {
+                    int n_parts, int count, float eps) {
   using P = Pack<T>;
   constexpr int N = P::N;
   extern __shared__ float smem_f[];  // red2, then mean [c], 1/sqrt [c]
@@ -638,8 +651,8 @@ __global__ void __launch_bounds__(kThreads)
   float* red2 = smem_f;
   float* stat = red2 + max(4 * static_cast<int>(blockDim.x), 2 * c);
   const int hb = M ? __ldg(vh + b) : 0, wb = M ? __ldg(vw + b) : 0;
-  sample_stats(partial + (size_t)b * n_tiles * 2 * c, n_tiles, c,
-               M ? hb * wb : hw, eps, red2, stat);
+  sample_stats(partial + (size_t)b * n_parts * 2 * c, n_parts, c,
+               M ? hb * wb : count, eps, red2, stat);
   float m[N], rs[N];
 #pragma unroll
   for (int i = 0; i < N; ++i) {
@@ -664,25 +677,53 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int E, bool M>
-int launch_two(const T* x, const T* skip, const float* alpha, const int* vh,
-               const int* vw, T* out, float* partial, int b, int hw, int w,
-               int c, int tile_px, float eps, cudaStream_t s) {
-  constexpr int N = Pack<T>::N;
-  const int groups = c / N;
-  const int rows = groups >= kThreads ? 1 : kThreads / groups;
-  const int threads = rows * groups;
+// The two-launch form's block: rows * groups threads.
+template <typename T>
+int two_launch_threads(int c) {
+  const int groups = c / Pack<T>::N;
+  return (groups >= kThreads ? 1 : kThreads / groups) * groups;
+}
+
+// The statistics pass: partial[b][tile][2c] over tiles of tile_px pixels.
+template <typename T, bool M>
+int launch_stats(const T* x, const int* vh, const int* vw, float* partial,
+                 int b, int hw, int w, int c, int tile_px, cudaStream_t s) {
+  const int threads = two_launch_threads<T>(c);
+  const int rows = threads / (c / Pack<T>::N);
   const dim3 grid((hw + tile_px - 1) / tile_px, b);
   const size_t red2 = max(4 * threads, 2 * c);
   in_stats_kernel<T, M><<<grid, threads,
                           ((size_t)2 * c * (rows + 1) + red2) * sizeof(float),
                           s>>>(x, vh, vw, partial, hw, w, c, tile_px);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The normalize pass over tiles of tile_px pixels, each block reducing a
+// sample's n_parts partials (over count pixels) first.
+template <typename T, int E, bool M>
+int launch_apply(const T* x, const T* skip, const float* alpha, const int* vh,
+                 const int* vw, T* out, const float* partial, int b, int hw,
+                 int w, int c, int tile_px, int n_parts, int count, float eps,
+                 cudaStream_t s) {
+  const int threads = two_launch_threads<T>(c);
+  const dim3 grid((hw + tile_px - 1) / tile_px, b);
+  const size_t red2 = max(4 * threads, 2 * c);
   in_apply_kernel<T, E, M>
       <<<grid, threads, (red2 + 2 * c) * sizeof(float), s>>>(
-          x, skip, partial, alpha, vh, vw, out, hw, w, c, tile_px, eps);
+          x, skip, partial, alpha, vh, vw, out, hw, w, c, tile_px, n_parts,
+          count, eps);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int E, bool M>
+int launch_two(const T* x, const T* skip, const float* alpha, const int* vh,
+               const int* vw, T* out, float* partial, int b, int hw, int w,
+               int c, int tile_px, float eps, cudaStream_t s) {
+  const int err = launch_stats<T, M>(x, vh, vw, partial, b, hw, w, c, tile_px, s);
+  if (err != 0) return err;
+  return launch_apply<T, E, M>(x, skip, alpha, vh, vw, out, partial, b, hw, w,
+                               c, tile_px, (hw + tile_px - 1) / tile_px, hw,
+                               eps, s);
 }
 
 // grid > 0: the resident form with that many blocks; grid == 0: two launches.
@@ -706,6 +747,18 @@ int launch(const void* x, const void* skip, const void* alpha, const void* vh,
       static_cast<const float*>(alpha), static_cast<const int*>(vh),
       static_cast<const int*>(vw), static_cast<T*>(out),
       static_cast<float*>(partial), b, hw, w, c, tile_px, eps, s);
+}
+
+template <typename T, int E>
+int from_stats(const void* x, const void* other, const void* partial, void* out,
+               int b, int hw, int c, int n_parts, int count, int tile_px,
+               float eps, void* stream) {
+  const T* skip = E == kAdd ? static_cast<const T*>(other) : nullptr;
+  const float* alpha = E == kPrelu ? static_cast<const float*>(other) : nullptr;
+  return launch_apply<T, E, false>(
+      static_cast<const T*>(x), skip, alpha, nullptr, nullptr,
+      static_cast<T*>(out), static_cast<const float*>(partial), b, hw, 0, c,
+      tile_px, n_parts, count, eps, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -789,4 +842,61 @@ extern "C" int fsr_instance_norm_add_masked_f32(
   return launch<float, kAdd, true>(x, skip, nullptr, vh, vw, out, partial, b,
                                    hw, w, c, grid, per_wave, tile_px, eps,
                                    stream);
+}
+
+// The split form (a frame's width sharded across devices, its statistics
+// summed over every shard's partials): the two passes as separate entry
+// points. _stats writes partial [b][ceil(hw / tile_px)][2c] (fp32 sums and
+// sums of squares of each tile); _from_stats normalizes x with the sums of
+// n_parts partials a sample (partial [b][n_parts][2c]: every shard's, in
+// one order, so each shard computes the same statistics) over count pixels.
+extern "C" int fsr_instance_norm_stats_bf16(const void* x, void* partial,
+                                            int b, int hw, int c, int tile_px,
+                                            void* stream) {
+  return launch_stats<__nv_bfloat16, false>(
+      static_cast<const __nv_bfloat16*>(x), nullptr, nullptr,
+      static_cast<float*>(partial), b, hw, 0, c, tile_px,
+      static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int fsr_instance_norm_stats_f32(const void* x, void* partial, int b,
+                                           int hw, int c, int tile_px,
+                                           void* stream) {
+  return launch_stats<float, false>(static_cast<const float*>(x), nullptr,
+                                    nullptr, static_cast<float*>(partial), b,
+                                    hw, 0, c, tile_px,
+                                    static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int fsr_instance_norm_prelu_from_stats_bf16(
+    const void* x, const void* alpha, const void* partial, void* out, int b,
+    int hw, int c, int n_parts, int count, int tile_px, float eps,
+    void* stream) {
+  return from_stats<__nv_bfloat16, kPrelu>(x, alpha, partial, out, b, hw, c,
+                                           n_parts, count, tile_px, eps,
+                                           stream);
+}
+
+extern "C" int fsr_instance_norm_prelu_from_stats_f32(
+    const void* x, const void* alpha, const void* partial, void* out, int b,
+    int hw, int c, int n_parts, int count, int tile_px, float eps,
+    void* stream) {
+  return from_stats<float, kPrelu>(x, alpha, partial, out, b, hw, c, n_parts,
+                                   count, tile_px, eps, stream);
+}
+
+extern "C" int fsr_instance_norm_add_from_stats_bf16(
+    const void* x, const void* skip, const void* partial, void* out, int b,
+    int hw, int c, int n_parts, int count, int tile_px, float eps,
+    void* stream) {
+  return from_stats<__nv_bfloat16, kAdd>(x, skip, partial, out, b, hw, c,
+                                         n_parts, count, tile_px, eps, stream);
+}
+
+extern "C" int fsr_instance_norm_add_from_stats_f32(
+    const void* x, const void* skip, const void* partial, void* out, int b,
+    int hw, int c, int n_parts, int count, int tile_px, float eps,
+    void* stream) {
+  return from_stats<float, kAdd>(x, skip, partial, out, b, hw, c, n_parts,
+                                 count, tile_px, eps, stream);
 }

@@ -20,6 +20,15 @@
 //     four are shifts of ONE zero-filled halo (ops/lr_tail.py's
 //     one-pad-then-window form); a block stages it once and computes the
 //     four, writing out[4][B][H][W][Cout].
+// Both take the left and right zero columns apart (0 or 1 each; the output
+// is narrower than the input where they are 0): the width-sharded forward's
+// halo form (fast_srgan_torch/parallel/spatial.py), whose input carries its
+// neighbours' columns. It replaces the JAX package's convs of the
+// halo-extended shard (fast_srgan_tpu/parallel/spatial.py `_halo_exec_conv`,
+// padding ((1, 1), (0, 0)); `_sharded_q_tail_4x`'s phase windows
+// xxq[:, :, q:q+w+1] at ((1-p, p), (0, 0))), which XLA lowered on the TPU.
+// The halo's columns start at the output tile's less the left padding, so
+// the form costs nothing but the columns it reads.
 //
 // What bounds it, at batch 8 of 180x320 (the serving shape), against the
 // H100's 1,979 TOP/s of dense int8 and 3.35 TB/s:
@@ -297,21 +306,24 @@ __device__ __forceinline__ void store_pair(int8_t* p, float v0, float v1,
 
 // One K chunk of the halo and of every slot's weights into ring stage
 // `base`: cp.async, 16 bytes a copy, zero outside the image and past Cin.
+// The halo window starts at input row y0 - 1 and column x0 - hx; in_w is the
+// input's width (the output's plus the columns the padding adds or drops).
 template <int P, int KH, int NT>
 __device__ __forceinline__ void load_chunk(unsigned char* base,
                                            const int8_t* __restrict__ x,
                                            const int8_t* __restrict__ wchunk,
-                                           int b, int h, int w, int cin,
-                                           int y0, int x0, int c0) {
+                                           int b, int h, int in_w, int hx,
+                                           int cin, int y0, int x0, int c0) {
   using G = Geometry<P, KH, NT>;
   const uint32_t halo = smem_u32(base);
   for (int i = threadIdx.x; i < kHaloPx * 2; i += kThreads) {
     const int p = i >> 1;
     const int c = c0 + (i & 1) * 16;
     const int hh = y0 - 1 + p / kHaloW;
-    const int ww = x0 - 1 + p % kHaloW;
-    const bool in = hh >= 0 && hh < h && ww >= 0 && ww < w && c < cin;
-    const int8_t* src = in ? x + (((size_t)b * h + hh) * w + ww) * cin + c : x;
+    const int ww = x0 - hx + p % kHaloW;
+    const bool in = hh >= 0 && hh < h && ww >= 0 && ww < in_w && c < cin;
+    const int8_t* src =
+        in ? x + (((size_t)b * h + hh) * in_w + ww) * cin + c : x;
     cp_async16(halo + p * kPitch + (i & 1) * 16, src, in ? 16 : 0);
   }
   const uint32_t wdst = halo + G::kHaloBytes;
@@ -368,7 +380,9 @@ __device__ __forceinline__ void mma_chunk(
 }
 
 // T: the glue dtype; O: the output element (T, or int8_t with rscale).
-// oy, ox: the single conv's window origin in the halo (1 - padding).
+// oy, ox: the single conv's window origin in the halo; hx: the halo's first
+// column, left of the output tile's (see dispatch_single); w: the output's
+// width, in_w the input's.
 template <typename T, typename O, int P, int KH, int NT>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
     int8_conv_kernel(const int8_t* __restrict__ x,
@@ -377,8 +391,8 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
                      const float* __restrict__ bias,
                      const float* __restrict__ alpha,
                      const float* __restrict__ rscale, O* __restrict__ out,
-                     int h, int w, int cin, int cout, int oy, int ox,
-                     long long phase_stride) {
+                     int h, int in_w, int w, int cin, int cout, int oy,
+                     int ox, int hx, long long phase_stride) {
   using G = Geometry<P, KH, NT>;
   extern __shared__ __align__(128) unsigned char smem[];
 
@@ -409,8 +423,8 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
   for (int s = 0; s < G::kStages - 1; ++s) {
     if (s < nchunks) {
       load_chunk<P, KH, NT>(smem + s * G::kStageBytes, x,
-                            wtile + (size_t)s * G::kWeightBytes, b, h, w, cin,
-                            y0, x0, s * kChunk);
+                            wtile + (size_t)s * G::kWeightBytes, b, h, in_w,
+                            hx, cin, y0, x0, s * kChunk);
     }
     cp_async_commit();
   }
@@ -421,8 +435,8 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
     const int next = kc + G::kStages - 1;
     if (next < nchunks) {
       load_chunk<P, KH, NT>(smem + (next % G::kStages) * G::kStageBytes, x,
-                            wtile + (size_t)next * G::kWeightBytes, b, h, w,
-                            cin, y0, x0, next * kChunk);
+                            wtile + (size_t)next * G::kWeightBytes, b, h,
+                            in_w, hx, cin, y0, x0, next * kChunk);
     }
     cp_async_commit();
     mma_chunk<P, KH, NT>(acc, smem + (kc % G::kStages) * G::kStageBytes,
@@ -486,8 +500,8 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 template <typename T, typename O, int P, int KH, int NT>
 int launch(const void* x, const void* weight, const void* mult,
            const void* bias, const void* alpha, const void* rscale, void* out,
-           int b, int h, int w, int cin, int cout, int oy, int ox,
-           void* stream) {
+           int b, int h, int in_w, int w, int cin, int cout, int oy, int ox,
+           int hx, void* stream) {
   constexpr size_t smem = smem_bytes<P, KH, NT, O>();
   auto kernel = int8_conv_kernel<T, O, P, KH, NT>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -499,95 +513,128 @@ int launch(const void* x, const void* weight, const void* mult,
       static_cast<const int8_t*>(x), static_cast<const int8_t*>(weight),
       static_cast<const float*>(mult), static_cast<const float*>(bias),
       static_cast<const float*>(alpha), static_cast<const float*>(rscale),
-      static_cast<O*>(out), h, w, cin, cout, oy, ox,
+      static_cast<O*>(out), h, in_w, w, cin, cout, oy, ox, hx,
       (long long)b * h * w * cout);
   return static_cast<int>(cudaGetLastError());
 }
 
+// Output width w = in_w + pad_left + pad_right - kh + 1. A 3x3 conv (top
+// padding 1) loads its halo from column x0 - pad_left, so its taps start
+// at halo column 0 (ox = 0) and reach column 17 of the 18; a 2x2 one loads
+// from x0 - 1 and starts at ox = 1 - pad_left.
 template <typename T, typename O>
 int dispatch_single(const void* x, const void* weight, const void* mult,
                     const void* bias, const void* alpha, const void* rscale,
-                    void* out, int b, int h, int w, int cin, int cout,
+                    void* out, int b, int h, int in_w, int cin, int cout,
                     int n_tile, int kh, int pad_top, int pad_left,
-                    void* stream) {
-  const int oy = 1 - pad_top, ox = 1 - pad_left;
-  if (kh == 3 && pad_top == 1 && pad_left == 1) {
+                    int pad_right, void* stream) {
+  const int w = in_w + pad_left + pad_right - kh + 1;
+  const bool pads = pad_left >= 0 && pad_left <= 1 && pad_right >= 0 &&
+                    pad_right <= 1 && w >= 1;
+  if (!pads) return static_cast<int>(cudaErrorInvalidValue);
+  if (kh == 3 && pad_top == 1) {
     if (n_tile == 128) {
       return launch<T, O, 1, 3, 128>(x, weight, mult, bias, alpha, rscale, out,
-                                     b, h, w, cin, cout, oy, ox, stream);
+                                     b, h, in_w, w, cin, cout, 0, 0, pad_left,
+                                     stream);
     }
     if (n_tile == 64) {
       return launch<T, O, 1, 3, 64>(x, weight, mult, bias, alpha, rscale, out,
-                                    b, h, w, cin, cout, oy, ox, stream);
+                                    b, h, in_w, w, cin, cout, 0, 0, pad_left,
+                                    stream);
     }
   }
-  if (kh == 2 && n_tile == 64 && (oy == 0 || oy == 1) && (ox == 0 || ox == 1)) {
+  if (kh == 2 && n_tile == 64 && (pad_top == 0 || pad_top == 1)) {
     return launch<T, O, 1, 2, 64>(x, weight, mult, bias, alpha, rscale, out, b,
-                                  h, w, cin, cout, oy, ox, stream);
+                                  h, in_w, w, cin, cout, 1 - pad_top,
+                                  1 - pad_left, 1, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// The four phases over the window padded by pad_left / pad_right columns:
+// phase (p, q) tap (gi, gj) of output column x reads input column
+// x - pad_left + q + gj, so w = in_w + pad_left + pad_right - 2, and the halo
+// is loaded from column x0 - pad_left.
+template <typename T>
+int dispatch_phases(const void* x, const void* weight, const void* mult,
+                    const void* bias, const void* alpha, void* out, int b,
+                    int h, int in_w, int cin, int cout, int n_tile,
+                    int pad_left, int pad_right, void* stream) {
+  const int w = in_w + pad_left + pad_right - 2;
+  if (n_tile != 32 || pad_left < 0 || pad_left > 1 || pad_right < 0 ||
+      pad_right > 1 || w < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch<T, T, 4, 2, 32>(x, weight, mult, bias, alpha, nullptr, out, b,
+                                h, in_w, w, cin, cout, 0, 0, pad_left, stream);
+}
+
 }  // namespace
 
-// C entry points (bound with ctypes). Single conv: x int8 [B, H, W, Cin],
-// weight tiled with n_tile output channels a tile, KH x KH = 3x3 (padding
-// 1, n_tile 128 or 64) or 2x2 (padding 0 or 1 top and left, n_tile 64);
+// C entry points (bound with ctypes). Single conv: x int8 [B, H, W_in, Cin],
+// output width W_in + pad_left + pad_right - KH + 1, weight tiled with n_tile
+// output channels a tile, KH x KH = 3x3 (top padding 1, n_tile 128 or 64)
+// or 2x2 (top padding 0 or 1, n_tile 64), left and right padding 0 or 1;
 // mult fp32 [Cout], bias / alpha fp32 or null; rscale (127 / s_next, fp32)
 // null for an output [B, H, W, Cout] in the glue dtype, or given for int8.
 // Each returns cudaGetLastError() of its launch.
 extern "C" int fsr_int8_conv_bf16(const void* x, const void* weight,
                                   const void* mult, const void* bias,
                                   const void* alpha, const void* rscale,
-                                  void* out, int b, int h, int w, int cin,
+                                  void* out, int b, int h, int in_w, int cin,
                                   int cout, int n_tile, int kh, int pad_top,
-                                  int pad_left, void* stream) {
+                                  int pad_left, int pad_right, void* stream) {
   if (rscale != nullptr) {
     return dispatch_single<bf16, int8_t>(x, weight, mult, bias, alpha, rscale,
-                                         out, b, h, w, cin, cout, n_tile, kh,
-                                         pad_top, pad_left, stream);
+                                         out, b, h, in_w, cin, cout, n_tile,
+                                         kh, pad_top, pad_left, pad_right,
+                                         stream);
   }
   return dispatch_single<bf16, bf16>(x, weight, mult, bias, alpha, rscale, out,
-                                     b, h, w, cin, cout, n_tile, kh, pad_top,
-                                     pad_left, stream);
+                                     b, h, in_w, cin, cout, n_tile, kh,
+                                     pad_top, pad_left, pad_right, stream);
 }
 
 extern "C" int fsr_int8_conv_f32(const void* x, const void* weight,
                                  const void* mult, const void* bias,
                                  const void* alpha, const void* rscale,
-                                 void* out, int b, int h, int w, int cin,
+                                 void* out, int b, int h, int in_w, int cin,
                                  int cout, int n_tile, int kh, int pad_top,
-                                 int pad_left, void* stream) {
+                                 int pad_left, int pad_right, void* stream) {
   if (rscale != nullptr) {
     return dispatch_single<float, int8_t>(x, weight, mult, bias, alpha, rscale,
-                                          out, b, h, w, cin, cout, n_tile, kh,
-                                          pad_top, pad_left, stream);
+                                          out, b, h, in_w, cin, cout, n_tile,
+                                          kh, pad_top, pad_left, pad_right,
+                                          stream);
   }
   return dispatch_single<float, float>(x, weight, mult, bias, alpha, rscale,
-                                       out, b, h, w, cin, cout, n_tile, kh,
-                                       pad_top, pad_left, stream);
+                                       out, b, h, in_w, cin, cout, n_tile, kh,
+                                       pad_top, pad_left, pad_right, stream);
 }
 
-// The four stage-2 phases: x int8 [B, H, W, Cin]; weight the four phase
+// The four stage-2 phases: x int8 [B, H, W_in, Cin]; weight the four phase
 // kernels tiled together (slot (2p + q) * 4 + 2 gi + gj, n_tile = 32
 // output channels a tile); out [4][B, H, W, Cout] in the glue dtype, phase
-// (p, q) at index 2p + q.
+// (p, q) at index 2p + q, W = W_in + pad_left + pad_right - 2 (1 and 1:
+// "same"; 0 and 0: a halo-extended input).
 extern "C" int fsr_int8_conv_phases_bf16(const void* x, const void* weight,
                                          const void* mult, const void* bias,
                                          const void* alpha, void* out, int b,
-                                         int h, int w, int cin, int cout,
-                                         int n_tile, void* stream) {
-  if (n_tile != 32) return static_cast<int>(cudaErrorInvalidValue);
-  return launch<bf16, bf16, 4, 2, 32>(x, weight, mult, bias, alpha, nullptr, out,
-                                      b, h, w, cin, cout, 0, 0, stream);
+                                         int h, int in_w, int cin, int cout,
+                                         int n_tile, int pad_left,
+                                         int pad_right, void* stream) {
+  return dispatch_phases<bf16>(x, weight, mult, bias, alpha, out, b, h, in_w,
+                               cin, cout, n_tile, pad_left, pad_right, stream);
 }
 
 extern "C" int fsr_int8_conv_phases_f32(const void* x, const void* weight,
                                         const void* mult, const void* bias,
                                         const void* alpha, void* out, int b,
-                                        int h, int w, int cin, int cout,
-                                        int n_tile, void* stream) {
-  if (n_tile != 32) return static_cast<int>(cudaErrorInvalidValue);
-  return launch<float, float, 4, 2, 32>(x, weight, mult, bias, alpha, nullptr, out,
-                                        b, h, w, cin, cout, 0, 0, stream);
+                                        int h, int in_w, int cin, int cout,
+                                        int n_tile, int pad_left,
+                                        int pad_right, void* stream) {
+  return dispatch_phases<float>(x, weight, mult, bias, alpha, out, b, h, in_w,
+                                cin, cout, n_tile, pad_left, pad_right,
+                                stream);
 }

@@ -18,15 +18,22 @@ padding after every bias. :meth:`SRInferenceEngine.stream` pipelines a
 sequence of same-size frames (video) through pinned host buffers and copy
 streams.
 
+``mesh=`` serves data-parallel across a 1-D mesh of devices
+(``parallel/mesh.py``): one replica of the weights (LR-tail preparation,
+int8 plan and scales) on each distinct device; each batch splits into
+contiguous slices, one per mesh device, launched back to back so the
+devices overlap, and the outputs are gathered in order on the first. One
+frame too large for a card is ``parallel/spatial.py``'s (width tiling).
+
 What the JAX engine does only for XLA's compiled shapes on the TPU is not
 here: eager PyTorch compiles nothing per shape, so batches are never padded
-to a compiled size and there is no "never batch 2..7" rule. Multi-device
-is not ported yet.
+to a compiled size and there is no "never batch 2..7" rule.
 """
 
 from __future__ import annotations
 
 import collections
+import dataclasses
 from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -38,6 +45,7 @@ from fast_srgan_torch.models.generator import Generator
 from fast_srgan_torch.ops.lr_tail import generator_apply_lr_tail, prepare_lr_tail
 from fast_srgan_torch.ops.norm import valid_mask, zero_outside
 from fast_srgan_torch.ops.precision import fp32_precision
+from fast_srgan_torch.parallel.mesh import Mesh, gather_batch, split_batch
 
 #: Batches a stream keeps in flight on the card (the JAX engine's window).
 STREAM_IN_FLIGHT = 2
@@ -80,6 +88,17 @@ def arch_from_params(params: Dict[str, Any]) -> Dict[str, int]:
     }
 
 
+@dataclasses.dataclass
+class _Replica:
+    """The engine's weights on one device."""
+
+    device: torch.device
+    model: Generator
+    tail: Optional[Dict[str, Any]] = None
+    plan: Optional[quant.PreparedGenerator] = None
+    act_scales: Optional[Dict[str, torch.Tensor]] = None
+
+
 def load_image(path: str) -> np.ndarray:
     """An image file decoded to uint8 RGB [H, W, 3]."""
     from PIL import Image
@@ -111,6 +130,10 @@ class SRInferenceEngine:
         ``quant.default_calibration_batch()``.
       calib_batches: sample batches ([-1, 1] float NHWC or uint8) to
         calibrate on.
+      mesh: None (one device, ``device``), or a 1-D :class:`Mesh` or a
+        sequence of devices (a device may repeat) to serve data-parallel
+        across; ``device`` is then the mesh's first device, where inputs
+        arrive and outputs are gathered.
 
     ``default_calibration`` is True when the scales came from the synthetic
     batch (neither ``act_scales`` nor ``calib_batches`` given): the signal
@@ -136,7 +159,17 @@ class SRInferenceEngine:
         quantize: bool | str = False,
         act_scales: Optional[Dict[str, Any]] = None,
         calib_batches: Optional[Iterable[Any]] = None,
+        mesh: Any = None,
     ):
+        if mesh is not None:
+            if not isinstance(mesh, Mesh):
+                mesh = Mesh(list(mesh), ("data",))
+            if len(mesh.axis_names) != 1:
+                raise ValueError(f"the engine's mesh is 1-D, got axes {mesh.axis_names}")
+            device = mesh.devices[0]
+        self.mesh = mesh
+        #: the device of each batch slice, in order (one without a mesh)
+        self.devices = [torch.device(device)] if mesh is None else list(mesh.devices)
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -168,16 +201,25 @@ class SRInferenceEngine:
                 " Use quantize=True/'tail'/'ups', or bucket=0."
             )
         self.bucket = bucket
-        model = Generator(**arch)
-        model.load_state_dict(state_dict_from_jax_params(params))
         use_lr_tail = lr_tail and not self.quantize
-        self._tail = prepare_lr_tail(model, dtype, self.device) if use_lr_tail else None
-        self.model = model.to(
-            device=self.device, dtype=dtype, memory_format=torch.channels_last
-        ).eval()
+        self._replicas: Dict[torch.device, _Replica] = {}
+        for dev in self.devices:
+            if dev in self._replicas:
+                continue
+            model = Generator(**arch)
+            model.load_state_dict(state_dict_from_jax_params(params))
+            rep = _Replica(dev, model)
+            rep.tail = prepare_lr_tail(model, dtype, dev) if use_lr_tail else None
+            rep.model = model.to(device=dev, dtype=dtype, memory_format=torch.channels_last).eval()
+            if self.quantize:
+                rep.plan = quant.prepare_generator(params, mode, dtype, dev, model=rep.model)
+            self._replicas[dev] = rep
+        first = self._replicas[self.device]
+        self.model, self._tail = first.model, first.tail
         #: Generator forwards run so far (one per batch).
         self.forward_calls = 0
         if self.quantize:
+            self._plan = first.plan
             # the fp32 float form, kept for recalibrate()
             self._calib_plan = quant.prepare_generator(params, None, torch.float32, self.device)
             self.default_calibration = act_scales is None and calib_batches is None
@@ -185,13 +227,7 @@ class SRInferenceEngine:
                 act_scales = quant.calibrate_scales(
                     self._calib_plan, calib_batches or [quant.default_calibration_batch()]
                 )
-            self.act_scales = {
-                k: torch.as_tensor(v, dtype=torch.float32, device=self.device)
-                for k, v in act_scales.items()
-            }
-            self._plan = quant.prepare_generator(
-                params, mode, dtype, self.device, model=self.model
-            )
+            self._set_scales(act_scales)
 
     def recalibrate(self, batches: Iterable[Any]) -> None:
         """Recompute the int8 activation scales from sample inputs and swap
@@ -200,25 +236,50 @@ class SRInferenceEngine:
         if not self.quantize:
             raise ValueError("recalibrate() requires quantize=True")
         self.default_calibration = False
-        self.act_scales = quant.calibrate_scales(self._calib_plan, batches)
+        self._set_scales(quant.calibrate_scales(self._calib_plan, batches))
+
+    def _set_scales(self, act_scales: Dict[str, Any]) -> None:
+        """The int8 activation scales, copied to every replica's device."""
+        for rep in self._replicas.values():
+            rep.act_scales = {
+                k: torch.as_tensor(v, dtype=torch.float32).to(rep.device)
+                for k, v in act_scales.items()
+            }
+        self.act_scales = self._replicas[self.device].act_scales
 
     def _precision(self):
         return fp32_precision(self.dtype == torch.float32, self.device)
 
-    def _apply(self, x: torch.Tensor, valid_hw=None) -> torch.Tensor:
+    def _apply(self, x: torch.Tensor, valid_hw=None, rep: Optional[_Replica] = None
+               ) -> torch.Tensor:
+        """One replica's forward (default: the first device's) on its slice."""
+        rep = rep or self._replicas[self.device]
         if self.quantize:
             if valid_hw is None:
-                return quant.sr_quant_forward(self._plan, self.act_scales, x)
-            return quant.sr_quant_forward_masked(self._plan, self.act_scales, x, valid_hw)
-        if self._tail is None:
-            return self.model(x, valid_hw=valid_hw)
-        return generator_apply_lr_tail(self.model, self._tail, x, valid_hw)
+                return quant.sr_quant_forward(rep.plan, rep.act_scales, x)
+            return quant.sr_quant_forward_masked(rep.plan, rep.act_scales, x, valid_hw)
+        if rep.tail is None:
+            return rep.model(x, valid_hw=valid_hw)
+        return generator_apply_lr_tail(rep.model, rep.tail, x, valid_hw)
+
+    def _data_parallel(self, run: Callable, *batched: torch.Tensor) -> torch.Tensor:
+        """``run(rep, *slices)`` of each mesh device's contiguous slice of the
+        batched tensors, launched back to back, gathered in order on the
+        engine's device; without a mesh, ``run`` of the whole batch."""
+        if self.mesh is None:
+            return run(self._replicas[self.device], *batched)
+        slices = [split_batch(t, self.devices) for t in batched]
+        outs = [run(self._replicas[dev], *parts)
+                for dev, *parts in zip(self.devices, *slices) if parts[0].shape[0]]
+        return gather_batch(outs, self.device)
 
     def forward_u8(self, x_u8: torch.Tensor) -> torch.Tensor:
         """Device-resident [B, H, W, 3] uint8 -> [B, sH, sW, 3] uint8; one
-        generator forward, enqueued on the current stream."""
+        generator forward (one a mesh device), enqueued on the current
+        stream."""
         with torch.inference_mode(), self._precision():
-            out = sr_forward_u8(self._apply, x_u8)
+            out = self._data_parallel(
+                lambda rep, x: sr_forward_u8(lambda t: self._apply(t, rep=rep), x), x_u8)
         self.forward_calls += 1
         return out
 
@@ -231,12 +292,15 @@ class SRInferenceEngine:
         -1), then runs the masked forward. Only the valid region of each
         output, s * valid_h x s * valid_w, is the image's upscale."""
 
-        def apply(x: torch.Tensor) -> torch.Tensor:
-            mask = valid_mask(x.shape[2], x.shape[3], valid_h, valid_w)[0]
-            return self._apply(zero_outside(x, mask), (valid_h, valid_w))
+        def run(rep: _Replica, x_u8, vh, vw) -> torch.Tensor:
+            def apply(x: torch.Tensor) -> torch.Tensor:
+                mask = valid_mask(x.shape[2], x.shape[3], vh, vw)[0]
+                return self._apply(zero_outside(x, mask), (vh, vw), rep)
+
+            return sr_forward_u8(apply, x_u8)
 
         with torch.inference_mode(), self._precision():
-            out = sr_forward_u8(apply, x_u8)
+            out = self._data_parallel(run, x_u8, valid_h, valid_w)
         self.forward_calls += 1
         return out
 
@@ -270,8 +334,12 @@ class SRInferenceEngine:
 
     def effective_batch_size(self, h: int, w: int, requested: int = 8) -> int:
         """The batch the engine runs for HxW LR frames: ``requested``, capped
-        so a batch holds at most ``pixel_budget`` LR pixels (at least 1)."""
-        return max(1, min(requested, self.pixel_budget // max(1, h * w)))
+        so a batch holds at most ``pixel_budget`` LR pixels (at least 1).
+        With a mesh the policy applies to each device's slice, and the
+        result is the whole batch, a multiple of the mesh size."""
+        n = len(self.devices)
+        per = max(1, min(max(1, requested // n), self.pixel_budget // max(1, h * w)))
+        return per * n
 
     # -- core -------------------------------------------------------------------
 
@@ -295,7 +363,7 @@ class SRInferenceEngine:
         """[-1, 1] float NHWC in -> [-1, 1] fp32 NHWC out, on the device."""
         x = torch.as_tensor(batch, dtype=torch.float32, device=self.device)
         with torch.inference_mode(), self._precision():
-            y = self._apply(x.permute(0, 3, 1, 2))
+            y = self._data_parallel(lambda rep, t: self._apply(t, rep=rep), x.permute(0, 3, 1, 2))
         return y.permute(0, 2, 3, 1)
 
     # -- directory / serving APIs ---------------------------------------------

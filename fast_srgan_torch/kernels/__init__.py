@@ -6,9 +6,15 @@ from fast_srgan_torch.kernels.fused_upsample import (
 )
 from fast_srgan_torch.kernels.instance_norm import (
     instance_norm_add,
+    instance_norm_add_from_stats,
+    instance_norm_add_from_stats_reference,
     instance_norm_add_reference,
     instance_norm_prelu,
+    instance_norm_prelu_from_stats,
+    instance_norm_prelu_from_stats_reference,
     instance_norm_prelu_reference,
+    instance_norm_stats,
+    instance_norm_stats_reference,
 )
 from fast_srgan_torch.kernels.int8_conv import (
     int8_conv,
@@ -26,9 +32,15 @@ __all__ = [
     "fused_upsample",
     "fused_upsample_reference",
     "instance_norm_add",
+    "instance_norm_add_from_stats",
+    "instance_norm_add_from_stats_reference",
     "instance_norm_add_reference",
     "instance_norm_prelu",
+    "instance_norm_prelu_from_stats",
+    "instance_norm_prelu_from_stats_reference",
     "instance_norm_prelu_reference",
+    "instance_norm_stats",
+    "instance_norm_stats_reference",
     "int8_conv",
     "int8_conv_phases",
     "int8_conv_phases_reference",

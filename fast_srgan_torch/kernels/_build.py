@@ -38,13 +38,19 @@ _IN = [_P] * 4 + [_I] * 6 + [_F, _P]
 # (x, alpha or skip, valid_h, valid_w, out, partial, B, HW, W, C, grid,
 #  per_wave, tile_px, eps, stream)
 _IN_MASKED = [_P] * 6 + [_I] * 7 + [_F, _P]
+# (x, partial, B, HW, C, tile_px, stream)
+_IN_STATS = [_P, _P] + [_I] * 4 + [_P]
+# (x, alpha or skip, partial, out, B, HW, C, n_parts, count, tile_px, eps,
+#  stream)
+_IN_FROM_STATS = [_P] * 4 + [_I] * 6 + [_F, _P]
 # (x, weight, bias, alpha, out, B, H, W, C, prelu, stream)
 _FUSED_UPSAMPLE = [_P] * 5 + [_I] * 5 + [_P]
-# (x, weight, mult, bias, alpha, rscale, out, B, H, W, Cin, Cout, n_tile, KH,
-#  pad_top, pad_left, stream)
-_INT8_CONV = [_P] * 7 + [_I] * 9 + [_P]
-# (x, weight, mult, bias, alpha, out, B, H, W, Cin, Cout, n_tile, stream)
-_INT8_PHASES = [_P] * 6 + [_I] * 6 + [_P]
+# (x, weight, mult, bias, alpha, rscale, out, B, H, W_in, Cin, Cout, n_tile,
+#  KH, pad_top, pad_left, pad_right, stream)
+_INT8_CONV = [_P] * 7 + [_I] * 10 + [_P]
+# (x, weight, mult, bias, alpha, out, B, H, W_in, Cin, Cout, n_tile, pad_left,
+#  pad_right, stream)
+_INT8_PHASES = [_P] * 6 + [_I] * 8 + [_P]
 # (x, scale, out, n, stream)
 _QUANTIZE = [_P] * 3 + [_I, _P]
 
@@ -60,6 +66,12 @@ ENTRY_POINTS = {
     "fsr_instance_norm_prelu_masked_f32": _IN_MASKED,
     "fsr_instance_norm_add_masked_bf16": _IN_MASKED,
     "fsr_instance_norm_add_masked_f32": _IN_MASKED,
+    "fsr_instance_norm_stats_bf16": _IN_STATS,
+    "fsr_instance_norm_stats_f32": _IN_STATS,
+    "fsr_instance_norm_prelu_from_stats_bf16": _IN_FROM_STATS,
+    "fsr_instance_norm_prelu_from_stats_f32": _IN_FROM_STATS,
+    "fsr_instance_norm_add_from_stats_bf16": _IN_FROM_STATS,
+    "fsr_instance_norm_add_from_stats_f32": _IN_FROM_STATS,
     "fsr_fused_upsample_bf16": _FUSED_UPSAMPLE,
     "fsr_fused_upsample_f32": _FUSED_UPSAMPLE,
     # (x, out, B, H, W, C in bytes, stream)

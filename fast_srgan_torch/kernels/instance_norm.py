@@ -31,6 +31,12 @@ version (the numerical contract); its CUDA implementation launches the
 kernel or raises ``ValueError`` for what the kernel does not take, and
 counts the launch; its fake implementation gives the output's shape, dtype
 and strides. There is no fallback between the two.
+
+The split form (:func:`instance_norm_stats`, then
+:func:`instance_norm_prelu_from_stats` / :func:`instance_norm_add_from_stats`)
+runs the two launches as separate ops, so the width-sharded forward
+(``parallel/spatial.py``) can sum every shard's partial statistics before
+any shard normalizes.
 """
 
 from __future__ import annotations
@@ -398,3 +404,182 @@ instance_norm_prelu.launches = 0
 instance_norm_add.launches = 0
 instance_norm_prelu.masked_launches = 0
 instance_norm_add.masked_launches = 0
+
+
+# -- the split form: statistics and normalize as two ops ----------------------
+#
+# The width-sharded forward (parallel/spatial.py) normalizes each shard of a
+# frame with the statistics of the whole frame: every shard's statistics op
+# writes the fp32 sums and sums of squares of its tiles of TILE_PX pixels;
+# the caller gathers every shard's partials to every shard, in one order;
+# each shard's apply op sums all of them and divides by the frame's pixel
+# count (H x the sum of the shard widths). The port of
+# ``_dist_instance_norm`` (fast_srgan_tpu/parallel/spatial.py), which XLA
+# lowered on the TPU. The kernel sums the partials in one order fixed by
+# their number and C, so every shard gets bitwise the same statistics.
+
+
+def instance_norm_stats_reference(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`instance_norm_stats`: the fp32 sums and sums
+    of squares of each tile of TILE_PX pixels (row-major, the last one
+    short), [B, ceil(H * W / TILE_PX), 2C]."""
+    b, c, h, w = x.shape
+    tiles = -(-(h * w) // TILE_PX)
+    x32 = x.float().permute(0, 2, 3, 1).reshape(b, h * w, c)
+    x32 = torch.nn.functional.pad(x32, (0, 0, 0, tiles * TILE_PX - h * w))
+    x32 = x32.view(b, tiles, TILE_PX, c)
+    return torch.cat([x32.sum(2), x32.square().sum(2)], dim=2)
+
+
+def _norm_from_stats(x: torch.Tensor, partials: torch.Tensor, count: int) -> torch.Tensor:
+    """x normalized with the sums of ``partials`` over ``count`` pixels:
+    mean = s / count, var = max(ss / count - mean^2, 0) (``ops.norm``'s
+    numerics), in x's dtype."""
+    b, c = x.shape[:2]
+    tot = partials.sum(dim=1)
+    mean = (tot[:, :c] / count).view(b, c, 1, 1)
+    var = (tot[:, c:].view(b, c, 1, 1) / count - mean.square()).clamp_min(0.0)
+    return ((x.float() - mean) * torch.rsqrt(var + EPS)).to(x.dtype)
+
+
+def instance_norm_prelu_from_stats_reference(
+    x: torch.Tensor, alpha: torch.Tensor, partials: torch.Tensor, count: int
+) -> torch.Tensor:
+    """Plain version of :func:`instance_norm_prelu_from_stats`."""
+    y = _norm_from_stats(x, partials, count)
+    return torch.where(y >= 0, y, alpha.to(y.dtype) * y)
+
+
+def instance_norm_add_from_stats_reference(
+    x: torch.Tensor, skip: torch.Tensor, partials: torch.Tensor, count: int
+) -> torch.Tensor:
+    """Plain version of :func:`instance_norm_add_from_stats`."""
+    return _norm_from_stats(x, partials, count) + skip
+
+
+def check_partials(x: torch.Tensor, partials: torch.Tensor, count: int) -> None:
+    """Raise ValueError unless the apply kernel takes ``partials`` and
+    ``count`` for x."""
+    b, c = x.shape[:2]
+    if partials.dtype != torch.float32 or partials.dim() != 3 or partials.shape[0] != b \
+            or partials.shape[2] != 2 * c or partials.shape[1] < 1:
+        raise ValueError(f"partials must be fp32 [{b}, n >= 1, {2 * c}], got "
+                         f"{partials.dtype} {tuple(partials.shape)}")
+    if partials.device != x.device or not partials.is_contiguous():
+        raise ValueError("partials must be contiguous on x's device")
+    if partials.numel() >= 2**31 or not 1 <= count < 2**31:
+        raise ValueError(f"unsupported partials {tuple(partials.shape)} or count {count}")
+
+
+def _launch_stats(x: torch.Tensor) -> torch.Tensor:
+    from fast_srgan_torch.kernels._build import load_library
+
+    _check_activation(x, "instance_norm_stats")
+    lib = load_library()
+    b, c, h, w = x.shape
+    with torch.cuda.device(x.device):
+        partials = torch.empty((b, -(-(h * w) // TILE_PX), 2 * c), dtype=torch.float32,
+                               device=x.device)
+        fn = (lib.fsr_instance_norm_stats_bf16 if x.dtype == torch.bfloat16
+              else lib.fsr_instance_norm_stats_f32)
+        err = fn(x.data_ptr(), partials.data_ptr(), b, h * w, c, TILE_PX,
+                 torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"instance_norm_stats launch failed: cudaError {err}")
+    instance_norm_stats.launches += 1
+    return partials
+
+
+def _launch_from_stats(x, other, partials, count, residual: bool) -> torch.Tensor:
+    from fast_srgan_torch.kernels._build import load_library
+
+    if residual:
+        check_add_inputs(x, other)
+    else:
+        check_kernel_inputs(x, other)
+    check_partials(x, partials, count)
+    lib = load_library()
+    b, c, h, w = x.shape
+    name = f"fsr_instance_norm_{'add' if residual else 'prelu'}_from_stats_"
+    name += "bf16" if x.dtype == torch.bfloat16 else "f32"
+    with torch.cuda.device(x.device):
+        out = torch.empty_like(x, memory_format=torch.channels_last)
+        second = other if residual else other.detach().reshape(1).to(torch.float32).contiguous()
+        err = getattr(lib, name)(
+            x.data_ptr(), second.data_ptr(), partials.data_ptr(), out.data_ptr(), b, h * w, c,
+            partials.shape[1], count, TILE_PX, EPS,
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    if err:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    counted = instance_norm_add_from_stats if residual else instance_norm_prelu_from_stats
+    counted.launches += 1
+    return out
+
+
+def _stats_fake(x):
+    b, c, h, w = x.shape
+    return x.new_empty((b, -(-(h * w) // TILE_PX), 2 * c), dtype=torch.float32)
+
+
+def _from_stats_fake(x, other, partials, count):
+    return torch.empty_like(x)
+
+
+_LIB.define("instance_norm_stats(Tensor x) -> Tensor")
+_LIB.define("instance_norm_prelu_from_stats(Tensor x, Tensor alpha, Tensor partials,"
+            " int count) -> Tensor")
+_LIB.define("instance_norm_add_from_stats(Tensor x, Tensor skip, Tensor partials,"
+            " int count) -> Tensor")
+_LIB.impl("instance_norm_stats", instance_norm_stats_reference, "CPU")
+_LIB.impl("instance_norm_stats", _launch_stats, "CUDA")
+_LIB.impl("instance_norm_prelu_from_stats", instance_norm_prelu_from_stats_reference, "CPU")
+_LIB.impl("instance_norm_prelu_from_stats",
+          lambda x, alpha, partials, count: _launch_from_stats(x, alpha, partials, count, False),
+          "CUDA")
+_LIB.impl("instance_norm_add_from_stats", instance_norm_add_from_stats_reference, "CPU")
+_LIB.impl("instance_norm_add_from_stats",
+          lambda x, skip, partials, count: _launch_from_stats(x, skip, partials, count, True),
+          "CUDA")
+torch.library.register_fake("fast_srgan::instance_norm_stats", _stats_fake, lib=_LIB)
+torch.library.register_fake("fast_srgan::instance_norm_prelu_from_stats", _from_stats_fake,
+                            lib=_LIB)
+torch.library.register_fake("fast_srgan::instance_norm_add_from_stats", _from_stats_fake,
+                            lib=_LIB)
+_STATS_OP = torch.ops.fast_srgan.instance_norm_stats.default
+_PRELU_FROM_STATS_OP = torch.ops.fast_srgan.instance_norm_prelu_from_stats.default
+_ADD_FROM_STATS_OP = torch.ops.fast_srgan.instance_norm_add_from_stats.default
+
+
+def instance_norm_stats(x: torch.Tensor) -> torch.Tensor:
+    """The split form's statistics of [B, C, H, W] x (on CUDA: bf16 or fp32,
+    channels_last, the same C as the fused forms take): fp32 partial sums and
+    sums of squares, [B, ceil(H * W / TILE_PX), 2C]. Inference only (no
+    gradient). ``instance_norm_stats.launches`` counts the kernel's launches."""
+    _check_device(x, "instance_norm_stats")
+    return _STATS_OP(x)
+
+
+def instance_norm_prelu_from_stats(
+    x: torch.Tensor, alpha: torch.Tensor, partials: torch.Tensor, count: int
+) -> torch.Tensor:
+    """IN + PReLU of x with the statistics that ``partials`` ([B, n, 2C]
+    fp32: :func:`instance_norm_stats` outputs joined along dim 1) sum over
+    ``count`` pixels. ``.launches`` counts the kernel's launches."""
+    _check_device(x, "instance_norm_prelu_from_stats")
+    return _PRELU_FROM_STATS_OP(x, alpha, partials, int(count))
+
+
+def instance_norm_add_from_stats(
+    x: torch.Tensor, skip: torch.Tensor, partials: torch.Tensor, count: int
+) -> torch.Tensor:
+    """``instance_norm(x) + skip`` with the statistics of ``partials`` over
+    ``count`` pixels (as :func:`instance_norm_prelu_from_stats`).
+    ``.launches`` counts the kernel's launches."""
+    _check_device(x, "instance_norm_add_from_stats")
+    return _ADD_FROM_STATS_OP(x, skip, partials, int(count))
+
+
+instance_norm_stats.launches = 0
+instance_norm_prelu_from_stats.launches = 0
+instance_norm_add_from_stats.launches = 0

@@ -15,10 +15,14 @@ each step one rounding:
 The last step is ``quantize_act`` of the next conv's input, fused into
 this conv's epilogue.
 
-Every conv of the int8 tier is "same"-sized: 3x3 with padding (1, 1), or
-2x2 with padding (1 - p, 1 - q) top and left for stage-2 phase (p, q)
-(``ops/lr_tail.py``'s window at (p, q) of the one-padded input).
+Every conv of the one-device int8 tier is "same"-sized: 3x3 with padding
+(1, 1), or 2x2 with padding (1 - p, 1 - q) top and left for stage-2 phase
+(p, q) (``ops/lr_tail.py``'s window at (p, q) of the one-padded input).
 :func:`int8_conv_phases` runs the four phases of one input in one launch.
+The width-sharded forward (``parallel/spatial.py``) takes the halo form:
+a shard extended by one neighbour column on each side, with no zero column
+left or right (``padding=(1, 0, 0)``; the phases ``(0, 0)``), so the output
+is two columns narrower than its input. Heights stay "same".
 
 The plain version runs the conv in float64 on the int8 values, which is
 exact (|acc| <= 9 * 1024 * 127^2 < 2^53; fp32 is not, a 3x3x256 sum
@@ -150,6 +154,17 @@ def bias_prelu(y: torch.Tensor, bias=None, alpha=None) -> torch.Tensor:
     return y
 
 
+def conv_pads(kw: int, padding: Sequence[int]) -> Tuple[int, int, int]:
+    """(top, left, right) zero rows and columns of a conv's ``padding``:
+    (top, left), "same"-sized (right = kw - 1 - left), or (top, left,
+    right)."""
+    if len(padding) == 2:
+        return padding[0], padding[1], kw - 1 - padding[1]
+    if len(padding) == 3:
+        return tuple(padding)
+    raise ValueError(f"padding is (top, left) or (top, left, right), got {padding}")
+
+
 def int8_conv_reference(
     xq: torch.Tensor,
     weight: Int8Weight,
@@ -164,11 +179,12 @@ def int8_conv_reference(
     """Plain version: the conv in float64 (exact), then the epilogue in
     torch ops, then ``quantize_act_reference`` at ``out_scale`` where
     given. cuDNN is off for it, so no FFT or Winograd algorithm rounds the
-    float64 sums."""
+    float64 sums. A negative left or right padding crops that many
+    columns."""
     kh, kw = weight.packed.shape[1:3]
-    top, left = padding
+    top, left, right = conv_pads(kw, padding)
     w64 = weight.packed[:weight.cout, :, :, :xq.shape[1]].permute(0, 3, 1, 2)
-    x64 = F.pad(xq.to(torch.float64), (left, kw - 1 - left, top, kh - 1 - top))
+    x64 = F.pad(xq.to(torch.float64), (left, right, top, kh - 1 - top))
     with torch.backends.cudnn.flags(enabled=False):
         acc = F.conv2d(x64, w64.to(torch.float64)).to(torch.int32)
     m = dequant_multiplier(wscale, act_scale).view(1, -1, 1, 1)
@@ -185,11 +201,16 @@ def int8_conv_phases_reference(
     bias: Optional[torch.Tensor] = None,
     alpha: Optional[torch.Tensor] = None,
     out_dtype: torch.dtype = torch.bfloat16,
+    padding: Tuple[int, int] = (1, 1),
 ) -> List[torch.Tensor]:
     """Plain version of :func:`int8_conv_phases`: four
-    :func:`int8_conv_reference` calls, phase (p, q) at padding (1-p, 1-q)."""
+    :func:`int8_conv_reference` calls, phase (p, q) at padding (1 - p,
+    left - q, right - 1 + q) (``padding`` = (left, right); (1, 1): (1 - p,
+    1 - q) "same")."""
+    left, right = padding
     return [
-        int8_conv_reference(xq, wq, wscale, act_scale, (1 - p, 1 - q), bias, alpha, out_dtype)
+        int8_conv_reference(xq, wq, wscale, act_scale, (1 - p, left - q, right - 1 + q), bias,
+                            alpha, out_dtype)
         for (p, q), wq in zip(PHASES, weights.phases)
     ]
 
@@ -219,8 +240,11 @@ def check_kernel_inputs(
     _check_x(xq, weight.cin, cpad, npad, out_dtype)
     if (kh, kw) not in ((3, 3), (2, 2)):
         raise ValueError(f"int8_conv takes 3x3 or 2x2 kernels, got {kh}x{kw}")
-    if kh == 3 and tuple(padding) != (1, 1) or not all(0 <= p <= 1 for p in padding):
-        raise ValueError(f"padding {padding}: a 3x3 kernel takes (1, 1), a 2x2 one 0 or 1")
+    top, left, right = conv_pads(kw, padding)
+    if kh == 3 and top != 1 or not all(0 <= p <= 1 for p in (top, left, right)) \
+            or xq.shape[3] + left + right - kw < 0:
+        raise ValueError(f"padding {tuple(padding)}: a 3x3 kernel takes top 1, a 2x2 one 0 or"
+                         " 1; left and right 0 or 1")
     if weight.cout % 2 or weight.n_tile not in SINGLE_N_TILES[kh] or npad % weight.n_tile:
         raise ValueError(f"Cout={weight.cout} must be even, and the N tile one the kernel takes")
     if weight.packed.device != xq.device or weight.tiled.device != xq.device:
@@ -255,24 +279,29 @@ def _launch(xq, weight, wscale, act_scale, padding, bias, alpha, out_dtype, out_
     check_kernel_inputs(xq, weight, padding, out_dtype, out_scale)
     lib = load_library()
     b, _, h, w = xq.shape
-    _, kh, _, cpad = weight.packed.shape
+    _, kh, kw, cpad = weight.packed.shape
+    top, left, right = conv_pads(kw, padding)
     with torch.cuda.device(xq.device):
         xq = _pad_k(xq, cpad)
         mult, b32, a32 = _epilogue_args(wscale, act_scale, bias, alpha, out_dtype)
         rscale = None if out_scale is None else quantize_reciprocal(out_scale).reshape(1)
         out = torch.empty(
-            (b, weight.cout, h, w), dtype=out_dtype if out_scale is None else torch.int8,
+            (b, weight.cout, h, w + left + right - kw + 1),
+            dtype=out_dtype if out_scale is None else torch.int8,
             device=xq.device, memory_format=torch.channels_last,
         )
         fn = lib.fsr_int8_conv_bf16 if out_dtype == torch.bfloat16 else lib.fsr_int8_conv_f32
         err = fn(
             xq.data_ptr(), weight.tiled.data_ptr(), mult.data_ptr(), _ptr(b32), _ptr(a32),
             _ptr(rscale), out.data_ptr(), b, h, w, cpad, weight.cout, weight.n_tile, kh,
-            padding[0], padding[1], torch.cuda.current_stream(xq.device).cuda_stream,
+            top, left, right, torch.cuda.current_stream(xq.device).cuda_stream,
         )
     if err:
         raise RuntimeError(f"int8_conv launch failed: cudaError {err}")
-    int8_conv.launches += 1
+    if left + right == kw - 1:
+        int8_conv.launches += 1
+    else:
+        int8_conv.halo_launches += 1
     return out
 
 
@@ -287,7 +316,7 @@ _LIB.define(
 _LIB.define(
     "int8_conv_phases(Tensor xq, Tensor[] packed, Tensor tiled, int cout, int cin,"
     " int n_tile, Tensor wscale, Tensor act_scale, Tensor? bias, Tensor? alpha,"
-    " ScalarType out_dtype) -> Tensor"
+    " ScalarType out_dtype, int[] padding=[1, 1]) -> Tensor"
 )
 
 
@@ -306,7 +335,10 @@ def _conv_cuda(xq, packed, tiled, cout, cin, n_tile, wscale, act_scale, padding,
 def _conv_fake(xq, packed, tiled, cout, cin, n_tile, wscale, act_scale, padding, bias, alpha,
                out_dtype, out_scale):
     b, _, h, w = xq.shape
-    return xq.new_empty((b, cout, h, w), dtype=out_dtype if out_scale is None else torch.int8
+    kw = packed.shape[2]
+    _, left, right = conv_pads(kw, padding)
+    return xq.new_empty((b, cout, h, w + left + right - kw + 1),
+                        dtype=out_dtype if out_scale is None else torch.int8
                         ).contiguous(memory_format=torch.channels_last)
 
 
@@ -318,22 +350,23 @@ def _phases_weights(packed, tiled, cout, cin, n_tile) -> Int8Phases:
 
 
 def _phases_cpu(xq, packed, tiled, cout, cin, n_tile, wscale, act_scale, bias, alpha,
-                out_dtype):
+                out_dtype, padding=(1, 1)):
     outs = int8_conv_phases_reference(xq, _phases_weights(packed, tiled, cout, cin, n_tile),
-                                      wscale, act_scale, bias, alpha, out_dtype)
+                                      wscale, act_scale, bias, alpha, out_dtype,
+                                      tuple(padding))
     return torch.stack([o.permute(0, 2, 3, 1) for o in outs])
 
 
 def _phases_cuda(xq, packed, tiled, cout, cin, n_tile, wscale, act_scale, bias, alpha,
-                 out_dtype):
+                 out_dtype, padding=(1, 1)):
     return _launch_phases(xq, _phases_weights(packed, tiled, cout, cin, n_tile), wscale,
-                          act_scale, bias, alpha, out_dtype)
+                          act_scale, bias, alpha, out_dtype, tuple(padding))
 
 
 def _phases_fake(xq, packed, tiled, cout, cin, n_tile, wscale, act_scale, bias, alpha,
-                 out_dtype):
+                 out_dtype, padding=(1, 1)):
     b, _, h, w = xq.shape
-    return xq.new_empty((4, b, h, w, cout), dtype=out_dtype)
+    return xq.new_empty((4, b, h, w + padding[0] + padding[1] - 2, cout), dtype=out_dtype)
 
 
 _LIB.impl("int8_conv", _conv_cpu, "CPU")
@@ -363,9 +396,12 @@ def int8_conv(
     one-value slope ``alpha`` where given (both in ``out_dtype``), in
     ``out_dtype``; or, with ``out_scale`` (one fp32 value), that result
     quantized to int8 at ``out_scale`` (the next conv's input).
-    ``padding`` = (top, left) zero rows and columns.
+    ``padding`` = (top, left) zero rows and columns ("same"), or (top, left,
+    right): the output is W + left + right - KW + 1 wide (the halo form,
+    left and right 0: W - 2 for a 3x3 kernel).
 
-    ``int8_conv.launches`` counts the calls that launched the kernel."""
+    ``int8_conv.launches`` counts the calls that launched the kernel in a
+    "same"-sized form, ``halo_launches`` those in a narrower one."""
     if xq.device.type not in ("cpu", "cuda"):
         raise ValueError(f"int8_conv runs on cpu or cuda, not {xq.device}")
     return _CONV_OP(xq, weight.packed, weight.tiled, weight.cout, weight.cin, weight.n_tile,
@@ -373,9 +409,10 @@ def int8_conv(
 
 
 int8_conv.launches = 0
+int8_conv.halo_launches = 0
 
 
-def _launch_phases(xq, weights, wscale, act_scale, bias, alpha, out_dtype):
+def _launch_phases(xq, weights, wscale, act_scale, bias, alpha, out_dtype, padding=(1, 1)):
     from fast_srgan_torch.kernels._build import load_library
 
     npad, _, _, cpad = weights.phases[0].packed.shape
@@ -384,22 +421,29 @@ def _launch_phases(xq, weights, wscale, act_scale, bias, alpha, out_dtype):
         raise ValueError(f"Cout={weights.cout} must be even, and the N tile one the kernel takes")
     if weights.tiled.device != xq.device:
         raise ValueError("the weights must be on xq's device")
-    lib = load_library()
+    left, right = padding
     b, _, h, w = xq.shape
+    if not (0 <= left <= 1 and 0 <= right <= 1) or w + left + right - 2 < 1:
+        raise ValueError(f"padding {tuple(padding)}: left and right 0 or 1")
+    lib = load_library()
     with torch.cuda.device(xq.device):
         xq = _pad_k(xq, cpad)
         mult, b32, a32 = _epilogue_args(wscale, act_scale, bias, alpha, out_dtype)
-        out = torch.empty((4, b, h, w, weights.cout), dtype=out_dtype, device=xq.device)
+        out = torch.empty((4, b, h, w + left + right - 2, weights.cout), dtype=out_dtype,
+                          device=xq.device)
         fn = (lib.fsr_int8_conv_phases_bf16 if out_dtype == torch.bfloat16
               else lib.fsr_int8_conv_phases_f32)
         err = fn(
             xq.data_ptr(), weights.tiled.data_ptr(), mult.data_ptr(), _ptr(b32), _ptr(a32),
-            out.data_ptr(), b, h, w, cpad, weights.cout, weights.n_tile,
+            out.data_ptr(), b, h, w, cpad, weights.cout, weights.n_tile, left, right,
             torch.cuda.current_stream(xq.device).cuda_stream,
         )
     if err:
         raise RuntimeError(f"int8_conv_phases launch failed: cudaError {err}")
-    int8_conv_phases.launches += 1
+    if (left, right) == (1, 1):
+        int8_conv_phases.launches += 1
+    else:
+        int8_conv_phases.halo_launches += 1
     return out
 
 
@@ -411,6 +455,7 @@ def int8_conv_phases(
     bias: Optional[torch.Tensor] = None,
     alpha: Optional[torch.Tensor] = None,
     out_dtype: torch.dtype = torch.bfloat16,
+    padding: Tuple[int, int] = (1, 1),
 ) -> List[torch.Tensor]:
     """The four stage-2 phases of int8 [B, Cin, H, W] ``xq`` (channels_last):
     phase (p, q) is :func:`int8_conv` by its 2x2 kernel at padding
@@ -418,13 +463,19 @@ def int8_conv_phases(
     [B, Cout, H, W] outputs in :data:`PHASES` order, each channels_last:
     views of the op's one [4, B, H, W, Cout] output, which on the card one
     launch writes, staging each input tile once for all four.
+    ``padding`` = (left, right) zero columns of the one-padded window the
+    four share: (1, 1) "same"; (0, 0) the halo form, whose input carries its
+    neighbours' columns and whose outputs are W - 2 wide.
 
-    ``int8_conv_phases.launches`` counts the calls that launched the kernel."""
+    ``int8_conv_phases.launches`` counts the calls that launched the kernel
+    "same"-sized, ``halo_launches`` the others."""
     if xq.device.type not in ("cpu", "cuda"):
         raise ValueError(f"int8_conv_phases runs on cpu or cuda, not {xq.device}")
     out = _PHASES_OP(xq, [w.packed for w in weights.phases], weights.tiled, weights.cout,
-                     weights.cin, weights.n_tile, wscale, act_scale, bias, alpha, out_dtype)
+                     weights.cin, weights.n_tile, wscale, act_scale, bias, alpha, out_dtype,
+                     list(padding))
     return [out[i].permute(0, 3, 1, 2) for i in range(4)]
 
 
 int8_conv_phases.launches = 0
+int8_conv_phases.halo_launches = 0

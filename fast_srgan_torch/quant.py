@@ -341,19 +341,23 @@ class _Exec:
         return quantize_act(x.contiguous(memory_format=torch.channels_last), self.scales[name])
 
     def conv(
-        self, x: torch.Tensor, name: str, leaf: Dict[str, Any], quantize_for=None
+        self, x: torch.Tensor, name: str, leaf: Dict[str, Any], quantize_for=None,
+        halo: bool = False,
     ) -> torch.Tensor:
         """3x3 pad-1 conv of a prepared leaf, then its bias and PReLU where
         it has them, each rounded to the glue dtype (quant.py's order).
         ``quantize_for`` (an int8 conv's name) returns that conv's int8
-        input instead, quantized in an int8 conv's epilogue."""
+        input instead, quantized in an int8 conv's epilogue. ``halo``: x is
+        a width shard extended by its neighbours' columns
+        (``parallel/spatial.py``), so no zero column pads it left or right
+        and the output is two columns narrower."""
         bias, alpha = leaf.get("b"), leaf.get("a")
         out_scale = None if quantize_for is None else self.scales[quantize_for]
         if "q" in leaf:
             return int8_conv(self.qin(name, x), leaf["q"], leaf["ws"], self.scales[name],
-                             (1, 1), bias, alpha, self.glue, out_scale)
+                             (1, 0, 0) if halo else (1, 1), bias, alpha, self.glue, out_scale)
         self.observe(name, x)
-        y = bias_prelu(F.conv2d(x, leaf["w"], padding=1), bias, alpha)
+        y = bias_prelu(F.conv2d(x, leaf["w"], padding=(1, 0) if halo else 1), bias, alpha)
         return y if quantize_for is None else self.qin(quantize_for, y)
 
 

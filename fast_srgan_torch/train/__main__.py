@@ -13,8 +13,9 @@ loaders, and runs ``Trainer.pretrain`` then ``Trainer.train``.
 Hydra-1.1 run-dir semantics: the run chdirs into ``outputs/<date>/<time>/``
 (``hydra.run.dir=DIR`` picks the directory, ``hydra.run.dir=.`` stays in
 the launch directory); input paths are anchored to the launch directory
-first. ``--device`` defaults to ``cuda`` and raises without a card; the
-port trains on one device (``parallel.num_devices`` > 1 raises).
+first. ``--device`` defaults to ``cuda`` and raises without a card;
+training runs on one device (``parallel.num_devices`` > 1 raises: the
+data-parallel trainer is not ported yet).
 """
 
 from __future__ import annotations

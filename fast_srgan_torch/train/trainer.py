@@ -48,8 +48,10 @@ from fast_srgan_torch.utils.logging import MetricsWriter
 
 
 def refuse_multi_device(config) -> None:
-    """The port trains on one card: ``parallel.num_devices`` > 1 and
-    ``parallel.multihost`` raise NotImplementedError (ROADMAP §1)."""
+    """The port's trainer runs on one card (data-parallel training is not
+    ported yet; serving spreads over devices, ``parallel/``):
+    ``parallel.num_devices`` > 1 and ``parallel.multihost`` raise
+    NotImplementedError (ROADMAP §1)."""
     n = config.parallel.get("num_devices")
     if n is not None and int(n) > 1:
         raise NotImplementedError(

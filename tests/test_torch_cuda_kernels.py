@@ -761,3 +761,195 @@ def test_remat_pretrain_step_matches_cpu(device):
             want = (16, 17) if dev.type == "cuda" else (0, 0)
             assert (after[0] - before[0], after[1] - before[1]) == want
     assert abs(losses[0] - losses[1]) <= 1e-5 * abs(losses[1])
+
+
+# --- width-sharded serving: the split IN form, the s8 halo form ------------
+
+def _shards(frame, n):
+    return [s.contiguous(memory_format=torch.channels_last) for s in torch.chunk(frame, n, dim=3)]
+
+
+@pytest.mark.parametrize("n_shards", [1, 4])
+@pytest.mark.parametrize("dtype,tol,add_tol", [(torch.bfloat16, 2e-2, 3e-2),
+                                               (torch.float32, 2e-5, 2e-5)])
+def test_split_in_matches_plain(device, n_shards, dtype, tol, add_tol):
+    """A 540x960 frame in width shards: each shard's statistics kernel
+    against the plain sums, each normalize kernel against its plain
+    version on the same joined partials and against the plain norm of the
+    whole frame; every shard's statistics bitwise the same."""
+    from fast_srgan_torch.kernels.instance_norm import (
+        instance_norm_add_from_stats,
+        instance_norm_add_from_stats_reference,
+        instance_norm_prelu_from_stats,
+        instance_norm_prelu_from_stats_reference,
+        instance_norm_stats,
+        instance_norm_stats_reference,
+    )
+
+    frame = _activation(device, (1, 64, 540, 960), dtype, seed=40)
+    skip_frame = _skip(device, (1, 64, 540, 960), dtype, seed=41)
+    xs, skips = _shards(frame, n_shards), _shards(skip_frame, n_shards)
+    alpha = torch.tensor([0.173], device=device)
+    before = (instance_norm_stats.launches, instance_norm_prelu_from_stats.launches,
+              instance_norm_add_from_stats.launches)
+    parts = [instance_norm_stats(x) for x in xs]
+    for p, x in zip(parts, xs):
+        want = instance_norm_stats_reference(x)
+        assert p.shape == want.shape and p.dtype == torch.float32
+        assert (p - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+    joined = [torch.cat([p.clone() for p in parts], dim=1) for _ in xs]  # one copy a shard
+    count = 540 * 960
+    prelu_out = [instance_norm_prelu_from_stats(x, alpha, j, count) for x, j in zip(xs, joined)]
+    add_out = [instance_norm_add_from_stats(x, s, j, count) for x, s, j in zip(xs, skips, joined)]
+    torch.cuda.synchronize()
+    n = n_shards
+    assert (instance_norm_stats.launches - before[0], instance_norm_prelu_from_stats.launches
+            - before[1], instance_norm_add_from_stats.launches - before[2]) == (n, n, n)
+    for x, s, j, a, b in zip(xs, skips, joined, prelu_out, add_out):
+        assert a.dtype == dtype and a.is_contiguous(memory_format=torch.channels_last)
+        want_a = instance_norm_prelu_from_stats_reference(x, alpha, j, count)
+        want_b = instance_norm_add_from_stats_reference(x, s, j, count)
+        assert (a.float() - want_a.float()).abs().max().item() <= tol
+        assert (b.float() - want_b.float()).abs().max().item() <= add_tol
+    whole = torch.cat(prelu_out, dim=3)
+    ref = instance_norm_prelu_reference(frame, alpha)
+    assert (whole.float() - ref.float()).abs().max().item() <= tol
+    # the same statistics on every shard: shard 0 normalized with each copy
+    outs = [instance_norm_prelu_from_stats(xs[0], alpha, j, count) for j in joined]
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+
+
+def test_split_in_rejects(device):
+    from fast_srgan_torch.kernels.instance_norm import (
+        instance_norm_prelu_from_stats,
+        instance_norm_stats,
+    )
+
+    x = _activation(device, (1, 64, 8, 8), torch.float32, seed=0)
+    alpha = torch.tensor([0.2], device=device)
+    p = instance_norm_stats(x)
+    with pytest.raises(ValueError, match="bf16 or fp32"):
+        instance_norm_stats(x.half())
+    with pytest.raises(ValueError, match="C="):
+        instance_norm_stats(_activation(device, (1, 12, 8, 8), torch.bfloat16, seed=0))
+    with pytest.raises(ValueError, match="partials"):
+        instance_norm_prelu_from_stats(x, alpha, p[:, :, :64].contiguous(), 64)
+    with pytest.raises(ValueError, match="partials"):
+        instance_norm_prelu_from_stats(x, alpha, p.cpu(), 64)
+    with pytest.raises(ValueError, match="count"):
+        instance_norm_prelu_from_stats(x, alpha, p, 0)
+
+
+@pytest.mark.parametrize("shape", [(1, 64, 540, 242), (3, 64, 37, 55)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_int8_conv_halo_is_bitwise_plain(device, shape, dtype):
+    """The halo form (no zero column left or right): bitwise against its
+    plain version, with and without the fused quantize, and equal to the
+    "same" conv of the same input less its two edge columns."""
+    from fast_srgan_torch.kernels.int8_conv import int8_conv, int8_conv_reference
+
+    xq, weight, ws, s = _int8_case(device, shape, 3, 256, seed=sum(shape) + 11)
+    bias = (torch.rand(256, device=device) - 0.5).to(dtype)
+    alpha = torch.tensor([0.173], device=device).to(dtype)
+    s_next = torch.tensor(5.1, device=device)
+    before = int8_conv.launches, int8_conv.halo_launches
+    for out_scale in (None, s_next):
+        got = int8_conv(xq, weight, ws, s, (1, 0, 0), bias, alpha, dtype, out_scale)
+        want = int8_conv_reference(xq, weight, ws, s, (1, 0, 0), bias, alpha, dtype, out_scale)
+        same = int8_conv(xq, weight, ws, s, (1, 1), bias, alpha, dtype, out_scale)
+        torch.cuda.synchronize()
+        assert got.shape[3] == shape[3] - 2
+        assert got.is_contiguous(memory_format=torch.channels_last)
+        assert torch.equal(got, want) and torch.equal(got, same[..., 1:-1])
+    assert (int8_conv.launches - before[0], int8_conv.halo_launches - before[1]) == (2, 2)
+
+
+@pytest.mark.parametrize("pad", [(1, 0, 1), (0, 1, 1), (1, 0, 0), (0, 0, 0)])
+def test_int8_conv_2x2_pads_bitwise(device, pad):
+    from fast_srgan_torch.kernels.int8_conv import int8_conv, int8_conv_reference
+
+    xq, weight, ws, s = _int8_case(device, (2, 256, 37, 55), 2, 256, seed=sum(pad))
+    for dtype in (torch.bfloat16, torch.float32):
+        got = int8_conv(xq, weight, ws, s, pad, out_dtype=dtype)
+        want = int8_conv_reference(xq, weight, ws, s, pad, out_dtype=dtype)
+        assert got.shape == want.shape and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shape", [(1, 256, 540, 242), (3, 256, 37, 55), (1, 64, 5, 3)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_int8_conv_phases_halo_is_bitwise_plain(device, shape, dtype):
+    """The four phases of a halo-extended input (padding (0, 0), and the
+    one-sided (1, 0) and (0, 1)): bitwise against the plain version, and
+    (0, 0) equal to the "same" phases less the two edge columns."""
+    from fast_srgan_torch.kernels.int8_conv import (
+        int8_conv_phases,
+        int8_conv_phases_reference,
+        pack_int8_phases,
+        pack_int8_weight,
+    )
+    from fast_srgan_torch.ops.lr_tail import _phase_kernels_2x
+
+    gen = torch.Generator().manual_seed(sum(shape) + 5)
+    b, cin, h, w = shape
+    k = torch.randint(-127, 128, (3, 3, cin // 4, 256), generator=gen).to(torch.int8)
+    phases = pack_int8_phases(
+        [(pq, pack_int8_weight(kp, device)) for pq, kp in _phase_kernels_2x(k).items()]
+    )
+    xq = torch.randint(-127, 128, (b, h, w, cin), generator=gen).to(torch.int8)
+    xq = xq.to(device).permute(0, 3, 1, 2)
+    ws = (torch.rand(256, generator=gen) * 1e-2 + 1e-3).to(device)
+    s = torch.tensor(2.3, device=device)
+    bias = (torch.rand(256, device=device) - 0.5).to(dtype)
+    alpha = torch.tensor([0.173], device=device).to(dtype)
+    same = int8_conv_phases(xq, phases, ws, s, bias, alpha, dtype)
+    for pad in ((0, 0), (1, 0), (0, 1)):
+        before = int8_conv_phases.halo_launches
+        got = int8_conv_phases(xq, phases, ws, s, bias, alpha, dtype, pad)
+        want = int8_conv_phases_reference(xq, phases, ws, s, bias, alpha, dtype, pad)
+        torch.cuda.synchronize()
+        assert int8_conv_phases.halo_launches == before + 1
+        for a, b_ in zip(got, want):
+            assert a.shape[3] == w + sum(pad) - 2
+            assert torch.equal(a, b_)
+        if pad == (0, 0):
+            assert all(torch.equal(a, c[..., 1:-1]) for a, c in zip(got, same))
+
+
+def test_tiled_forward_matches_one_device_on_the_card(device):
+    """The width-sharded fp32 forward (TF32 off) over 4 shards of the card,
+    pretrained 4x generator at 90x160: within 1 uint8 count of the
+    one-device fp32 engine; int8 ups in fp32 glue on the same scales in
+    the bounded-flip contract."""
+    from fast_srgan_torch.checkpoints.npz_io import load_npz_params
+    from fast_srgan_torch.inference import SRInferenceEngine
+    from fast_srgan_torch.parallel.mesh import Mesh
+    from fast_srgan_torch.parallel.spatial import tiled_quant_upscale_u8, tiled_upscale_u8
+
+    params = load_npz_params("models/generator_pretrained.npz")
+    frame = np.random.default_rng(3).integers(0, 256, (90, 160, 3), dtype=np.uint8)
+    mesh = Mesh([device] * 4, ("sp",))
+    one = SRInferenceEngine(params, device=device, dtype=torch.float32).upscale_batch(frame[None])
+    got = tiled_upscale_u8(params, frame, mesh, torch.float32)
+    assert np.abs(got.astype(np.int16) - one[0].astype(np.int16)).max() <= 1
+    q = SRInferenceEngine(params, device=device, dtype=torch.float32, quantize=True,
+                          calib_batches=[frame[None]])
+    want = q.upscale_batch(frame[None])[0].astype(np.int16)
+    got = tiled_quant_upscale_u8(params, q.act_scales, frame, mesh, torch.float32)
+    diff = np.abs(got.astype(np.int16) - want)
+    assert diff.max() <= 3 and (diff > 1).mean() < 0.02
+
+
+def test_mesh_engine_on_a_repeated_card(device):
+    """mesh=[card, card] at batch 8: bitwise equal to the one-device engine
+    on each slice of 4 (the same programs)."""
+    from fast_srgan_torch.checkpoints.npz_io import load_npz_params
+    from fast_srgan_torch.inference import SRInferenceEngine
+
+    params = load_npz_params("models/generator_pretrained.npz")
+    batch = np.random.default_rng(4).integers(0, 256, (8, 90, 160, 3), dtype=np.uint8)
+    for kw in ({"dtype": torch.float32}, {"dtype": torch.bfloat16}, {"quantize": True}):
+        one = SRInferenceEngine(params, device=device, calib_batches=[batch[:4]], **kw)
+        two = SRInferenceEngine(params, mesh=[device, device], act_scales=getattr(
+            one, "act_scales", None), **kw)
+        want = np.concatenate([one.upscale_batch(batch[:4]), one.upscale_batch(batch[4:])])
+        assert np.array_equal(two.upscale_batch(batch), want)

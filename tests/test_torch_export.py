@@ -255,6 +255,18 @@ def _op_cases():
                              (xq, [w.packed for w in ph.phases], ph.tiled, ph.cout, ph.cin,
                               ph.n_tile, torch.rand(32) + 0.5, s, torch.randn(32), alpha,
                               torch.bfloat16)),
+        "int8_conv halo": (ops.int8_conv.default,
+                           (xq, q.packed, q.tiled, q.cout, q.cin, q.n_tile, torch.rand(64) + 0.5,
+                            s, [1, 0, 0], torch.randn(64), alpha, torch.bfloat16, None)),
+        "int8_conv_phases halo": (ops.int8_conv_phases.default,
+                                  (xq, [w.packed for w in ph.phases], ph.tiled, ph.cout, ph.cin,
+                                   ph.n_tile, torch.rand(32) + 0.5, s, torch.randn(32), alpha,
+                                   torch.float32, [0, 0])),
+        "instance_norm_stats": (ops.instance_norm_stats.default, (cl(2, 16, 40, 30),)),
+        "instance_norm_prelu_from_stats": (ops.instance_norm_prelu_from_stats.default,
+                                           (x, alpha, torch.rand(2, 3, 32), 70)),
+        "instance_norm_add_from_stats": (ops.instance_norm_add_from_stats.default,
+                                         (x, cl(2, 16, 5, 7), torch.rand(2, 1, 32), 35)),
     }
 
 

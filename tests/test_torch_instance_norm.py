@@ -368,3 +368,86 @@ class TestBuild:
         monkeypatch.setattr(_build.os, "access", lambda *a: False)
         with pytest.raises(RuntimeError, match="nvcc not found"):
             _build.find_nvcc()
+
+
+class TestSplitForm:
+    """The split form's plain versions (the width-sharded forward's norms):
+    per-shard statistics joined in shard order, then each shard normalized
+    with the whole frame's; against ``ops/norm``'s norm of the whole frame
+    and JAX's ``instance_norm_nhwc``: fp32 2e-5 (summation order only)."""
+
+    @pytest.mark.parametrize("n_shards", [1, 2, 4])
+    @pytest.mark.parametrize("shape", [(2, 16, 9, 40), (1, 64, 33, 2048)])
+    def test_matches_the_whole_frame(self, shape, n_shards):
+        from fast_srgan_torch.kernels.instance_norm import (
+            instance_norm_add_from_stats,
+            instance_norm_prelu_from_stats,
+            instance_norm_stats,
+        )
+
+        rng = np.random.default_rng(sum(shape) + n_shards)
+        x = rng.normal(1.5, 2.0, shape).astype(np.float32)
+        skip = rng.uniform(-1, 1, shape).astype(np.float32)
+        xt, st = torch.from_numpy(x), torch.from_numpy(skip)
+        alpha = torch.tensor([0.23])
+        xs, ss = torch.chunk(xt, n_shards, dim=3), torch.chunk(st, n_shards, dim=3)
+        parts = [instance_norm_stats(s) for s in xs]
+        tiles = -(-(shape[2] * shape[3] // n_shards) // 1024)
+        assert all(p.shape == (shape[0], tiles, 2 * shape[1]) for p in parts)
+        joined = torch.cat(parts, dim=1)
+        count = shape[2] * shape[3]
+        prelu_out = torch.cat([instance_norm_prelu_from_stats(s, alpha, joined, count)
+                               for s in xs], dim=3)
+        add_out = torch.cat([instance_norm_add_from_stats(s, k, joined, count)
+                             for s, k in zip(xs, ss)], dim=3)
+        want_prelu = instance_norm_prelu_reference(xt, alpha)
+        want_add = instance_norm_add_reference(xt, st)
+        assert (prelu_out - want_prelu).abs().max().item() <= 2e-5
+        assert (add_out - want_add).abs().max().item() <= 2e-5
+        jax_norm = np.asarray(instance_norm_nhwc(jnp.asarray(x.transpose(0, 2, 3, 1))))
+        assert np.abs(add_out.permute(0, 2, 3, 1).numpy() - (jax_norm + skip.transpose(
+            0, 2, 3, 1))).max() <= 2e-5
+
+    def test_stats_are_tile_sums(self):
+        from fast_srgan_torch.kernels.instance_norm import TILE_PX, instance_norm_stats
+
+        x = torch.arange(2 * 4 * 3 * 700, dtype=torch.float32).reshape(2, 4, 3, 700) / 1e3
+        p = instance_norm_stats(x.contiguous(memory_format=torch.channels_last))
+        flat = x.permute(0, 2, 3, 1).reshape(2, 2100, 4).double()
+        for t in range(3):
+            chunk = flat[:, t * TILE_PX:(t + 1) * TILE_PX]
+            want = torch.cat([chunk.sum(1), chunk.square().sum(1)], dim=1)
+            assert torch.allclose(p[:, t].double(), want, rtol=1e-6)
+
+    def test_count_is_the_frame_not_the_shard(self):
+        """A shard normalized with its own count would still look plausible;
+        the frame's count is what matches the whole frame."""
+        from fast_srgan_torch.kernels.instance_norm import (
+            instance_norm_prelu_from_stats,
+            instance_norm_stats,
+        )
+
+        x = torch.from_numpy(np.random.default_rng(3).normal(0, 1, (1, 8, 6, 32))
+                             .astype(np.float32))
+        a = torch.tensor([0.2])
+        xs = torch.chunk(x, 4, dim=3)
+        joined = torch.cat([instance_norm_stats(s) for s in xs], dim=1)
+        want = instance_norm_prelu_reference(x, a)[..., :8]
+        good = instance_norm_prelu_from_stats(xs[0], a, joined, 6 * 32)
+        bad = instance_norm_prelu_from_stats(xs[0], a, joined, 6 * 8)
+        assert (good - want).abs().max().item() <= 2e-5
+        assert (bad - want).abs().max().item() > 0.1
+
+    def test_checks(self):
+        from fast_srgan_torch.kernels.instance_norm import check_partials
+
+        x = torch.zeros((2, 8, 4, 4))
+        check_partials(x, torch.zeros((2, 3, 16)), 16)
+        for bad, count in ((torch.zeros((2, 3, 8)), 16), (torch.zeros((1, 3, 16)), 16),
+                           (torch.zeros((2, 0, 16)), 16),
+                           (torch.zeros((2, 3, 16), dtype=torch.float64), 16),
+                           (torch.zeros((2, 16, 3)).transpose(1, 2), 16)):
+            with pytest.raises(ValueError, match="partials"):
+                check_partials(x, bad, count)
+        with pytest.raises(ValueError, match="count"):
+            check_partials(x, torch.zeros((2, 3, 16)), 0)

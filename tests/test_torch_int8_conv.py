@@ -304,3 +304,70 @@ class TestExecutor:
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match="device='cpu'"):
             quant.prepare_generator(random_params(8, 1, 4))
+
+
+class TestHaloForm:
+    """The halo form's plain versions (a shard extended by its neighbours'
+    columns, no zero column left or right) against a float64 conv of the
+    same input, "same"-padded, less its two edge columns: bitwise."""
+
+    def _case(self, k, cin, cout, shape, seed):
+        gen = torch.Generator().manual_seed(seed)
+        q = torch.randint(-127, 128, (k, k, cin, cout), generator=gen).to(torch.int8)
+        b, h, w = shape
+        xq = torch.randint(-127, 128, (b, h, w, cin), generator=gen).to(torch.int8)
+        return xq.permute(0, 3, 1, 2), q, pack_int8_weight(q)
+
+    @pytest.mark.parametrize("glue", [torch.float32, torch.bfloat16])
+    def test_single_conv(self, glue):
+        xq, q, weight = self._case(3, 16, 64, (2, 7, 12), seed=1)
+        ws, s = torch.rand(64) * 1e-2 + 1e-3, torch.tensor(2.3)
+        bias, alpha = (torch.rand(64) - 0.5).to(glue), torch.tensor([0.2]).to(glue)
+        got = int8_conv(xq, weight, ws, s, (1, 0, 0), bias, alpha, glue)
+        assert got.shape == (2, 64, 7, 10)
+        with torch.backends.cudnn.flags(enabled=False):
+            acc = F.conv2d(xq.double(), q.permute(3, 2, 0, 1).double(), padding=1)
+        m = (ws * (s / 127.0)).view(1, -1, 1, 1)
+        want = ((acc[..., 1:-1].to(torch.int32).float() * m).to(glue))
+        want = want + bias.view(1, -1, 1, 1)
+        want = torch.where(want >= 0, want, alpha * want)
+        assert torch.equal(got, want)
+        same = int8_conv(xq, weight, ws, s, (1, 1), bias, alpha, glue)
+        assert torch.equal(got, same[..., 1:-1])
+        s_next = torch.tensor(4.1)
+        assert torch.equal(int8_conv(xq, weight, ws, s, (1, 0, 0), bias, alpha, glue, s_next),
+                           int8_conv(xq, weight, ws, s, (1, 1), bias, alpha, glue,
+                                     s_next)[..., 1:-1])
+
+    def test_phases(self):
+        gen = torch.Generator().manual_seed(2)
+        k = torch.randint(-127, 128, (3, 3, 16, 32), generator=gen).to(torch.int8)
+        phases = pack_int8_phases(
+            [(pq, pack_int8_weight(kp)) for pq, kp in quant._phase_kernels_2x(k).items()])
+        xq = torch.randint(-127, 128, (2, 5, 11, 64), generator=gen).to(torch.int8)
+        xq = xq.permute(0, 3, 1, 2)
+        ws, s = torch.rand(32, generator=gen) * 1e-2 + 1e-3, torch.tensor(1.7)
+        same = int8_conv_phases(xq, phases, ws, s, out_dtype=torch.float32)
+        halo = int8_conv_phases(xq, phases, ws, s, out_dtype=torch.float32, padding=(0, 0))
+        for (p, q), a, b, wq in zip(PHASES, halo, same, phases.phases):
+            assert a.shape == (2, 32, 5, 9) and torch.equal(a, b[..., 1:-1])
+            # JAX's window of the halo-extended shard: xxq[:, :, q:q+w+1] at rows (1-p, p)
+            want = int8_conv_reference(xq[..., q:q + 10], wq, ws, s, (1 - p, 0, 0),
+                                       out_dtype=torch.float32)
+            assert torch.equal(a, want)
+        for pad in ((1, 0), (0, 1)):
+            one = int8_conv_phases_reference(xq, phases, ws, s, out_dtype=torch.float32,
+                                             padding=pad)
+            crop = (slice(None), slice(None), slice(None), slice(1 - pad[0], 11 - pad[0]))
+            assert all(o.shape[3] == 10 and torch.equal(o, b[crop]) for o, b in zip(one, same))
+
+    def test_kernel_checks(self):
+        from fast_srgan_torch.kernels.int8_conv import check_kernel_inputs, conv_pads
+
+        assert conv_pads(3, (1, 1)) == (1, 1, 1) and conv_pads(2, (0, 1)) == (0, 1, 0)
+        assert conv_pads(3, (1, 0, 0)) == (1, 0, 0)
+        xq, _, weight = self._case(3, 16, 64, (1, 4, 6), seed=3)
+        check_kernel_inputs(xq, weight, (1, 0, 0), torch.float32)
+        for bad in ((1, 0, 2), (0, 0, 0), (1, -1, 1), (1, 0, 0, 0)):
+            with pytest.raises(ValueError, match="padding"):
+                check_kernel_inputs(xq, weight, bad, torch.float32)
