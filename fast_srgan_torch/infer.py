@@ -1,17 +1,26 @@
 """Upscale a directory of images, or video files, with the PyTorch port.
 
     python -m fast_srgan_torch.infer --image_dir D --output_dir O
-        [--checkpoint X.npz|X.pt] [--batch_size N] [--bucket N | --tile N] [--fp32]
-        [--int8] [--device cuda]
+        [--checkpoint X.npz|X.pt] [--config F] [--batch_size N] [--bucket N | --tile N]
+        [--fp32] [--int8] [--device cuda]
     python -m fast_srgan_torch.infer --video IN.mp4 [IN2.mp4 ...]
         (--video_out OUT.mp4 | --output_dir O) [--int8] [--device cuda]
 
-Loads the generator from a native ``.npz`` checkpoint (default
-``models/generator_pretrained.npz``) or a ``.pt`` generator state_dict
-(the reference's, or the port trainer's ``generator_epoch_N.pt``:
-``checkpoints.convert.load_generator_params``), reads png/jpg/jpeg files
+Loads the generator from a native ``.npz`` checkpoint or a ``.pt``
+generator state_dict (the reference's, or the port trainer's
+``generator_epoch_N.pt``: ``checkpoints.convert.load_generator_params``);
+without ``--checkpoint``, the first of ``DEFAULT_CHECKPOINTS`` that exists.
+The checkpoint sets the architecture. It reads png/jpg/jpeg files
 case-insensitively, upscales each at its own resolution, and writes the
 result under the same name in the output directory.
+
+``--config`` (default ``configs/config.yaml``, which may be absent; a file
+given on the command line must exist) supplies the defaults of
+``--batch_size``, ``--tile`` and ``--bucket`` (its ``inference:``
+section; a flag given wins). Its ``kernels:`` section has nothing for the
+engine: the JAX engine's ``use_pallas`` picks kernels the port always
+runs on the card, and ``fused_upsample`` is a training option (the
+engine's LR-domain tail has no upsample stage to fuse).
 
 ``--bucket N`` (default: the config's ``inference.bucket``, 0) zero-pads
 each image to multiples of N LR pixels so mixed sizes share batches; exact
@@ -41,13 +50,42 @@ import numpy as np
 import torch
 
 from fast_srgan_torch import quant
-from fast_srgan_torch.checkpoints.convert import load_generator_params
-from fast_srgan_torch.config import default_config
-from fast_srgan_torch.inference import SRInferenceEngine, load_image
+from fast_srgan_torch.checkpoints import convert
+from fast_srgan_torch.config import load_config
+from fast_srgan_torch.inference import SRInferenceEngine, arch_from_params, load_image
 from fast_srgan_torch.parallel.mesh import Mesh, make_mesh
 
-DEFAULT_CHECKPOINT = "models/generator_pretrained.npz"
+#: The no-flag checkpoint search, in order: the JAX package's ``infer.py``
+#: list without its last entry, an absolute path outside the checkout,
+#: where the port reads nothing.
+DEFAULT_CHECKPOINTS = (
+    "models/generator_pretrained.npz",
+    "models/model.pt",
+)
+DEFAULT_CONFIG = "configs/config.yaml"
 IMAGE_EXTENSIONS = (".png", ".jpg", ".jpeg")
+
+
+def resolve_default_checkpoint() -> str:
+    """The first entry of ``DEFAULT_CHECKPOINTS`` that exists (relative to
+    the working directory), or SystemExit: the no-flag checkpoint policy of
+    every CLI whose ``--checkpoint`` is optional."""
+    ckpt = next((c for c in DEFAULT_CHECKPOINTS if os.path.exists(c)), None)
+    if ckpt is None:
+        raise SystemExit(
+            "No checkpoint found; pass --checkpoint (searched: "
+            + ", ".join(DEFAULT_CHECKPOINTS) + ")"
+        )
+    return ckpt
+
+
+def load_generator_params(path: str):
+    """Generator params (numpy tree) from a native ``.npz`` or a ``.pt``
+    generator state_dict; SystemExit for a missing file."""
+    try:
+        return convert.load_generator_params(path)
+    except FileNotFoundError as e:
+        raise SystemExit(str(e)) from None
 
 
 def image_names(image_dir: str):
@@ -106,7 +144,7 @@ def upscale_directory_tiled(
     return len(names)
 
 
-def _upscale_videos(engine, parser, args) -> None:
+def _upscale_videos(engine, parser, args, batch_size: int) -> None:
     from fast_srgan_torch.video import upscale_video, upscale_videos
 
     if args.output_dir:
@@ -115,7 +153,7 @@ def _upscale_videos(engine, parser, args) -> None:
         out_path = args.video_out or os.path.join(
             args.output_dir, os.path.basename(args.video[0])
         )
-        stats = upscale_video(engine, args.video[0], out_path, batch_size=args.batch_size)
+        stats = upscale_video(engine, args.video[0], out_path, batch_size=batch_size)
         print(f"Done: {stats['frames']} frames in {stats['seconds']:.2f}s"
               f" ({stats['frames'] / max(stats['seconds'], 1e-9):.1f} fps) -> {out_path}")
         return
@@ -124,7 +162,7 @@ def _upscale_videos(engine, parser, args) -> None:
     if not args.output_dir:
         parser.error("several --video files need --output_dir")
     outs = [os.path.join(args.output_dir, os.path.basename(v)) for v in args.video]
-    stats = upscale_videos(engine, args.video, outs, batch_size=args.batch_size)
+    stats = upscale_videos(engine, args.video, outs, batch_size=batch_size)
     fps = stats["frames"] / max(stats["seconds"], 1e-9)
     print(f"Done: {len(args.video)} streams, {stats['frames']} frames"
           f" ({stats['per_stream']}) in {stats['seconds']:.2f}s ({fps:.1f} fps aggregate)"
@@ -143,8 +181,17 @@ def main(argv=None) -> None:
         "--video_out", default=None,
         help="output video path (default: <output_dir>/<video basename>)",
     )
-    parser.add_argument("--checkpoint", default=DEFAULT_CHECKPOINT)
-    parser.add_argument("--batch_size", default=8, type=int)
+    parser.add_argument(
+        "--checkpoint", default=None,
+        help="a .npz or .pt generator (default: the first of DEFAULT_CHECKPOINTS that exists)",
+    )
+    parser.add_argument(
+        "--config", default=DEFAULT_CONFIG,
+        help="config file whose inference: section sets the defaults of --batch_size, --tile"
+        " and --bucket (must exist when given)",
+    )
+    # None defaults: resolved from the config's inference: section (a flag wins)
+    parser.add_argument("--batch_size", default=None, type=int)
     parser.add_argument(
         "--bucket", default=None, type=int,
         help="zero-pad LR inputs to multiples of this so mixed sizes share batches;"
@@ -172,9 +219,26 @@ def main(argv=None) -> None:
             parser.error("--video does not take --tile (a stream runs whole frames)")
         if args.video_out is None and args.output_dir is None:
             parser.error("--video needs --video_out or --output_dir")
-    defaults = default_config()["inference"]
-    bucket = defaults["bucket"] if args.bucket is None else args.bucket
-    tile = defaults["tile"] if args.tile is None else args.tile
+    ckpt = args.checkpoint or resolve_default_checkpoint()
+    try:
+        config = load_config(args.config, required=args.config != DEFAULT_CONFIG)
+    except FileNotFoundError as e:
+        parser.error(str(e))
+    params = load_generator_params(ckpt)
+    arch = arch_from_params(params)
+    cfg_arch = {
+        "n_filters": config.generator.n_filters,
+        "n_layers": config.generator.n_layers,
+        "scale_factor": config.data.scale_factor,
+    }
+    if arch != cfg_arch:
+        print(f"checkpoint architecture {arch} (overrides config {cfg_arch})")
+
+    def flag(name):
+        value = getattr(args, name)
+        return config.inference[name] if value is None else value
+
+    tile, bucket, batch_size = flag("tile"), flag("bucket"), flag("batch_size")
     if args.video is not None:  # a config's tile or bucket is for directories
         bucket, tile = 0, 0
     if tile and bucket:
@@ -182,8 +246,6 @@ def main(argv=None) -> None:
                      " devices, bucketing batches padded frames on one")
     if tile < 0:
         parser.error(f"--tile must be >= 0, got {tile}")
-    if not os.path.exists(args.checkpoint):
-        raise SystemExit(f"checkpoint not found: {args.checkpoint!r}")
     calib = None
     if args.int8 and args.video is None:
         paths = (os.path.join(args.image_dir, n) for n in image_names(args.image_dir))
@@ -196,7 +258,6 @@ def main(argv=None) -> None:
                 f"int8: calibrating on {batch.shape[0]} center crop(s) of"
                 f" {batch.shape[1]}x{batch.shape[2]} from the input images"
             )
-    params = load_generator_params(args.checkpoint)
     dtype = torch.float32 if args.fp32 else torch.bfloat16
     if tile:
         mesh = tile_mesh(tile, args.device)
@@ -218,10 +279,10 @@ def main(argv=None) -> None:
         calib_batches=calib,
     )
     if args.video is not None:
-        _upscale_videos(engine, parser, args)
+        _upscale_videos(engine, parser, args, batch_size)
         return
     t0 = time.perf_counter()
-    n = upscale_directory(engine, args.image_dir, args.output_dir, args.batch_size)
+    n = upscale_directory(engine, args.image_dir, args.output_dir, batch_size)
     dt = time.perf_counter() - t0
     print(f"Done: {n} images in {dt:.2f}s on {engine.device}")
 

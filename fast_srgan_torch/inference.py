@@ -218,6 +218,10 @@ class SRInferenceEngine:
         self.model, self._tail = first.model, first.tail
         #: Generator forwards run so far (one per batch).
         self.forward_calls = 0
+        #: (batch, height, width) of each input batch shape run so far (the
+        #: padded shape when bucketed): the first use of one pays cuDNN's
+        #: choice of algorithms and the IN kernels' plan.
+        self.batch_shapes: set = set()
         if self.quantize:
             self._plan = first.plan
             # the fp32 float form, kept for recalibrate()
@@ -281,6 +285,7 @@ class SRInferenceEngine:
             out = self._data_parallel(
                 lambda rep, x: sr_forward_u8(lambda t: self._apply(t, rep=rep), x), x_u8)
         self.forward_calls += 1
+        self.batch_shapes.add(tuple(x_u8.shape[:3]))
         return out
 
     def forward_u8_masked(
@@ -302,6 +307,7 @@ class SRInferenceEngine:
         with torch.inference_mode(), self._precision():
             out = self._data_parallel(run, x_u8, valid_h, valid_w)
         self.forward_calls += 1
+        self.batch_shapes.add(tuple(x_u8.shape[:3]))
         return out
 
     def _to_device(self, array: np.ndarray) -> torch.Tensor:

@@ -26,6 +26,7 @@ import functools
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
 from fast_srgan_torch.kernels.pixel_shuffle import phase_major_permutation
 
@@ -105,6 +106,19 @@ def tile_weights(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     layout (``weight_index``) and cast to ``dtype``; one gather, one cast."""
     idx = weight_index(weight.shape[0], dtype, weight.device)
     return torch.take(weight.detach(), idx).to(dtype)
+
+
+def kernel_takes(x: torch.Tensor, weight: torch.Tensor) -> bool:
+    """True exactly when the CUDA kernel is built for these shapes and this
+    dtype: x [B, 64, H, W] in bf16 or fp32, weight [4C, 64, 3, 3] with 4C a
+    multiple of 64. Reads shapes and dtypes only, so it answers on any
+    device; ``UpSamplingBlock`` sends every other stage to the unfused form,
+    as the JAX ``fused_upsample`` sends it to its lax composition."""
+    c4 = weight.shape[0]
+    return (
+        x.dtype in _DTYPES and x.dim() == 4 and x.shape[1] == C_IN
+        and tuple(weight.shape) == (c4, C_IN, 3, 3) and c4 % 64 == 0
+    )
 
 
 def check_kernel_inputs(
@@ -210,6 +224,14 @@ _LIB.impl("fused_upsample", _plain, "CPU")
 _LIB.impl("fused_upsample", _launch, "CUDA")
 torch.library.register_fake("fast_srgan::fused_upsample", _fake, lib=_LIB)
 _OP = torch.ops.fast_srgan.fused_upsample.default
+
+
+@register_flop_formula(torch.ops.fast_srgan.fused_upsample)
+def _flops(x, weight, *args, **kwargs) -> int:
+    """FlopCounterMode's count: the conv's 2 * 9 * Cin * 4C an input pixel,
+    as the counter counts aten's convolutions (shapes arrive for tensors)."""
+    b, _, h, w = x
+    return 2 * weight[0] * weight[1] * weight[2] * weight[3] * b * h * w
 
 
 class FusedUpsampleFunction(torch.autograd.Function):

@@ -43,6 +43,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
 from fast_srgan_torch.kernels.quantize import quantize_act_reference, quantize_reciprocal
 
@@ -377,6 +378,22 @@ torch.library.register_fake("fast_srgan::int8_conv", _conv_fake, lib=_LIB)
 torch.library.register_fake("fast_srgan::int8_conv_phases", _phases_fake, lib=_LIB)
 _CONV_OP = torch.ops.fast_srgan.int8_conv.default
 _PHASES_OP = torch.ops.fast_srgan.int8_conv_phases.default
+
+
+# torch.utils.flop_counter.FlopCounterMode's count of each op: 2 * KH * KW *
+# Cin * Cout a conv output pixel (a multiply and an add), Cin and Cout
+# unpadded, as the counter counts aten's convolutions; the epilogue is not
+# counted. Tensors arrive as their shapes.
+@register_flop_formula(torch.ops.fast_srgan.int8_conv)
+def _conv_flops(xq, packed, tiled, cout, cin, *args, out_shape=None, **kwargs) -> int:
+    b, _, h, w = out_shape
+    return 2 * packed[1] * packed[2] * cin * cout * b * h * w
+
+
+@register_flop_formula(torch.ops.fast_srgan.int8_conv_phases)
+def _phases_flops(xq, packed, tiled, cout, cin, *args, out_shape=None, **kwargs) -> int:
+    _, b, h, w, _ = out_shape
+    return sum(2 * p[1] * p[2] * cin * cout * b * h * w for p in packed)
 
 
 def int8_conv(

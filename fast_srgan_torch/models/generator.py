@@ -8,9 +8,10 @@ The port of ``fast_srgan_tpu/models/generator.py``:
                 -> Conv(no bias) -> InstanceNorm + x (fused kernel)
   bottleneck: Conv(no bias) -> InstanceNorm + long skip (fused kernel)
   upsampling: log2(scale) x [Conv F->4F (k3) -> PixelShuffle(2) -> PReLU]
-                (fused_upsample=True: one kernel, kernels/fused_upsample.py;
-                else the conv's output channels come out phase-major and the
-                shuffle is the copy kernel of kernels/pixel_shuffle.py)
+                (fused_upsample=True: one kernel, kernels/fused_upsample.py,
+                for the shapes it takes; else the conv's output channels come
+                out phase-major and the shuffle is the copy kernel of
+                kernels/pixel_shuffle.py)
   head:       Conv F->3 (k3) + tanh (in fp32) -> output in [-1, 1]
 
 Module names are the original Fast-SRGAN PyTorch ones (``neck.0``,
@@ -38,7 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from fast_srgan_torch.kernels.fused_upsample import fused_upsample
+from fast_srgan_torch.kernels.fused_upsample import fused_upsample, kernel_takes
 from fast_srgan_torch.kernels.instance_norm import (
     instance_norm_add,
     instance_norm_prelu,
@@ -78,7 +79,9 @@ class ResidualBlock(nn.Module):
 class UpSamplingBlock(nn.Module):
     """Conv F->4F (k3) -> PixelShuffle(2) -> PReLU: one 2x stage.
 
-    Fused: the whole stage is one kernel. Unfused: the conv runs with its
+    Fused: the whole stage is one kernel, where the kernel takes the
+    shapes (``kernel_takes``: 64 input channels, bf16 or fp32); any other
+    stage runs unfused, the same function. Unfused: the conv runs with its
     output channels permuted to phase-major order (a gather of weight and
     bias, not of the activation), so the shuffle is a plain copy. The parameters are
     the same either way, in torch channel order. The permutation is a
@@ -101,7 +104,8 @@ class UpSamplingBlock(nn.Module):
         if self.fused:
             if mask is not None:
                 raise ValueError("fused upsample does not support masking")
-            return fused_upsample(x, self.conv.weight, self.conv.bias, self.relu.weight)
+            if kernel_takes(x, self.conv.weight):
+                return fused_upsample(x, self.conv.weight, self.conv.bias, self.relu.weight)
         y = F.conv2d(x, self.conv.weight[self.perm], self.conv.bias[self.perm], padding=1)
         if mask is not None:
             y = zero_outside(y, mask)

@@ -176,7 +176,7 @@ class PreparedGenerator:
 
 def prepare_generator(
     params: Dict[str, Any],
-    mode: Optional[str] = None,
+    mode: Optional[str | Callable[[str], bool]] = None,
     glue_dtype: torch.dtype = torch.float32,
     device: Any = "cuda",
     model=None,
@@ -184,16 +184,18 @@ def prepare_generator(
     """Prepare a float generator param tree (numpy leaves) for the executor.
 
     ``mode`` None keeps every conv float (the form :func:`sr_float_forward`
-    and :func:`calibrate_scales` take); otherwise one of :data:`MODES`,
-    quantized by :func:`quantize_generator_params`. ``model`` is the float
+    and :func:`calibrate_scales` take); otherwise one of :data:`MODES`, or
+    a predicate on the top-level module name (a measurement arm such as
+    ``scripts/eval_int8.py``'s head-only one, whose trunk runs through the
+    executor), quantized by :func:`quantize_generator_params`. ``model`` is the float
     ``Generator`` (in ``glue_dtype`` on ``device``) whose trunk the ``ups``
     and ``tail`` modes run; it is built from ``params`` when not given.
     ``device`` is the card unless the caller asks for ``"cpu"``."""
-    if mode is not None and mode not in MODES:
+    if mode is not None and not callable(mode) and mode not in MODES:
         raise ValueError(f"quantize must be True/'tail'/'ups'/'full'/'trunk': {mode!r}")
     p = params["params"] if "params" in params else params
     if mode is not None:
-        p = quantize_generator_params(p, only=MODES[mode])
+        p = quantize_generator_params(p, only=mode if callable(mode) else MODES[mode])
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

@@ -118,15 +118,11 @@ def main(argv=None) -> Dict[str, Any]:
     ap.add_argument("--no-check", action="store_true")
     args = ap.parse_args(argv)
 
-    from fast_srgan_torch.checkpoints.convert import load_generator_params
     from fast_srgan_torch.export import build_forward_u8, export_shape, save_exported_dir
-    from fast_srgan_torch.infer import DEFAULT_CHECKPOINT
+    from fast_srgan_torch.infer import load_generator_params, resolve_default_checkpoint
 
-    ckpt = args.checkpoint or DEFAULT_CHECKPOINT
-    try:
-        params = load_generator_params(ckpt)
-    except FileNotFoundError as e:
-        raise SystemExit(str(e)) from None
+    ckpt = args.checkpoint or resolve_default_checkpoint()
+    params = load_generator_params(ckpt)
     shapes = [parse_shape(s) for s in args.shape or ["1x180x320"]]
     calib = calibration_batches(args.calib_dir) if args.int8 else None
     if args.int8:

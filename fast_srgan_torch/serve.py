@@ -30,8 +30,7 @@ import numpy as np
 import torch
 
 from fast_srgan_torch import quant
-from fast_srgan_torch.checkpoints.convert import load_generator_params
-from fast_srgan_torch.infer import DEFAULT_CHECKPOINT, image_names
+from fast_srgan_torch.infer import image_names, load_generator_params, resolve_default_checkpoint
 from fast_srgan_torch.inference import SRInferenceEngine, load_image
 from fast_srgan_torch.serving import make_server
 
@@ -43,7 +42,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser("Fast-SRGAN HTTP server (PyTorch)")
     parser.add_argument("--host", default="127.0.0.1")
     parser.add_argument("--port", default=8000, type=int)
-    parser.add_argument("--checkpoint", default=DEFAULT_CHECKPOINT)
+    parser.add_argument(
+        "--checkpoint", default=None,
+        help="a .npz or .pt generator (default: the first of infer.DEFAULT_CHECKPOINTS"
+        " that exists)",
+    )
     parser.add_argument(
         "--bucket", default=32, type=int,
         help="shape-bucket granularity in LR pixels (exact; 0: each request size as it is)",
@@ -86,8 +89,7 @@ def warm_shapes(spec: str) -> List[Tuple[int, int]]:
 def build_server(args: argparse.Namespace):
     """The engine the flags ask for, warmed, behind a built (not started)
     server."""
-    if not os.path.exists(args.checkpoint):
-        raise SystemExit(f"checkpoint not found: {args.checkpoint!r}")
+    params = load_generator_params(args.checkpoint or resolve_default_checkpoint())
     calib = None
     if args.int8 and args.calib_dir:
         batch = quant.calibration_batch_from_images(
@@ -97,7 +99,7 @@ def build_server(args: argparse.Namespace):
             raise SystemExit(f"--calib_dir {args.calib_dir}: no usable image of >= 32x32")
         calib = [batch]
     engine = SRInferenceEngine(
-        load_generator_params(args.checkpoint),
+        params,
         dtype=torch.float32 if args.fp32 else torch.bfloat16,
         device=args.device,
         bucket=args.bucket,

@@ -57,12 +57,15 @@ def reference_config(fused: bool):
     )
 
 
-def host_ms_per_call(fn, n: int) -> float:
-    torch.cuda.synchronize()
+def host_ms_per_call(fn, n: int, device="cuda") -> float:
+    """Host ms a call of ``fn()`` over ``n`` calls, each ended by a
+    synchronize of ``device`` (none on the CPU, whose calls return done)."""
+    sync = torch.cuda.synchronize if torch.device(device).type == "cuda" else (lambda: None)
+    sync()
     t0 = time.perf_counter()
     for _ in range(n):
         fn()
-        torch.cuda.synchronize()
+        sync()
     return 1000 * (time.perf_counter() - t0) / n
 
 

@@ -425,6 +425,39 @@ def test_generator_launch_counts(device, fused):
     assert out.shape == (2, 3, 96, 96) and torch.isfinite(out).all()
 
 
+def test_generator_96_filters_fused_routes_to_the_unfused_stage(device):
+    """The fused kernel takes 64 input channels only: at 96 filters a
+    fused=True generator runs the unfused stages (conv + shuffle kernel),
+    forward and backward, and equals fused=False in fp32 to 5e-5."""
+    from fast_srgan_torch.kernels.fused_upsample import fused_upsample
+    from fast_srgan_torch.kernels.pixel_shuffle import pixel_shuffle_phase_major
+    from fast_srgan_torch.models.generator import Generator
+
+    torch.manual_seed(96)
+    fused = Generator(n_filters=96, n_layers=2, fused_upsample=True)
+    plain = Generator(n_filters=96, n_layers=2, fused_upsample=False)
+    plain.load_state_dict(fused.state_dict())
+    x = torch.rand((2, 3, 24, 24), device=device).contiguous(memory_format=torch.channels_last)
+    outs, grads = [], []
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        for model in (fused, plain):
+            model.to(device, memory_format=torch.channels_last)
+            before = (fused_upsample.launches, fused_upsample.backward_launches,
+                      pixel_shuffle_phase_major.launches)
+            out = model(x)
+            out.square().mean().backward()
+            torch.cuda.synchronize()
+            after = (fused_upsample.launches, fused_upsample.backward_launches,
+                     pixel_shuffle_phase_major.launches)
+            assert [a - b for a, b in zip(after, before)] == [0, 0, 2]
+            outs.append(out.detach())
+            grads.append(model.upsampling[0].conv.weight.grad.detach())
+    assert outs[0].shape == (2, 3, 96, 96)
+    assert (outs[0] - outs[1]).abs().max().item() <= 5e-5
+    # the same unfused ops: only cuDNN's backward reduction order may differ
+    assert (grads[0] - grads[1]).abs().max().item() <= 1e-5 * grads[1].abs().max().item()
+
+
 # --- int8 tier: activation quantize, s8 x s8 -> s32 conv -------------------
 
 @pytest.mark.parametrize("shape", [(8, 256, 180, 320), (3, 3, 37, 53), (1, 64, 5, 7)])
