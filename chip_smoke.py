@@ -163,10 +163,39 @@ own line; any failure exits non-zero and prints no result:
      verdict ``ok``. No subprocess may import JAX or the JAX package.
      The scripts run one at a time (run together, they ran the card out of
      memory).
+ 16. data-parallel training (``fast_srgan_torch/parallel/dist.py``): (a)
+     ``torchrun --standalone --nproc_per_node 1 -m fast_srgan_torch.train``
+     in a subprocess (NCCL, a world of one) with phase 12's overrides, 10
+     pretrain + 10 GAN steps, then a launch that resumes at GAN step 10 and
+     runs 5: exit 0, its checkpoints and exports load, its pretrain losses
+     at steps 5 and 10 within rtol 1e-6 of phase 12's (the same seed, data
+     and math), its ms a step beside phase 12's (indicative); the
+     gradients' flat all-reduce timed with CUDA events in an NCCL world of
+     one in this process (G and D, a GAN step's share). (b) ``python -m
+     fast_srgan_torch.scripts.multihost_smoke --device cuda``: 2 gloo ranks
+     sharing cuda:0 at the slice's widths (global batch 24 of 96x96, 12 a
+     rank, fp32 with TF32 off, unfused and fused upsample), 1 pretrain + 3
+     GAN steps and a masked validation over 5 files, against one process
+     on the card (cuDNN deterministic). On the same weights (one process
+     forced onto the ranks' parameters after each update): every step's
+     metrics rtol 2e-5 against one process taking the global batch whole
+     and against one taking it as the ranks' slices (grad_accum 2), and
+     every update's G and D gradient within a relative L2 distance of
+     1e-6 of the latter's, which rank 0's own gradient (no all-reduce)
+     must exceed (against the whole batch the gradients are reported:
+     the sums' other order parts them). The first update's G gradient no
+     more than 3x as far from the float64 one as one process's.
+     Free-running: the first step's metrics rtol 2e-5, the later ones
+     1e-3 (fp32 rounding and AdamW's sign flips part the two runs at
+     these widths; the parameters are reported, not held). PSNR rtol 1e-6 and SSIM atol 1e-7 on the initial weights, each
+     of the 5 images counted once; parameters bitwise across the ranks;
+     each rank's IN, shuffle and fused-upsample launches as its steps
+     predict. Two ranks on one card stage every collective through the
+     host: their times are that staging, not scaling.
 
 Phases 7 and 8 run right after phase 3, phase 10 after phase 6, phase 11
 after phase 10, phase 14 after phase 11 and 15's ``bench_4k`` after 14,
-phase 9 and then 12, 13 and the rest of 15 last.
+phase 9 and then 12, 16, 13 and the rest of 15 last.
 
 The line before the last is a JSON object describing each kernel (its
 bound: the larger of its bytes over 3.35 TB/s and its operations over the
@@ -1258,7 +1287,7 @@ def _fused_counts(n_layers: int, forwards: int, backwards: int, recomputed: int 
     return counts
 
 
-def _trainer_args(root: str, iterations: int) -> list:
+def _trainer_args(root: str, iterations: int, pretrain: int = TRAINER_STEPS[0]) -> list:
     """The CLI's overrides for phase 12: the reference widths (64/8 4x G,
     64-filter D, batch 24 of 96x96 crops, bf16) from configs/config.yaml,
     VGG19 with fixed-seed weights, the fused upsample."""
@@ -1266,9 +1295,25 @@ def _trainer_args(root: str, iterations: int) -> list:
             f"data.image_dir={root}/images", f"data.numpy_dir={root}/npy",
             "experiment.name=smoke", "training.vgg_weights=init",
             "kernels.use_pallas=true", "kernels.fused_upsample=true",
-            f"training.pretrain_iterations={TRAINER_STEPS[0]}",
+            f"training.pretrain_iterations={pretrain}",
             f"training.iterations={iterations}", "training.checkpoint_iter=10",
             "training.log_iter=5", "training.export_pt=true"]
+
+
+#: phase 12's training images: PNGs of 256x256 from seed 12
+TRAINER_IMAGES = 16
+
+
+def _write_trainer_images(root: str) -> None:
+    import shutil
+
+    from fast_srgan_torch.utils.images import save_image_u8
+
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(os.path.join(root, "images"))
+    rng = np.random.default_rng(12)
+    for i in range(TRAINER_IMAGES):
+        save_image_u8(os.path.join(root, "images", f"{i:04d}.png"), make_frame(rng, 256, 256))
 
 
 def _metric_rows(path: str) -> list:
@@ -1284,24 +1329,18 @@ def _ms_between_logs(rows: list, tag: str, spans) -> float:
     return float(np.mean([1000 * (at[b] - at[a]) / (b - a) for a, b in spans]))
 
 
-def phase_trainer(card: str, bare_ms: dict) -> dict:
+def phase_trainer(card: str, bare_ms: dict) -> tuple:
     """12: python -m fast_srgan_torch.train in-process on the card, then a
     resumed launch; the options arm and fp32 parity through build_bundle.
-    Returns the trainer run's launches."""
-    import shutil
-
+    Returns the trainer run's launches, and its pretrain losses by step and
+    ms a step (for phase 16)."""
     from fast_srgan_torch.models.discriminator import Discriminator
     from fast_srgan_torch.models.generator import Generator
     from fast_srgan_torch.train.__main__ import main as train_main
-    from fast_srgan_torch.utils.images import save_image_u8
 
     root = os.path.join(REPO, ".chip_tmp", "trainer")
-    shutil.rmtree(root, ignore_errors=True)
-    os.makedirs(os.path.join(root, "images"))
-    rng = np.random.default_rng(12)
-    n_images = 16
-    for i in range(n_images):
-        save_image_u8(os.path.join(root, "images", f"{i:04d}.png"), make_frame(rng, 256, 256))
+    _write_trainer_images(root)
+    n_images = TRAINER_IMAGES
     cwd = os.getcwd()
     _zero_counts()
     try:
@@ -1392,7 +1431,9 @@ def phase_trainer(card: str, bare_ms: dict) -> dict:
     _trainer_options_arm(card)
     _trainer_fp32_parity()
     # phase 13 reads the images and the step-15 export, then removes root
-    return counts
+    pretrain_losses = {r["step"]: r["value"] for r in rows
+                       if r["tag"] == "Pretrain/Generator/Loss"}
+    return counts, {"losses": pretrain_losses, "ms": ms}
 
 
 #: every training option the port took from the JAX package, as one config
@@ -2762,6 +2803,180 @@ def phase_scripts() -> None:
         shutil.rmtree(path, ignore_errors=True)
 
 
+# --- phase 16: data-parallel training ------------------------------------------
+
+#: phase 16a's launches through torchrun: the pretrain steps, the GAN budget
+#: of the first launch and of the resumed one
+DP_STEPS = (10, 10, 15)
+#: 16a's pretrain losses against phase 12's at steps 5 and 10: the same
+#: seed, data and math (the mean over a world of one is the gradient
+#: itself); two runs on an H100 measured them equal bit for bit, so the bar
+#: is a last bit of the logged fp32 loss
+DP_LOSS_RTOL = 1e-6
+
+
+def _torchrun_cmd(root: str, iterations: int) -> list:
+    return [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc_per_node", "1", "-m", "fast_srgan_torch.train",
+            *_trainer_args(root, iterations, DP_STEPS[0])]
+
+
+def phase_torchrun(card: str, trainer12: dict) -> None:
+    """16a: ``torchrun --standalone --nproc_per_node 1 -m
+    fast_srgan_torch.train`` (NCCL, a world of one) with phase 12's
+    overrides, 10 pretrain + 10 GAN steps, then a launch with
+    training.iterations=15 that resumes at GAN step 10. Its pretrain losses
+    against phase 12's, its checkpoints and exports loaded, its ms a step
+    beside phase 12's; then the gradients' flat all-reduce timed in an NCCL
+    world of one in this process."""
+    from fast_srgan_torch.models.discriminator import Discriminator
+    from fast_srgan_torch.models.generator import Generator
+
+    root = os.path.join(REPO, ".chip_tmp", "dp")
+    _write_trainer_images(root)
+    run_dir = os.path.join(root, "run", "runs", "smoke")
+    metrics = os.path.join(run_dir, "metrics.jsonl")
+    walls, rows = [], []
+    for iterations in DP_STEPS[1:]:
+        t0 = time.perf_counter()
+        proc = subprocess.run(_torchrun_cmd(root, iterations), cwd=REPO, capture_output=True,
+                              text=True, timeout=300)
+        walls.append(time.perf_counter() - t0)
+        check(proc.returncode == 0, f"torchrun (training.iterations={iterations}) exited"
+              f" {proc.returncode}:\n{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+        check("Device: cuda:0 x 1 rank(s)" in proc.stdout,
+              f"torchrun ran no rank:\n{proc.stdout[-2000:]}")
+        new = _metric_rows(metrics)[len(rows):]
+        rows += new
+        if iterations == DP_STEPS[1]:
+            first = new
+    losses = {r["step"]: r["value"] for r in first if r["tag"] == "Pretrain/Generator/Loss"}
+    rel = {step: abs(losses[step] - trainer12["losses"][step]) / abs(trainer12["losses"][step])
+           for step in (5, 10)}
+    ms = {"pretrain": _ms_between_logs(first, "Pretrain/Generator/Loss", [(5, 10)]),
+          "gan": _ms_between_logs(first, "Loss/Generator/Content", [(5, 10)])}
+    resumed = {(r["tag"], r["step"]) for r in rows[len(first):]}
+    cfg_g = Generator(n_filters=64, n_layers=8)
+    cfg_d = Discriminator(n_filters=64)
+    for step in DP_STEPS[1:]:
+        tree = torch.load(os.path.join(run_dir, "ckpt", f"step_{step}.pt"), map_location="cpu",
+                          weights_only=True)
+        cfg_g.load_state_dict(tree["g_params"], strict=True)
+        cfg_d.load_state_dict(tree["d_params"], strict=True)
+        taken = int(tree["g_opt"]["state"][0]["step"])
+        check(taken == DP_STEPS[0] + step, f"step_{step}.pt: G took {taken} updates")
+        cfg_g.load_state_dict(torch.load(os.path.join(run_dir, f"generator_epoch_{step}.pt"),
+                                         map_location="cpu", weights_only=True), strict=True)
+    print(f"[16 torchrun] torchrun --standalone --nproc_per_node 1 -m fast_srgan_torch.train"
+          f" (NCCL, world 1; phase 12's overrides, {DP_STEPS[0]} pretrain + {DP_STEPS[1]} GAN"
+          f" steps, then training.iterations={DP_STEPS[2]}): {walls[0]:.1f} s and"
+          f" {walls[1]:.1f} s; pretrain loss at 5 / 10 {losses[5]:.6f} / {losses[10]:.6f},"
+          f" phase 12's {trainer12['losses'][5]:.6f} / {trainer12['losses'][10]:.6f}, rel"
+          f" {rel[5]:.2e} / {rel[10]:.2e} (tol {DP_LOSS_RTOL:g}); resumed rows"
+          f" {sorted(resumed)}; ms a step, steps 6..10 through the trainer: pretrain"
+          f" {ms['pretrain']:.2f}, GAN {ms['gan']:.2f} (phase 12, in this process:"
+          f" {trainer12['ms']['pretrain']:.2f}, {trainer12['ms']['gan']:.2f}; indicative);"
+          f" {card}", flush=True)
+    check(max(rel.values()) <= DP_LOSS_RTOL, f"torchrun pretrain losses off phase 12's: {rel}")
+    check(("GAN/PSNR", DP_STEPS[1]) in resumed
+          and ("Loss/Generator/Content", DP_STEPS[2]) in resumed
+          and not any(t.startswith("Pretrain/") for t, _ in resumed),
+          f"the resumed torchrun launch did not run GAN steps 11..15 only: {sorted(resumed)}")
+    _nccl_allreduce(root, card)
+    import shutil
+
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def _nccl_allreduce(root: str, card: str) -> None:
+    """The steps' flat all-reduce of each model's gradients (G: 925,646
+    fp32, D: 4,684,033), timed with CUDA events in an NCCL world of one in
+    this process (no link is crossed: NCCL's own launch and copy), after 2
+    pretrain and 2 GAN steps through the bundle of that world."""
+    from fast_srgan_torch.config import default_config
+    from fast_srgan_torch.parallel import dist as pdist
+    from fast_srgan_torch.scripts.measure import ms_per_call
+    from fast_srgan_torch.train.steps import build_bundle
+
+    torch.cuda.set_device(0)
+    info = pdist.init("nccl", 0, 1, f"file://{root}/rendezvous", timeout_s=120)
+    try:
+        config = default_config(kernels={"fused_upsample": True},
+                                training={"vgg_weights": "pixel"})
+        bundle = build_bundle(config, "cuda", torch.Generator().manual_seed(0), info)
+        rng = np.random.default_rng(16)
+        batch = torch.from_numpy(np.stack([make_frame(rng, 96, 96) for _ in range(24)])).cuda()
+        for _ in range(2):
+            bundle.pretrain_step(batch)
+            metrics = bundle.gan_step(batch)
+        check(all(np.isfinite(float(v)) for v in metrics.values()), "NCCL world: non-finite")
+        grads = {name: [p.grad for p in model.parameters()]
+                 for name, model in (("G", bundle.generator), ("D", bundle.discriminator))}
+        device = torch.device("cuda", 0)
+        ms = {k: ms_per_call(lambda g=g: pdist.all_reduce_mean_(g, info), 20, device)
+              for k, g in grads.items()}
+        sizes = {k: sum(t.numel() for t in g) for k, g in grads.items()}
+    finally:
+        pdist.destroy(info)
+    mb = 4 * sum(sizes.values()) / 1e6
+    print(f"[16 all-reduce] NCCL world of one, the flat gradient all-reduce (CUDA events, 20"
+          f" calls): G {sizes['G']:,} fp32 {ms['G']:.4f} ms, D {sizes['D']:,} fp32"
+          f" {ms['D']:.4f} ms; a pretrain step {ms['G']:.4f} ms, a GAN step"
+          f" {ms['G'] + ms['D']:.4f} ms ({mb:.1f} MB); {card}", flush=True)
+    check(sizes["G"] == 925_646, f"G has {sizes['G']} gradients")
+
+
+def phase_dp_ranks(card: str) -> dict:
+    """16b: ``python -m fast_srgan_torch.scripts.multihost_smoke --device
+    cuda``: 2 gloo ranks on cuda:0 at the slice's widths (global batch 24,
+    12 a rank; fp32, TF32 off), unfused and fused upsample, against one
+    process on the card, with the script's bars (on the same weights every
+    step's metrics rtol 2e-5, whole batch and the ranks' slices, and every
+    update's G and D gradient within relative L2 1e-6 of the slices' one
+    process, which rank 0's gradient before the all-reduce must exceed;
+    the first update's gradient as near float64's as one
+    process's, within 3x; free-running, the first step's metrics rtol 2e-5
+    and the later 1e-3; PSNR rtol 1e-6 and SSIM atol 1e-7 on the initial
+    weights; parameters bitwise across ranks; each rank's launches as its
+    steps predict: the script exits non-zero otherwise). Returns each
+    rank's launches summed over both arms."""
+    result = _run_script("multihost_smoke", ["--device", "cuda", "--timeout", "300"])
+    check(result["ok"] and result["device"] != "cpu", f"multihost_smoke: {result.get('failures')}")
+    for name, arm in result["arms"].items():
+        print(f"[16 ranks] {name} upsample, 2 gloo ranks on cuda:0 (global batch"
+              f" {result['global_batch']}) vs one process: metrics rel by step"
+              f" {[f'{v:.2e}' for v in arm['loss_rel_by_step']]} (the first 2e-5, all"
+              f" 1e-3); on the same weights, metrics rel by step, whole batch"
+              f" {[f'{v:.2e}' for v in arm['forced_loss_rel_by_step']]} and the ranks'"
+              f" slices {[f'{v:.2e}' for v in arm['split_loss_rel_by_step']]} (2e-5);"
+              f" gradients rel L2 by update {arm['updates']}, whole batch"
+              f" {[f'{v:.2e}' for v in arm['grad_rel_by_update']]} (reported), slices"
+              f" {[f'{v:.2e}' for v in arm['split_grad_rel_by_update']]} (1e-6), rank 0's"
+              f" own before the all-reduce"
+              f" {[f'{v:.3f}' for v in arm['no_allreduce_rel_by_update']]};"
+              f" first update's gradient from float64's, ranks / one process"
+              f" {arm['first_grad_error_vs_float64'][0]:.3e} /"
+              f" {arm['first_grad_error_vs_float64'][1]:.3e} of scale (at most 3x);"
+              f" free-running parameters {arm['max_param_abs']:.2e} apart at most,"
+              f" {arm['params_off_share']:.2e} of them by > 1e-5 (reported); initial weights'"
+              f" PSNR {arm['psnr'][0]:.6f} / {arm['psnr'][1]:.6f} (rel {arm['psnr_rel']:.2e},"
+              f" tol 1e-6), SSIM {arm['ssim'][0]:.8f} / {arm['ssim'][1]:.8f} ({arm['ssim_abs']:.2e}"
+              f" apart, tol 1e-7) over {arm['images'][0]:.0f} images; bitwise across ranks"
+              f" {arm['bitwise_across_ranks']}; launches {arm['launches']} (want"
+              f" {arm['predicted_launches']} each); ms a step {arm['step_ms']} (rank 0 copies"
+              f" out each update's gradients and weights; one process"
+              f" {arm['single_step_ms']:.2f}), gradient all-reduce ms {arm['allreduce_ms']}"
+              f" (gloo staged through the host: not a scaling number); {card}", flush=True)
+    dp = {}
+    for arm in result["arms"].values():
+        for rank, counts in enumerate(arm["launches"]):
+            for key, n in counts.items():
+                dp.setdefault(key, [0] * len(arm["launches"]))[rank] += n
+    print(f"[16 ranks] multihost_smoke {result['_seconds']:.1f} s; launches per rank over both"
+          f" arms {dp}", flush=True)
+    return dp
+
+
 def main() -> None:
     kind, card = phase_device()
     phase_build()
@@ -2796,7 +3011,9 @@ def main() -> None:
     phase_infer_tile(params, frames)
     phase_bench_4k(tiled, card)
     fused, unfused, bare_ms = phase_training(card)
-    trainer = phase_trainer(card, bare_ms)
+    trainer, trainer12 = phase_trainer(card, bare_ms)
+    phase_torchrun(card, trainer12)
+    dp = phase_dp_ranks(card)
     exported = phase_export(params, frames, engine, card)
     phase_dispatch(card)
     phase_tools()
@@ -2823,7 +3040,8 @@ def main() -> None:
     # (f_instance_norm_ms and cudnn_bf16_ms are yardsticks only). op is the
     # torch.library op each wrapper calls. The split IN rows' launches are
     # phase 14's bf16 4K tiled forward (int8_launches its int8 one), the s8
-    # halo form's the int8 one; their times are a shard's
+    # halo form's the int8 one; their times are a shard's. dp_launches are
+    # phase 16b's, one count a rank (both upsample arms)
     two = exported["two_launch"]
     split = tiled["counts"]
     split_q = tiled["int8_counts"]
@@ -2834,11 +3052,13 @@ def main() -> None:
         {"name": "instance_norm_prelu", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": KERNEL_REPLACES, "op": "torch.ops.fast_srgan.instance_norm_prelu",
          "launches": launches[0], "trainer_launches": trainer["in_prelu"],
+         "dp_launches": dp["in_prelu"],
          "artifact_launches": art["in_prelu"], "two_launch_artifact_launches": two["in_prelu"],
          **in_rows["instance_norm_prelu"]},
         {"name": "instance_norm_add", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": ADD_REPLACES, "op": "torch.ops.fast_srgan.instance_norm_add",
          "launches": launches[1], "trainer_launches": trainer["in_add"],
+         "dp_launches": dp["in_add"],
          "artifact_launches": art["in_add"], "two_launch_artifact_launches": two["in_add"],
          **in_rows["instance_norm_add"]},
         {"name": "fused_upsample", "route": "cuda", "source": UPSAMPLE_SOURCE,
@@ -2846,12 +3066,14 @@ def main() -> None:
          "launches": fused[2], "backward_launches": fused[4],
          "trainer_launches": trainer["upsample"],
          "trainer_backward_launches": trainer["upsample_backward"],
+         "dp_launches": dp["upsample"], "dp_backward_launches": dp["upsample_backward"],
          "artifact_launches": art["upsample"],
          **up_row, "stage_ms": stage_ms["train stage 2"]},
         {"name": "pixel_shuffle_phase_major", "route": "cuda",
          "source": SHUFFLE_SOURCE, "replaces": SHUFFLE_REPLACES,
          "op": "torch.ops.fast_srgan.pixel_shuffle_phase_major",
-         "launches": unfused[3], "artifact_launches": art["shuffle"], **shuffle_row},
+         "launches": unfused[3], "artifact_launches": art["shuffle"],
+         "dp_launches": dp["shuffle"], **shuffle_row},
         {"name": "int8_conv", "route": "cuda", "source": INT8_CONV_SOURCE,
          "replaces": INT8_CONV_REPLACES,
          "op": "torch.ops.fast_srgan.int8_conv, torch.ops.fast_srgan.int8_conv_phases",

@@ -113,12 +113,15 @@ def to_host(tree: Any, non_blocking: bool = False) -> Any:
 
 
 class CheckpointIO:
-    """Step-keyed ``torch.save`` checkpoints in one directory."""
+    """Step-keyed ``torch.save`` checkpoints in one directory (created here
+    unless ``create`` is false: a reader that must not write, such as a
+    data-parallel rank other than 0; a missing directory holds no step)."""
 
-    def __init__(self, directory: str, max_to_keep: int = 5):
+    def __init__(self, directory: str, max_to_keep: int = 5, create: bool = True):
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max(1, int(max_to_keep))
-        os.makedirs(self.directory, exist_ok=True)
+        if create:
+            os.makedirs(self.directory, exist_ok=True)
         self._writer: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
 
@@ -181,6 +184,8 @@ class CheckpointIO:
     def all_steps(self) -> List[int]:
         """Steps on disk, ascending."""
         steps = []
+        if not os.path.isdir(self.directory):
+            return steps
         for name in os.listdir(self.directory):
             m = _FILE_RE.match(name)
             if m:

@@ -21,7 +21,8 @@ Design:
     the native C++ crop backend (``csrc/fastsr_loader.cpp``) is used when it
     builds (``backend`` says which one runs).
   * ``shard`` splits the file list by (index, count), the JAX package's
-    per-host split; the port's trainer runs on one card and passes none.
+    per-host split: a data-parallel run passes (rank, world) and each rank's
+    loaders draw its slice of the global batch from its own files.
 """
 
 from __future__ import annotations
@@ -57,6 +58,11 @@ class CropSampler:
         paths = sorted(numpy_paths)
         if shard is not None:
             index, count = shard
+            if not paths[index::count]:
+                raise ValueError(
+                    f"CropSampler got an empty file list: shard {index} of {count} (rank"
+                    f" {index}) has none of the {len(paths)} files"
+                )
             paths = paths[index::count]
         if not paths:
             raise ValueError("CropSampler got an empty file list")
@@ -344,7 +350,8 @@ def make_loaders(config, shard: Optional[Tuple[int, int]] = None):
     (resolve_val_numpy_dir) instead of the training files — ``python -m
     fast_srgan_torch.train`` preprocesses that directory before calling
     here. The val sampler is never file-sharded (``shard`` applies only to
-    the training loaders), as in the JAX package."""
+    the training loaders), as in the JAX package. ``training.batch_size`` is
+    the global batch: a shard's loaders yield its 1/count slice."""
     paths = list_numpy_files(config.data.numpy_dir)
     sampler = CropSampler(
         paths,
@@ -376,7 +383,7 @@ def make_loaders(config, shard: Optional[Tuple[int, int]] = None):
             seed=config.experiment.seed,
         )
     )
-    batch = config.training.batch_size
+    batch = config.training.batch_size // (1 if shard is None else shard[1])
     # Honor the configured count (the reference default is 16 threads,
     # train.py:84 there); floor at 1, cap at 64 as a footgun guard only.
     workers = max(1, min(64, config.training.num_workers))

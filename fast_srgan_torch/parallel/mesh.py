@@ -8,7 +8,7 @@ since nothing compiles a program across devices here. A device may appear
 more than once: the shards of one card then run one after another on it,
 with the same halo and statistics exchange as across cards (the tests
 shard over a repeated ``cpu``, and ``chip_smoke.py`` over ``cuda:0``).
-The multi-host half of ``shard_batch`` belongs with data-parallel training.
+The multi-host half of ``shard_batch`` is ``dist.local_rows`` (training).
 """
 
 from __future__ import annotations

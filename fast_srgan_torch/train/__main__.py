@@ -3,6 +3,7 @@
     python -m fast_srgan_torch.train [--device cuda|cpu] [key.path=value ...]
     python -m fast_srgan_torch.train data.image_dir=/data/DIV2K \\
         training.batch_size=32 training.vgg_weights=/path/vgg19-dcbb9e9d.pth
+    torchrun --standalone --nproc_per_node 8 -m fast_srgan_torch.train ...
 
 The port of the repo's root ``train.py`` (the JAX package's CLI), with the
 reference's override surface: ``configs/config.yaml`` (read by path from
@@ -13,9 +14,16 @@ loaders, and runs ``Trainer.pretrain`` then ``Trainer.train``.
 Hydra-1.1 run-dir semantics: the run chdirs into ``outputs/<date>/<time>/``
 (``hydra.run.dir=DIR`` picks the directory, ``hydra.run.dir=.`` stays in
 the launch directory); input paths are anchored to the launch directory
-first. ``--device`` defaults to ``cuda`` and raises without a card;
-training runs on one device (``parallel.num_devices`` > 1 raises: the
-data-parallel trainer is not ported yet).
+first. ``--device`` defaults to ``cuda`` and raises without a card.
+
+Data parallel: under ``torchrun`` (``python -m torch.distributed.run``) each
+process is a rank on ``cuda:LOCAL_RANK`` (NCCL; ``--device cpu``: gloo),
+``training.batch_size`` is the global batch, each rank's loaders draw its
+slice from its share of the files, and rank 0 alone writes. Rank 0 picks
+the dated run directory and sends it to the others;
+``parallel.multihost=true`` (ranks on several hosts) needs an explicit,
+shared ``hydra.run.dir``. ``parallel.num_devices``, when set, must equal
+the number of processes.
 """
 
 from __future__ import annotations
@@ -32,7 +40,8 @@ import torch
 from fast_srgan_torch.config import load_config
 from fast_srgan_torch.data.pipeline import make_loaders, resolve_val_numpy_dir
 from fast_srgan_torch.data.preprocess import ensure_numpy_cache
-from fast_srgan_torch.train.trainer import Trainer, refuse_multi_device
+from fast_srgan_torch.parallel import dist as pdist
+from fast_srgan_torch.train.trainer import Trainer, check_world
 
 #: the checkout's config file, read by path (the launch directory may differ)
 BUNDLED_CONFIG = Path(__file__).resolve().parents[2] / "configs" / "config.yaml"
@@ -105,16 +114,40 @@ def _warn_if_resume_has_prior_runs(config) -> None:
         )
 
 
-def enter_run_dir(config) -> None:
+def enter_run_dir(config, dist: pdist.DistInfo = pdist.SINGLE) -> None:
     """chdir into the run directory, so runs/... and the checkpoints land
-    inside it; input paths are re-anchored to the launch cwd first."""
-    run_dir = resolve_run_dir(config)
+    inside it; input paths are re-anchored to the launch cwd first. Every
+    rank enters rank 0's directory."""
+    if config.parallel.get("multihost") and explicit_run_dir(config) is None:
+        # each host would date its own default: the run would splinter
+        raise SystemExit(
+            "multihost runs need an explicit shared run directory: pass "
+            "hydra.run.dir=<dir> (or hydra.run.dir=. to stay in the "
+            "launch cwd)"
+        )
+    run_dir = pdist.broadcast_object(resolve_run_dir(config), dist)
     if run_dir != ".":
-        _warn_if_resume_has_prior_runs(config)
+        if dist.is_main:
+            _warn_if_resume_has_prior_runs(config)
         _absolutize_input_paths(config, os.getcwd())
         os.makedirs(run_dir, exist_ok=True)
         os.chdir(run_dir)
-        print(f"Working directory: {os.getcwd()}")
+        if dist.is_main:
+            print(f"Working directory: {os.getcwd()}")
+
+
+def build_caches(config, dist: pdist.DistInfo = pdist.SINGLE) -> None:
+    """The .npy caches of the training (and held-out) images, built once a
+    host, by its local rank 0, as the JAX CLI builds them in each host's
+    process; every rank waits until they are built."""
+    if dist.local_rank == 0:
+        workers = config.training.num_workers
+        ensure_numpy_cache(config.data.image_dir, config.data.numpy_dir, workers=workers)
+        val_numpy_dir = resolve_val_numpy_dir(config)
+        if val_numpy_dir and config.data.get("val_image_dir"):
+            # (val_numpy_dir alone means a prebuilt cache: nothing to build)
+            ensure_numpy_cache(config.data.val_image_dir, val_numpy_dir, workers=workers)
+    pdist.barrier(dist)
 
 
 def _split_device(argv):
@@ -134,7 +167,8 @@ def _split_device(argv):
 
 def main(argv=None):
     """Run both phases; returns the (closed) trainer and the training
-    images' crop sampler (its ``backend`` says which loader ran)."""
+    images' crop sampler (its ``backend`` says which loader ran). Under
+    torchrun, joins the process group first and leaves it at the end."""
     argv = sys.argv[1:] if argv is None else list(argv)
     if any(a in ("-h", "--help") for a in argv):
         print(__doc__)
@@ -146,29 +180,39 @@ def main(argv=None):
             " pass --device cpu to train on the CPU"
         )
     config = load_config(str(BUNDLED_CONFIG), overrides=overrides)
-    refuse_multi_device(config)
-    enter_run_dir(config)
+    dist = pdist.init_from_env(device)
+    try:
+        return _run(config, device, dist)
+    finally:
+        pdist.destroy(dist)
+
+
+def _run(config, device: str, dist: pdist.DistInfo):
+    check_world(config, dist)
+    enter_run_dir(config, dist)
+    if device == "cuda":
+        device = f"cuda:{dist.local_rank}"
 
     np.random.seed(config.experiment.seed)
     torch.manual_seed(config.experiment.seed)
-    workers = config.training.num_workers
-    ensure_numpy_cache(config.data.image_dir, config.data.numpy_dir, workers=workers)
-    val_numpy_dir = resolve_val_numpy_dir(config)
-    if val_numpy_dir and config.data.get("val_image_dir"):
-        # (val_numpy_dir alone means a prebuilt cache: nothing to build)
-        ensure_numpy_cache(config.data.val_image_dir, val_numpy_dir, workers=workers)
+    build_caches(config, dist)
     if not any(f.endswith(".npy") for f in os.listdir(config.data.numpy_dir)):
         raise SystemExit(
             f"No training images: data.image_dir={config.data.image_dir!r} "
             f"produced an empty cache at {config.data.numpy_dir!r} "
             "(expected .png/.jpg images)"
         )
-    val_sampler, pretrain_loader, train_loader = make_loaders(config)
-    print(
-        f"Device: {device}, batch {config.training.batch_size}, crop loader "
-        f"backend: {pretrain_loader.sampler.backend}"
-    )
-    trainer = Trainer(config, device=device)
+    # training.batch_size is the global batch: each rank's loaders draw its
+    # slice from its own share of the files
+    shard = (dist.rank, dist.world) if dist.world > 1 else None
+    val_sampler, pretrain_loader, train_loader = make_loaders(config, shard=shard)
+    if dist.is_main:
+        print(
+            f"Device: {device} x {dist.world} rank(s), global batch"
+            f" {config.training.batch_size}, crop loader backend:"
+            f" {pretrain_loader.sampler.backend}"
+        )
+    trainer = Trainer(config, device=device, dist=dist)
     try:
         trainer.pretrain(pretrain_loader, val_sampler)
         trainer.train(train_loader, val_sampler)

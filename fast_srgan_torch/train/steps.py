@@ -46,6 +46,21 @@ The training options, each as the JAX package runs it:
 
 Label noise per GAN step comes from (seed, step); ``gan_step(noise=...)``
 takes it explicitly instead.
+
+Data parallel (``dist=``, :mod:`fast_srgan_torch.parallel.dist`): each rank
+steps on its contiguous slice of the global batch, and every rank applies
+the update one process would apply to the global batch, as the JAX mesh
+step does. The initial parameters are rank 0's (broadcast at build); each
+model's gradients are all-reduced to their mean through one flat buffer
+after the micro-batch mean and before the clip, so the clip sees the global
+norm; the augmentation coins and the label noise are drawn for the global
+batch and sliced, so a sample gets the draws it gets in one process.
+``training.grad_accum`` splits each rank's slice. Metrics stay per rank
+until :meth:`GanBundle.mean_over_ranks` (the trainer calls it on the steps
+it logs). ``parallel.scale_lr`` multiplies both learning rates by the world
+size. The all-reduce is not overlapped with the backward (no DDP: its hooks
+and unused-parameter search sit badly with the GAN step's several backward
+passes through D and its ``requires_grad_`` toggling).
 """
 
 from __future__ import annotations
@@ -66,6 +81,12 @@ from fast_srgan_torch.models.init import lecun_normal_init_
 from fast_srgan_torch.models.vgg import VGG19Features, load_torchvision_state_dict
 from fast_srgan_torch.ops.augment import apply_dihedral, draw_coins
 from fast_srgan_torch.ops.resize import resize_bicubic
+from fast_srgan_torch.parallel.dist import (
+    SINGLE,
+    DistInfo,
+    all_reduce_mean_,
+    broadcast_module_,
+)
 from fast_srgan_torch.train.losses import bce_with_logits_loss, smooth_l1_loss
 
 METRICS = ("d_loss", "loss_real", "loss_fake", "g_loss", "adv_loss", "content_loss")
@@ -170,10 +191,13 @@ def prepare_batch(hr_u8: torch.Tensor, lr_size: int) -> Tuple[torch.Tensor, torc
     return lr_f / 127.5 - 1.0, hr_f / 127.5 - 1.0
 
 
-def _load_vgg(config, generator: torch.Generator) -> Optional[VGG19Features]:
+def _load_vgg(
+    config, generator: torch.Generator, dist: DistInfo = SINGLE
+) -> Optional[VGG19Features]:
     """The VGG mode gate of the JAX build_bundle: null with a GAN phase
     raises; "pixel" runs no VGG; "init" fixed-seed weights; else a path to a
-    torchvision vgg19 state_dict."""
+    torchvision vgg19 state_dict. The gate runs before any model is built,
+    so a config error surfaces first."""
     vgg_path = config.training.vgg_weights
     if not vgg_path and config.training.iterations > 0:
         raise ValueError(
@@ -186,7 +210,7 @@ def _load_vgg(config, generator: torch.Generator) -> Optional[VGG19Features]:
             "(training.iterations=0) need no VGG."
         )
     if not vgg_path or vgg_path == "pixel":
-        if vgg_path == "pixel":
+        if vgg_path == "pixel" and dist.is_main:
             print(
                 "training.vgg_weights=pixel: GAN content loss is pixel-space "
                 "SmoothL1 (explicit opt-out; the reference recipe uses "
@@ -206,15 +230,20 @@ class GanBundle:
     ``pretrain_step(hr_u8)`` returns the loss; ``gan_step(hr_u8, noise,
     step)`` the six metrics (fp32 scalar tensors, not synchronized).
     ``noise`` is the three U[0,1) draws (real labels, fake labels, G
-    labels), each of the logits' shape [B, 1, h, w] (a micro-batch takes its
-    rows); without it they are drawn from (experiment.seed, step), ``step``
-    defaulting to the discriminator's update count + 1 (the GAN loop's step).
+    labels), each of the logits' shape [B, 1, h, w] for the global batch (a
+    rank and a micro-batch take their rows); without it they are drawn from
+    (experiment.seed, step), ``step`` defaulting to the discriminator's
+    update count + 1 (the GAN loop's step).
     ``g_ema`` is the generator's weight average (``training.ema_decay``), or
     None; ``eval_model`` is what validation and panels run.
     """
 
-    def __init__(self, config, generator, discriminator, vgg, device):
+    def __init__(self, config, generator, discriminator, vgg, device,
+                 dist: Optional[DistInfo] = None):
         cfg = config.training
+        self.dist = dist or SINGLE
+        for model in (generator, discriminator):
+            broadcast_module_(model, self.dist)
         self.config = config
         self.generator = generator
         self.discriminator = discriminator
@@ -223,13 +252,16 @@ class GanBundle:
         self.seed = int(config.experiment.seed)
         self.lr_size = config.data.lr_image_size
         self.bf16 = bool(cfg.bf16)
-        self.g_opt = make_optimizer(generator.parameters(), cfg.generator_lr)
-        self.d_opt = make_optimizer(discriminator.parameters(), cfg.discriminator_lr)
+        # parallel.scale_lr: the linear rule for a global batch world times
+        # a rank's
+        scale = self.dist.world if config.parallel.get("scale_lr") else 1
+        g_lr, d_lr = cfg.generator_lr * scale, cfg.discriminator_lr * scale
+        self.g_opt = make_optimizer(generator.parameters(), g_lr)
+        self.d_opt = make_optimizer(discriminator.parameters(), d_lr)
         self.g_lr = make_lr_schedule(
-            config, cfg.generator_lr, cfg.iterations,
-            pretrain_offset=cfg.pretrain_iterations,
+            config, g_lr, cfg.iterations, pretrain_offset=cfg.pretrain_iterations
         )
-        self.d_lr = make_lr_schedule(config, cfg.discriminator_lr, cfg.iterations)
+        self.d_lr = make_lr_schedule(config, d_lr, cfg.iterations)
         self.grad_clip = float(cfg.get("grad_clip", 0.0) or 0.0)
         self.ema_decay = float(cfg.get("ema_decay", 0.0) or 0.0)
         self.augment = bool(cfg.get("augment", False))
@@ -264,6 +296,13 @@ class GanBundle:
         coins = draw_coins(n, torch.Generator().manual_seed(step_seed(self.seed, *key)))
         return coins.to(self.device, non_blocking=True)
 
+    def _augment(self, hr_u8: torch.Tensor, *key: int) -> torch.Tensor:
+        """The dihedral transforms of this rank's rows: the coins are drawn
+        for the global batch and sliced."""
+        n = hr_u8.shape[0]
+        coins = self.coins(n * self.dist.world, *key)[:, self.dist.rows(n)]
+        return apply_dihedral(hr_u8, coins)
+
     def _microbatches(self, x: torch.Tensor) -> Sequence[torch.Tensor]:
         if x.shape[0] % self.accum:
             raise ValueError(
@@ -281,6 +320,7 @@ class GanBundle:
         grads = [p.grad for p in model.parameters() if p.grad is not None]
         if self.accum > 1:
             torch._foreach_div_(grads, float(self.accum))
+        all_reduce_mean_(grads, self.dist)
         if self.grad_clip > 0:
             clip_by_global_norm_(grads, self.grad_clip)
         opt.step()
@@ -309,11 +349,14 @@ class GanBundle:
         return smooth_l1_loss(f_sr, f_hr)
 
     def _label_noise(self, noise, shape, step: int) -> List[torch.Tensor]:
-        """(u_real, u_fake, u_g) for the whole batch, fp32 on the device."""
+        """(u_real, u_fake, u_g) for this rank's rows (``shape``), fp32 on
+        the device: the global batch's draws, sliced."""
+        rows = self.dist.rows(shape[0])
         if noise is not None:
-            return [n.to(self.device, torch.float32) for n in noise]
+            return [n.to(self.device, torch.float32)[rows] for n in noise]
         self._noise_generator.manual_seed(step_seed(self.seed, step, NOISE_TAG))
-        return [torch.rand(shape, device=self.device, generator=self._noise_generator)
+        shape = (shape[0] * self.dist.world,) + tuple(shape[1:])
+        return [torch.rand(shape, device=self.device, generator=self._noise_generator)[rows]
                 for _ in range(3)]
 
     def _g_adv_content(self, sr, hr_img, u_g):
@@ -323,12 +366,19 @@ class GanBundle:
         content_loss = self._content(sr, hr_img)
         return 0.5 * adv_loss + 0.5 * content_loss, adv_loss, content_loss
 
+    def mean_over_ranks(self, values: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """Metrics (fp32 scalars) as means over the global batch: their mean
+        over the ranks, whose slices are of one size (one all-reduce; the
+        values themselves in a world of one)."""
+        flat = [v.detach().float().reshape(1) for v in values]
+        all_reduce_mean_(flat, self.dist)
+        return [v[0] for v in flat]
+
     # -- steps -----------------------------------------------------------------
 
     def pretrain_step(self, hr_u8: torch.Tensor) -> torch.Tensor:
         if self.augment:
-            key = (PRETRAIN_AUGMENT_TAG, update_count(self.g_opt))
-            hr_u8 = apply_dihedral(hr_u8, self.coins(hr_u8.shape[0], *key))
+            hr_u8 = self._augment(hr_u8, PRETRAIN_AUGMENT_TAG, update_count(self.g_opt))
         self.g_opt.zero_grad(set_to_none=True)
         losses = []
         for hr_i in self._microbatches(hr_u8):
@@ -350,7 +400,7 @@ class GanBundle:
         if step is None:
             step = update_count(self.d_opt) + 1
         if self.augment:
-            hr_u8 = apply_dihedral(hr_u8, self.coins(hr_u8.shape[0], step))
+            hr_u8 = self._augment(hr_u8, step)
         if self.shared_forward:
             values = self._gan_shared(hr_u8, noise, step)
         else:
@@ -454,7 +504,10 @@ class GanBundle:
 
 
 def build_bundle(
-    config, device="cuda", generator: Optional[torch.Generator] = None
+    config,
+    device="cuda",
+    generator: Optional[torch.Generator] = None,
+    dist: Optional[DistInfo] = None,
 ) -> GanBundle:
     """Models (channels_last, fp32 parameters, the JAX package's init),
     the VGG content mode, and both AdamW optimizers on ``device``.
@@ -465,13 +518,16 @@ def build_bundle(
     ``kernels.use_pallas`` has no effect here: on a CUDA device every kernel
     of the path runs, on the CPU every plain version. ``kernels.fused_upsample``
     chooses the upsample stage's form (one fused kernel, or conv + shuffle).
+
+    ``dist`` (default: a world of one) makes the steps data-parallel; rank
+    0's initial weights are broadcast to the others.
     """
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device='cuda' but torch.cuda.is_available() is False")
     if generator is None:
         generator = torch.Generator().manual_seed(int(config.experiment.seed))
-    vgg = _load_vgg(config, generator)  # the config error surfaces first
+    vgg = _load_vgg(config, generator, dist or SINGLE)
     g = Generator(
         n_filters=config.generator.n_filters,
         n_layers=config.generator.n_layers,
@@ -485,4 +541,4 @@ def build_bundle(
         models.append(vgg)
     for m in models:
         m.to(device=device, memory_format=torch.channels_last)
-    return GanBundle(config, g, d, vgg, device)
+    return GanBundle(config, g, d, vgg, device, dist)

@@ -21,6 +21,16 @@ read back (``float``) only on ``log_iter`` steps; validation keeps its sums
 on the device and lets the host run at most one batch ahead; checkpoints
 copy to host memory behind the step on the card's stream and write in a
 background thread. Nothing in the step loop synchronizes the card.
+
+Data parallel (``dist=``, one process a device under ``torchrun``): each
+rank's loader yields its slice of the global ``training.batch_size``, the
+steps all-reduce the gradients, and the logged losses are all-reduced on the
+``log_iter`` steps only. Validation walks the full val list on every rank
+and all-reduces its sums once a pass. Rank 0 alone writes: checkpoints, the
+.pt exports, metrics and panels, and prints; the other ranks' writer drops
+everything. Barriers: before every resume read (rank 0 may still be writing),
+after the end-of-pretrain checkpoint, at the end of each phase. The
+interrupt handlers call no collective (torchrun signals every rank at once).
 """
 
 from __future__ import annotations
@@ -43,24 +53,103 @@ from fast_srgan_torch.checkpoints.io import (
 from fast_srgan_torch.data.pipeline import CropSampler, PrefetchLoader
 from fast_srgan_torch.metrics.psnr_ssim import psnr_from_accumulator
 from fast_srgan_torch.ops.resize import resize_bicubic
-from fast_srgan_torch.train.steps import build_bundle, prepare_batch, update_count
+from fast_srgan_torch.parallel.dist import (
+    SINGLE,
+    DistInfo,
+    all_reduce_sum_,
+    barrier,
+    local_rows,
+)
+from fast_srgan_torch.train.steps import GanBundle, build_bundle, prepare_batch, update_count
 from fast_srgan_torch.utils.logging import MetricsWriter
 
 
-def refuse_multi_device(config) -> None:
-    """The port's trainer runs on one card (data-parallel training is not
-    ported yet; serving spreads over devices, ``parallel/``):
-    ``parallel.num_devices`` > 1 and ``parallel.multihost`` raise
-    NotImplementedError (ROADMAP §1)."""
+def check_world(config, dist: DistInfo) -> None:
+    """The run's processes against its config (``train.py``'s rules, with a
+    process a device): ``parallel.num_devices``, when set, is the world
+    size; ``training.batch_size`` is the global batch and splits over the
+    ranks, and each rank's slice over ``training.grad_accum``;
+    ``parallel.multihost`` needs torchrun's environment. Exits with the
+    reason otherwise."""
     n = config.parallel.get("num_devices")
-    if n is not None and int(n) > 1:
-        raise NotImplementedError(
-            f"parallel.num_devices={n}: fast_srgan_torch trains on one device"
+    if n is not None and int(n) != dist.world:
+        raise SystemExit(
+            f"parallel.num_devices={n} but this run has {dist.world} process(es), one a"
+            f" device: launch `torchrun --nproc_per_node {n} -m fast_srgan_torch.train"
+            " ...` (or leave parallel.num_devices unset)"
         )
-    if config.parallel.get("multihost"):
-        raise NotImplementedError(
-            "parallel.multihost: fast_srgan_torch trains on one device"
+    if config.parallel.get("multihost") and dist.group is None:
+        raise SystemExit(
+            "parallel.multihost needs torchrun's environment (RANK, WORLD_SIZE,"
+            " MASTER_ADDR): launch `torchrun --nnodes N --nproc_per_node M"
+            " --rdzv_endpoint HOST:PORT -m fast_srgan_torch.train ...` on every host"
         )
+    batch = config.training.batch_size
+    if batch % dist.world:
+        raise SystemExit(
+            f"training.batch_size={batch} must be divisible by the mesh size"
+            f" ({dist.world} devices)"
+        )
+    accum = int(config.training.get("grad_accum", 1) or 1)
+    if (batch // dist.world) % accum:
+        raise SystemExit(
+            f"training.batch_size={batch} over {dist.world} device(s) leaves"
+            f" {batch // dist.world} a device, not divisible by training.grad_accum"
+            f" {accum}"
+        )
+
+
+class _NullWriter:
+    """The metrics writer of a rank other than 0: drops everything."""
+
+    def scalar(self, *args) -> None:
+        pass
+
+    images = flush = close = scalar
+
+
+def evaluate_pass(
+    bundle: GanBundle, val_sampler: CropSampler, batch_size: int, seed: int, put
+) -> Dict[str, float]:
+    """One full deterministic pass over ``val_sampler``: aggregate PSNR and
+    mean SSIM on [0,1] images (reference trainer.py:53-69 protocol), and the
+    image count.
+
+    Batches are of the global ``batch_size``, the tail padded up to it (one
+    shape for the whole pass) and its padding rows masked out of the
+    statistics on the device. Every rank walks the same full list (the val
+    sampler is never sharded) and evaluates its rows of each batch; the
+    three sums are all-reduced once, so each image counts once and every
+    rank returns the one-process result. ``put`` moves a host batch to the
+    device. The sums stay on the device; an event a batch lets the host run
+    at most one batch ahead of the card, with no sync per batch; the totals
+    are read back once."""
+    dist, device = bundle.dist, bundle.device
+    rows = local_rows(batch_size, dist.rank, dist.world)
+    hr_size = bundle.lr_size * bundle.config.data.scale_factor
+    sums = torch.zeros(3, dtype=torch.float64, device=device)
+    index = torch.arange(batch_size, device=device)[rows]
+    in_flight = []
+    for batch in val_sampler.sequential_batches(batch_size, seed=seed, drop_last=False):
+        valid = batch.shape[0]
+        if valid < batch_size:
+            batch = np.concatenate([batch, batch[-1:].repeat(batch_size - valid, 0)])
+        out = bundle.eval_step(put(batch[rows]), index < valid)
+        sums += torch.stack(out).double()
+        if device.type == "cuda":
+            in_flight.append(torch.cuda.Event())
+            in_flight[-1].record()
+            if len(in_flight) > 1:
+                in_flight.pop(0).synchronize()
+    all_reduce_sum_([sums], dist)
+    sse, ssim_sum, images = sums.tolist()
+    return {
+        "psnr": psnr_from_accumulator(sse, float(hr_size * hr_size * 3) * images),
+        "ssim": ssim_sum / max(images, 1),
+        # JAX counts each image once a host (every host evaluates the whole
+        # global batch); its PSNR and SSIM are the same ratios
+        "images": images,
+    }
 
 
 class PinnedFeed:
@@ -104,30 +193,40 @@ def _nhwc(t: torch.Tensor) -> np.ndarray:
 
 class Trainer:
     """Owns the bundle (models, optimizers, steps), the metrics writer and
-    checkpoint IO, on one device (``"cuda"`` by default)."""
+    checkpoint IO, on one device (``"cuda"`` by default); ``dist`` makes it
+    one rank of a data-parallel run (its loaders yield its slices)."""
 
-    def __init__(self, config, device="cuda"):
-        refuse_multi_device(config)
+    def __init__(self, config, device="cuda", dist: Optional[DistInfo] = None):
+        self.dist = dist or SINGLE
+        check_world(config, self.dist)
         self.config = config
         self.device = torch.device(device)
         # training.ema_decay > 0: the steps keep an average of the
         # generator's weights; validation, panels and exports run on it.
         self._ema = float(config.training.get("ema_decay", 0) or 0) > 0
-        self.bundle = build_bundle(config, self.device)
+        self.bundle = build_bundle(config, self.device, dist=self.dist)
         self._put = PinnedFeed(self.device)
-        self.writer = MetricsWriter(os.path.join("runs", config.experiment.name))
+        main = self.dist.is_main
+        self.writer = (
+            MetricsWriter(os.path.join("runs", config.experiment.name)) if main
+            else _NullWriter()
+        )
         ckpt_dir = config.training.checkpoint_dir or os.path.join(
             "runs", config.experiment.name, "ckpt"
         )
         # Separate managers: GAN-phase retention must never delete the
-        # end-of-pretrain snapshot, so it lives in its own directory.
+        # end-of-pretrain snapshot, so it lives in its own directory. Only
+        # rank 0 creates the directories and writes; every rank reads.
         self.ckpt = CheckpointIO(
-            ckpt_dir, max_to_keep=config.training.get("keep_checkpoints", 5) or 5
+            ckpt_dir, max_to_keep=config.training.get("keep_checkpoints", 5) or 5,
+            create=main,
         )
-        self.pretrain_ckpt = CheckpointIO(ckpt_dir + "_pretrain", max_to_keep=1)
+        self.pretrain_ckpt = CheckpointIO(ckpt_dir + "_pretrain", max_to_keep=1, create=main)
         # Mid-pretrain snapshots (interrupt recovery in phase 1); apart from
         # pretrain_ckpt, whose single reserved key marks phase COMPLETION.
-        self.pretrain_progress = CheckpointIO(ckpt_dir + "_pretrain_steps", max_to_keep=2)
+        self.pretrain_progress = CheckpointIO(
+            ckpt_dir + "_pretrain_steps", max_to_keep=2, create=main
+        )
         init_pt = config.training.get("init_generator_pt")
         if init_pt:
             self._warm_start(init_pt, config.training.get("init_generator_optim_pt"))
@@ -147,6 +246,10 @@ class Trainer:
 
     # -- helpers --------------------------------------------------------------
 
+    def _say(self, message: str) -> None:
+        if self.dist.is_main:
+            print(message)
+
     def _warm_start(self, init_pt: str, init_opt: Optional[str]) -> None:
         """Weights (and optionally AdamW state) from reference-format .pt
         files: the port's modules carry the reference's names, so the file
@@ -160,7 +263,7 @@ class Trainer:
             self.bundle.g_opt.load_state_dict(
                 torch.load(init_opt, map_location="cpu", weights_only=True)
             )
-        print(f"Initialized generator from {init_pt}")
+        self._say(f"Initialized generator from {init_pt}")
 
     def _state_tree(self) -> Dict[str, Any]:
         b = self.bundle
@@ -230,46 +333,26 @@ class Trainer:
             b.g_ema.load_state_dict(tree["g_ema"])
 
     def validate(self, val_sampler: CropSampler, phase: str, step: int) -> Dict[str, float]:
-        """Full deterministic pass: aggregate PSNR + mean SSIM on [0,1]
-        images (reference trainer.py:53-69 protocol).
-
-        The tail batch is padded up to batch_size (one shape for the whole
-        pass) and its padding rows are masked out of the statistics on the
-        device. The sums stay on the device; an event a batch lets the host
-        run at most one batch ahead of the card (bounded pinned staging),
-        with no sync per batch; the totals are read back once."""
+        """:func:`evaluate_pass` over the global batch size, logged under
+        ``{phase}/PSNR`` and ``{phase}/SSIM``."""
         t0 = time.perf_counter()
-        batch_size = self.config.training.batch_size
-        hr_size = self.config.data.lr_image_size * self.config.data.scale_factor
-        sums = torch.zeros(3, dtype=torch.float64, device=self.device)
-        rows = torch.arange(batch_size, device=self.device)
-        in_flight = []
-        for batch in val_sampler.sequential_batches(
-            batch_size, seed=self.config.experiment.seed, drop_last=False
-        ):
-            valid = batch.shape[0]
-            if valid < batch_size:
-                batch = np.concatenate([batch, batch[-1:].repeat(batch_size - valid, 0)])
-            out = self.bundle.eval_step(self._put(batch), rows < valid)
-            sums += torch.stack(out).double()
-            if self.device.type == "cuda":
-                in_flight.append(torch.cuda.Event())
-                in_flight[-1].record()
-                if len(in_flight) > 1:
-                    in_flight.pop(0).synchronize()
-        sse, ssim_sum, images = sums.tolist()
-        psnr = psnr_from_accumulator(sse, float(hr_size * hr_size * 3) * images)
-        ssim = ssim_sum / max(images, 1)
-        self.writer.scalar(f"{phase}/PSNR", psnr, step)
-        self.writer.scalar(f"{phase}/SSIM", ssim, step)
+        result = evaluate_pass(
+            self.bundle, val_sampler, self.config.training.batch_size,
+            self.config.experiment.seed, self._put,
+        )
+        self.writer.scalar(f"{phase}/PSNR", result["psnr"], step)
+        self.writer.scalar(f"{phase}/SSIM", result["ssim"], step)
         self.writer.flush()
         self.validate_seconds.append(time.perf_counter() - t0)
-        return {"psnr": psnr, "ssim": ssim}
+        return result
 
     def _setup_fixed_images(self, val_sampler: CropSampler, phase: str) -> None:
         """Grab the first val batch for the panels (cached) and log the
         HighRes + antialiased Bicubic references once *per phase* (the
-        reference logs them only for whichever phase ran first)."""
+        reference logs them only for whichever phase ran first). Rank 0
+        only."""
+        if not self.dist.is_main:
+            return
         if self.fixed_lr01 is None:
             batch = next(
                 val_sampler.sequential_batches(
@@ -290,20 +373,22 @@ class Trainer:
             self.writer.images(f"{phase}/Bicubic", _nhwc(bicubic), 0)
 
     def _log_generated(self, tag: str, step: int) -> None:
-        self.writer.images(tag, _nhwc(self.bundle.render_step(self.fixed_lr01)), step)
+        if self.dist.is_main:
+            self.writer.images(tag, _nhwc(self.bundle.render_step(self.fixed_lr01)), step)
 
     # -- phase 1 ---------------------------------------------------------------
 
     def pretrain(self, loader: PrefetchLoader, val_sampler: CropSampler) -> None:
         resume = self.config.training.resume
+        barrier(self.dist)  # every rank reads the same checkpoints
         if resume and self.pretrain_ckpt.has_step(PRETRAIN_STEP):
-            print("Pretrained checkpoint found, skipping pretraining")
+            self._say("Pretrained checkpoint found, skipping pretraining")
             self._resume(self.pretrain_ckpt, PRETRAIN_STEP)
             return
         start_step = 0
         latest = self.pretrain_progress.latest_step()
         if resume and latest is not None:
-            print(f"Resuming pretrain from step {latest}")
+            self._say(f"Resuming pretrain from step {latest}")
             self._resume(self.pretrain_progress, latest)
             start_step = latest
         self._pretrain_step = start_step
@@ -313,13 +398,14 @@ class Trainer:
         ckpt_iter = self.config.training.checkpoint_iter
         batches = tqdm(
             loader.iter_from(start_step), desc="Pretraining Generator",
-            total=len(loader) - start_step,
+            total=len(loader) - start_step, disable=not self.dist.is_main,
         )
         try:
             for step, batch in enumerate(batches, start=start_step + 1):
                 loss = self.bundle.pretrain_step(self._put(batch))
                 self._pretrain_step = step
                 if step % log_iter == 0:
+                    (loss,) = self.bundle.mean_over_ranks([loss])
                     self.writer.scalar("Pretrain/Generator/Loss", float(loss), step)
                     if self.config.training.get("lr_schedule"):
                         self.writer.scalar("Pretrain/LR", self._current_lrs()[0], step)
@@ -329,10 +415,13 @@ class Trainer:
                     # the bookkeeping rides inside the SIGINT-deferral
                     # window: an interrupt never separates a save from it
                     with defer_sigint():
-                        self.pretrain_progress.save(step, self._state_tree())
+                        if self.dist.is_main:
+                            self.pretrain_progress.save(step, self._state_tree())
                         self._last_pretrain_saved = step
         except KeyboardInterrupt:
             step = self._pretrain_step
+            if not self.dist.is_main:
+                raise
             try:
                 self.pretrain_progress.wait()
                 if step == self._last_pretrain_saved:
@@ -351,9 +440,12 @@ class Trainer:
         # the phase's last progress snapshot is written before the GAN phase
         # starts: a write in flight would hold the interpreter against its
         # first steps
-        self.pretrain_progress.wait()
-        self.pretrain_ckpt.save(PRETRAIN_STEP, self._state_tree())
-        self.pretrain_ckpt.wait()
+        if self.dist.is_main:
+            self.pretrain_progress.wait()
+            self.pretrain_ckpt.save(PRETRAIN_STEP, self._state_tree())
+            self.pretrain_ckpt.wait()
+        # no rank starts the GAN phase before the checkpoint is on disk
+        barrier(self.dist)
 
     # -- phase 2 ---------------------------------------------------------------
 
@@ -362,15 +454,16 @@ class Trainer:
         a restart resumes from the latest checkpoint and runs only the
         remaining steps (not another full `iterations`)."""
         start_step = 0
+        barrier(self.dist)  # every rank reads the same checkpoints
         latest = self.ckpt.latest_step()
         if self.config.training.resume and latest is not None:
-            print(f"Resuming GAN phase from step {latest}")
+            self._say(f"Resuming GAN phase from step {latest}")
             self._resume(self.ckpt, latest)
             start_step = latest
         self.gan_step = start_step
         remaining = len(loader) - start_step
         if remaining <= 0:
-            print(
+            self._say(
                 f"GAN phase already complete at step {start_step} "
                 f"(training.iterations={len(loader)})"
             )
@@ -383,6 +476,8 @@ class Trainer:
             # Snapshot the live state so the run resumes where it stopped;
             # gan_step advances only after a step's updates were issued.
             step = self.gan_step
+            if not self.dist.is_main:
+                raise
             try:
                 self.ckpt.wait()
                 if step == self._last_gan_saved:
@@ -401,18 +496,23 @@ class Trainer:
     def _gan_loop(self, loader, val_sampler, start_step: int, remaining: int) -> None:
         log_iter = self.config.training.log_iter
         ckpt_iter = self.config.training.checkpoint_iter
-        batches = tqdm(loader.iter_from(start_step), desc="GAN Training", total=remaining)
+        batches = tqdm(
+            loader.iter_from(start_step), desc="GAN Training", total=remaining,
+            disable=not self.dist.is_main,
+        )
+        logged = (
+            ("Loss/Discriminator/Real", "loss_real"),
+            ("Loss/Discriminator/Fake", "loss_fake"),
+            ("Loss/Generator/Adversarial", "adv_loss"),
+            ("Loss/Generator/Content", "content_loss"),
+        )
         for step, batch in enumerate(batches, start=start_step + 1):
             metrics = self.bundle.gan_step(self._put(batch), step=step)
             self.gan_step = step
             if step % log_iter == 0:
-                for tag, key in (
-                    ("Loss/Discriminator/Real", "loss_real"),
-                    ("Loss/Discriminator/Fake", "loss_fake"),
-                    ("Loss/Generator/Adversarial", "adv_loss"),
-                    ("Loss/Generator/Content", "content_loss"),
-                ):
-                    self.writer.scalar(tag, float(metrics[key]), step)
+                values = self.bundle.mean_over_ranks([metrics[key] for _, key in logged])
+                for (tag, _), value in zip(logged, values):
+                    self.writer.scalar(tag, float(value), step)
                 if self.config.training.get("lr_schedule"):
                     g_lr, d_lr = self._current_lrs()
                     self.writer.scalar("LR/Generator", g_lr, step)
@@ -426,23 +526,26 @@ class Trainer:
         if self.gan_step > 0 and self.gan_step % ckpt_iter != 0:
             self.save_checkpoints(self.gan_step)
         self.ckpt.wait()
+        barrier(self.dist)
 
     # -- checkpointing -----------------------------------------------------------
 
     def save_checkpoints(self, step: int) -> None:
         """A checkpoint, and with ``training.export_pt`` the reference's four
         ``.pt`` files (plus the EMA generator's), with SIGINT deferred
-        across the whole unit."""
+        across the whole unit. Rank 0 only."""
         with defer_sigint():
-            self.ckpt.save(step, self._state_tree())
+            if self.dist.is_main:
+                self.ckpt.save(step, self._state_tree())
+                if self.config.training.get("export_pt", False):
+                    self._export_pt(step)
             self._last_gan_saved = step
-            if self.config.training.get("export_pt", False):
-                self._export_pt(step)
 
     def _export_pt(self, step: int) -> None:
         """The reference's files (trainer.py:143-156): both networks'
         state_dicts and both torch-AdamW state_dicts, at the LR the next
-        update would use, so the upstream trainer can resume from them."""
+        update would use (``parallel.scale_lr``'s scaling included), so the
+        upstream trainer can resume from them."""
         b = self.bundle
         save_dir = os.path.join("runs", self.config.experiment.name)
         os.makedirs(save_dir, exist_ok=True)

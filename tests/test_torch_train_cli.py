@@ -99,7 +99,7 @@ def test_arguments(monkeypatch):
         cli.main(["hydra.run.dir=."])
     with pytest.raises(KeyError, match="Unknown config key"):
         cli.main(["--device", "cpu", "hydra.run.dir=.", "training.no_such_key=1"])
-    with pytest.raises(NotImplementedError, match="num_devices"):
+    with pytest.raises(SystemExit, match="num_devices=2 .*nproc_per_node 2"):
         cli.main(["--device", "cpu", "hydra.run.dir=.", "parallel.num_devices=2"])
 
 

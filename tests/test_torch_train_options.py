@@ -13,7 +13,7 @@ tests/test_torch_train_gan_augment_remat.py); and
 without JAX's steps: ``make_lr_schedule`` against optax's schedules at
 counts 0..N (abs 1e-12, both in float64), ``clip_by_global_norm_`` against
 optax's ``clip_by_global_norm`` (rtol 1e-6), remat's gradients against the
-plain ones, the per-step augmentation keys, and the multi-device refusal.
+plain ones, the per-step augmentation keys, and ``check_world``'s rules.
 The GAN-side options are in tests/test_torch_train_gan_options.py.
 """
 
@@ -33,7 +33,8 @@ from fast_srgan_torch.train.steps import (
     make_lr_schedule,
     update_count,
 )
-from fast_srgan_torch.train.trainer import refuse_multi_device
+from fast_srgan_torch.parallel.dist import DistInfo
+from fast_srgan_torch.train.trainer import check_world
 from fast_srgan_tpu.config import default_config as jax_default_config
 from fast_srgan_tpu.ops.augment import augment_dihedral
 from fast_srgan_tpu.train import losses as jax_losses
@@ -204,7 +205,16 @@ def test_augment_keys_follow_the_update_count(hr_batch):
     assert not torch.equal(coins(64, 7), coins(64, 8))
 
 
-def test_multi_device_is_refused():
-    refuse_multi_device(default_config(parallel={"num_devices": 1}))
-    with pytest.raises(NotImplementedError, match="num_devices"):
-        refuse_multi_device(default_config(parallel={"num_devices": 2}))
+def test_check_world_holds_the_config_to_the_processes():
+    """parallel.num_devices is the number of processes; the global batch
+    splits over them, and each rank's slice over grad_accum."""
+    two = DistInfo(rank=1, world=2, group=object())
+    check_world(default_config(parallel={"num_devices": 1}), DistInfo())
+    check_world(default_config(parallel={"num_devices": 2},
+                               training={"batch_size": 4, "grad_accum": 2}), two)
+    with pytest.raises(SystemExit, match="nproc_per_node 2"):
+        check_world(default_config(parallel={"num_devices": 2}), DistInfo())
+    with pytest.raises(SystemExit, match="divisible by the mesh size"):
+        check_world(default_config(training={"batch_size": 3}), two)
+    with pytest.raises(SystemExit, match="grad_accum"):
+        check_world(default_config(training={"batch_size": 4, "grad_accum": 4}), two)

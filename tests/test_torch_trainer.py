@@ -361,13 +361,15 @@ class TestLrLogging:
 
 
 def test_multi_device_is_refused(tmp_path, npy_dir):
+    """A Trainer of one process refuses the settings of several:
+    parallel.num_devices=2 names the launcher, multihost needs its env."""
     config = make_config(tmp_path, npy_dir)
     config.parallel.num_devices = 2
-    with pytest.raises(NotImplementedError, match="num_devices"):
+    with pytest.raises(SystemExit, match="torchrun --nproc_per_node 2"):
         _trainer(config)
     config.parallel.num_devices = None
     config.parallel.multihost = True
-    with pytest.raises(NotImplementedError, match="multihost"):
+    with pytest.raises(SystemExit, match="multihost needs torchrun"):
         _trainer(config)
 
 
