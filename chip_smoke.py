@@ -12,9 +12,13 @@ own line; any failure exits non-zero and prints no result:
   3. kernel: the instance-norm family's two epilogues (IN + PReLU, IN +
      residual add) against their plain PyTorch versions on the card, at the
      serving path's shape (bf16: the resident form; fp32: two launches), a
-     ragged one and a 540x960 frame (two launches), and on near-constant
-     inputs in both forms; timed at the serving shape and the 540x960 frame
-     beside F.instance_norm as a yardstick;
+     ragged one and a 540x960 frame one and eight at a time (two launches),
+     each called twice and the two bitwise equal, and on near-constant
+     inputs in both forms; timed at the serving shape (both dtypes) and the
+     540x960 frames beside F.instance_norm as a yardstick; then (3b) the
+     widest C the two launches take (512 and 1024 fp32 channels, normal
+     draws): each epilogue's and the plain fp32 version's distance from a
+     float64 norm;
   4. serving: the pretrained 4x generator (models/generator_pretrained.npz,
      bf16) answers 12 requests from 4 threads through the micro-batcher;
      the launch counts must be n_layers (IN+PReLU) and n_layers + 1
@@ -121,18 +125,23 @@ own line; any failure exits non-zero and prints no result:
      the one card (a repeated device: the halo and statistics exchange of
      several cards, for correctness; the times are the cost of the halos
      and split norms on one card, not a scaling number): the split form of
-     the IN family (statistics, then normalize with every shard's partials)
-     against its plain versions at [1,64,540,240] a shard in bf16 and fp32
-     (2e-2 / 3e-2 / 2e-5), the statistics bitwise equal on every shard,
-     timed; the s8 conv's halo form bitwise against its plain version
-     (stage 1 with and without the quantize, a trunk conv, the four
-     phases) at a [1,Cin,540,242] shard, timed; the pretrained 4x
-     generator on a 4K frame (540x960 -> 2160x3840): bf16 >= 40 dB against
-     the one-device fp32 engine with exact split-form launch counts (the
-     main path), fp32 (TF32 off) within 1 count of it, int8 ups in fp32
-     glue in the bounded-flip contract against the one-device int8 engine
-     (halo-form launch counts), bf16 glue >= 33 dB; ms a 4K frame sharded
-     against one device (indicative); a 2-D ("data", "sp") 2x2 mesh at
+     the IN family (each shard's statistics [1,1,128], then normalize with
+     every shard's, joined) against its plain versions at [1,64,540,240] a
+     shard in bf16 and fp32 (2e-2 / 3e-2 / 2e-5), the statistics bitwise
+     equal on every shard and every op bitwise equal run to run, timed a
+     shard, and a whole frame's split IN+PReLU and IN+add (4 statistics,
+     then 4 applies, as the sharded forward runs them) timed against its
+     plain norm; the s8 conv's halo form bitwise
+     against its plain version (stage 1 with and without the quantize, a
+     trunk conv, the four phases) at a [1,Cin,540,242] shard, timed; the
+     pretrained 4x generator on a 4K frame (540x960 -> 2160x3840): bf16 >=
+     40 dB against the one-device fp32 engine with exact split-form launch
+     counts (the main path), fp32 (TF32 off) within 1 count of it, int8
+     ups in fp32 glue in the bounded-flip contract against the one-device
+     int8 engine (halo-form launch counts), bf16 glue >= 33 dB; ms a 4K
+     frame sharded against one device (indicative), in turns: eager, by
+     CUDA-graph replay (device time), and the host's ms to enqueue one
+     frame from an idle card; a 2-D ("data", "sp") 2x2 mesh at
      batch 2, the canonical tail, 2x and 8x generators at depth 2, each
      within 1 count of its one-device fp32 forward; the data-parallel
      engine on [cuda:0, cuda:0] at batch 8 (fp32, bf16, int8): bitwise
@@ -146,19 +155,21 @@ own line; any failure exits non-zero and prints no result:
      takes 64 input channels only; no fused launch, two shuffles), within
      5e-5 of ``fused_upsample=False`` in fp32; then each of ``python -m
      fast_srgan_torch.scripts.{bench_4k,eval_int8,bench_serve,
-     train_throughput,profile_model,soak}`` in a subprocess at a reduced
-     size, each printing its summary line: ``bench_4k`` (16 frames, bf16
-     and ``--int8``; run right after phase 14), its bf16 one-frame forward
-     within 2% of phase 14's one-device time; ``eval_int8`` at 4x (batch 8, arms
-     bf16, full, tail, trunk, ups), each PSNR at least its bar (ups and
+     train_throughput,profile_model,soak}`` in a subprocess at
+     a reduced size, each printing its summary line: ``bench_4k`` (16
+     frames, bf16 and ``--int8``; run right after phase 14), its bf16
+     one-frame forward within 2% of phase 14's one-device time;
+     ``eval_int8`` at 4x (batch 8, arms bf16, full, tail, trunk, ups),
+     each PSNR at least its bar (ups and
      tail 37 dB, full and trunk 33; at 2x, full and trunk at least the
      JAX package's own 2x value less 0.3 dB), and at 2x and 8x (batch 2);
      ``bench_serve`` (4 clients x 4 requests of 90x160 and 180x320): every
      reply 200 and no batch shape new under load; ``train_throughput`` (10
      steps): finite ms a pretrain and a GAN step, fused and unfused;
-     ``profile_model`` (forward at 8x180x320, the fused canonical tail and
-     the int8 ``ups`` tier): FLOPs equal to the analytic count of the
-     generator's convs, the s8 and fused ops' included; ``soak`` (40
+     ``profile_model`` (forward at 8x180x320, the fused
+     canonical tail and the int8 ``ups`` tier): FLOPs equal to the
+     analytic count of the generator's convs, the s8 and fused ops'
+     included; ``soak`` (40
      pretrain + 80 GAN steps at batch 8, SIGINT mid-GAN and a resume):
      verdict ``ok``. No subprocess may import JAX or the JAX package.
      The scripts run one at a time (run together, they ran the card out of
@@ -446,15 +457,22 @@ def phase_kernel() -> dict:
     # than one bf16 ulp, and with |skip| <= 1 the sum stays below 4. Normal
     # draws at 29M elements put thousands of values above 4, where a one-ulp
     # flip from summation order alone is 0.031. The serving shape takes the
-    # resident form in bf16 and the two launches in fp32; the 540x960 frame
-    # takes the two launches.
+    # resident form in bf16 and the two launches in fp32; the 540x960 frame,
+    # one at a time (the one-device 4K forward) and eight (4K streaming),
+    # takes the two launches. Every case is also called twice: the two
+    # launches sum each sample's totals once, in block order, whichever block
+    # arrives last, so the two calls agree bit for bit.
     cases = [
         ("serving bf16", (8, 64, 180, 320), torch.bfloat16, "uniform", True),
         ("serving fp32", (8, 64, 180, 320), torch.float32, "normal", True),
         ("ragged bf16", (1, 64, 37, 53), torch.bfloat16, "uniform", False),
         ("ragged fp32", (1, 64, 37, 53), torch.float32, "normal", False),
         ("540x960 bf16", (1, 64, 540, 960), torch.bfloat16, "uniform", True),
+        ("540x960 batch 8 bf16", (8, 64, 540, 960), torch.bfloat16, "uniform", True),
     ]
+    # the two-launch cases' keys in the kernels line
+    two_launch_keys = {"540x960 bf16": "two_launch", "540x960 batch 8 bf16": "two_launch_b8",
+                       "serving fp32": "two_launch_fp32"}
     rows = {name: {} for name in forms}
     taken = set()
     for case, shape, dtype, dist, timed in cases:
@@ -477,8 +495,10 @@ def phase_kernel() -> dict:
             check(got.is_contiguous(memory_format=torch.channels_last), f"{label}: layout")
             check(bool(torch.isfinite(got).all()), f"{label}: non-finite output")
             err = (got.float() - want.float()).abs().max().item()
+            same = torch.equal(kernel(x, skip), got)
             line = (f"[3 kernel] {label} {list(shape)} ({form}): max_abs_err {err:.3e}"
-                    f" (tol {tol:g})")
+                    f" (tol {tol:g}); run to run bitwise {same}")
+            check(same, f"{label}: two calls differ")
             if timed:
                 ms, plain_ms = _timed_pair(lambda: kernel(x, skip), lambda: plain(x, skip))
                 yard_ms = cuda_ms(lambda: yardstick(x, skip), 20)
@@ -493,10 +513,12 @@ def phase_kernel() -> dict:
                     rows[name].update({"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                                        "library_ms": None, **bnd,
                                        "f_instance_norm_ms": yard_ms})
-                elif case == "540x960 bf16":
-                    rows[name].update({"two_launch_ms": ms, "two_launch_plain_ms": plain_ms,
-                                       "two_launch_bound_ms": bnd["bound_ms"],
-                                       "two_launch_f_instance_norm_ms": yard_ms})
+                elif case in two_launch_keys:
+                    key = two_launch_keys[case]
+                    rows[name].update({f"{key}_ms": ms, f"{key}_plain_ms": plain_ms,
+                                       f"{key}_bound_ms": bnd["bound_ms"],
+                                       f"{key}_f_instance_norm_ms": yard_ms,
+                                       f"{key}_max_abs_err": err})
             print(line, flush=True)
             check(err <= tol, f"{label}: max_abs_err {err} > {tol}")
     check(taken == {False, True}, "phase 3 did not run both forms")
@@ -521,6 +543,52 @@ def phase_kernel() -> dict:
                   f" finite {finite}", flush=True)
             check(finite, f"near-constant {list(shape)} {dtype}: non-finite output")
     return rows
+
+
+def phase_widest_channels() -> dict:
+    """3b: the two launches at the widest C they take in fp32 (512 and 1024
+    channels, 128 and 256 vectors a pixel) on normal draws, where the
+    one-pass variance cancels at the tails and the summation order shows:
+    each epilogue's largest distance from a float64 two-pass norm, beside
+    the plain fp32 version's, the kernel's held to FP32_TOL. Public ops
+    only. Returns {C: {form: (kernel, plain)}}."""
+    from fast_srgan_torch.kernels.instance_norm import (
+        EPS,
+        instance_norm_add,
+        instance_norm_add_reference,
+        instance_norm_prelu,
+        instance_norm_prelu_reference,
+    )
+
+    dev = torch.device("cuda")
+    alpha = torch.tensor([0.173], device=dev)
+    found = {}
+    for c in (512, 1024):
+        shape = (2, c, 48, 48)
+        gen = torch.Generator(device=dev).manual_seed(12)
+        scale = torch.rand((1, c, 1, 1), device=dev, generator=gen) * 1.5 + 0.5
+        shift = torch.rand((1, c, 1, 1), device=dev, generator=gen) * 4 - 2
+        x = (torch.randn(shape, device=dev, generator=gen) * scale + shift)
+        x = x.contiguous(memory_format=torch.channels_last)
+        skip = (torch.rand(shape, device=dev, generator=gen) * 2 - 1)
+        skip = skip.contiguous(memory_format=torch.channels_last)
+        x64 = x.double()
+        mean = x64.mean((2, 3), keepdim=True)
+        y64 = (x64 - mean) / torch.sqrt((x64 - mean).square().mean((2, 3), keepdim=True) + EPS)
+        want = {"IN+PReLU": torch.where(y64 >= 0, y64, 0.173 * y64),
+                "IN+add": y64 + skip.double()}
+        got = {"IN+PReLU": (instance_norm_prelu(x, alpha), instance_norm_prelu_reference(x, alpha)),
+               "IN+add": (instance_norm_add(x, skip), instance_norm_add_reference(x, skip))}
+        torch.cuda.synchronize()
+        found[c] = {form: tuple((t.double() - want[form]).abs().max().item() for t in pair)
+                    for form, pair in got.items()}
+        line = "; ".join(f"{form} kernel {k:.3e}, plain fp32 {p:.3e}"
+                         for form, (k, p) in found[c].items())
+        print(f"[3b kernel] widest channels fp32 {list(shape)}, normal draws, from a float64"
+              f" norm: {line}", flush=True)
+        check(all(k <= FP32_TOL for k, _ in found[c].values()),
+              f"widest channels C={c}: {line}")
+    return found
 
 
 def phase_serving(params, frames) -> tuple:
@@ -2191,13 +2259,62 @@ def _tile_mesh(rows: int = 0):
     return Mesh([dev] * TILE_SHARDS, ("sp",))
 
 
+def split_frame_times() -> dict:
+    """A 540x960 bf16 frame's split IN+PReLU and IN+add on 4 width shards of
+    the card as the sharded forward runs them (``dist_norm_prelu`` /
+    ``dist_norm_add``: every shard's statistics, then every shard's apply),
+    CUDA-graph replays against the whole frame's plain norm. Unlike one op
+    replayed alone on a shard, no apply finds its shard in L2 from its own
+    previous replay: the other shards' statistics run between. Public ops
+    only. Returns {"prelu"|"add": ms, plain_ms, bound, max_abs_err, and
+    host_ms, the host's ms a call of the frame's norm: 200 calls enqueued
+    back to back, faster on the card than on the host}."""
+    from fast_srgan_torch.kernels.instance_norm import (
+        instance_norm_add_reference,
+        instance_norm_prelu_reference,
+    )
+    from fast_srgan_torch.parallel.spatial import dist_norm_add, dist_norm_prelu
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(15)
+    alpha = torch.tensor([0.173], device=dev)
+    shape = (1, 64) + tuple(TILE_FRAME)
+    scale = torch.rand((1, 64, 1, 1), device=dev, generator=gen) * 1.5 + 0.5
+    shift = torch.rand((1, 64, 1, 1), device=dev, generator=gen) * 4 - 2
+    frame = ((torch.rand(shape, device=dev, generator=gen) * 2 - 1) * scale + shift)
+    frame = frame.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    skip = (torch.rand(shape, device=dev, generator=gen) * 2 - 1).to(torch.bfloat16)
+    skip = skip.contiguous(memory_format=torch.channels_last)
+    xs = [t.contiguous(memory_format=torch.channels_last) for t in frame.chunk(TILE_SHARDS, 3)]
+    ss = [t.contiguous(memory_format=torch.channels_last) for t in skip.chunk(TILE_SHARDS, 3)]
+    xb = frame.numel() * frame.element_size()
+    # every shard's totals written once and read by every shard
+    rows = TILE_SHARDS * (1 + TILE_SHARDS) * 2 * 64 * 4
+    forms = {
+        "prelu": (lambda: dist_norm_prelu(xs, [alpha] * TILE_SHARDS),
+                  lambda: instance_norm_prelu_reference(frame, alpha), 2, 6, BF16_TOL),
+        "add": (lambda: dist_norm_add(xs, ss), lambda: instance_norm_add_reference(frame, skip),
+                3, 7, ADD_BF16_TOL),
+    }
+    found = {}
+    for name, (kernel, plain, per_elem, ops, tol) in forms.items():
+        err = (torch.cat(kernel(), 3).float() - plain().float()).abs().max().item()
+        check(err <= tol, f"split frame IN {name}: max_abs_err {err} > {tol}")
+        ms, plain_ms = _timed_pair(kernel, plain)
+        found[name] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+                       "host_ms": _host_us(kernel, 200) / 1e3,
+                       **bound(per_elem * xb + rows, ops * frame.numel(), FP32_FLOPS)}
+    return found
+
+
 def phase_split_in(card: str) -> dict:
     """14a: the split form of the IN family on a 540x960 frame cut into 4
-    width shards of [1,64,540,240]: each shard's statistics kernel against
-    the plain sums, each normalize kernel against its plain version on the
-    same joined partials and the whole frame's plain norm; every shard's
-    statistics bitwise the same (shard 0 normalized with each shard's copy
-    of the joined partials). Timed a shard. Returns the three ops' rows."""
+    width shards of [1,64,540,240]: each shard's statistics kernel ([1, 1,
+    128], its totals) against the plain sums, each normalize kernel against
+    its plain version on the same joined totals and the whole frame's plain
+    norm; every shard's statistics bitwise the same (shard 0 normalized with
+    each shard's copy of the joined totals), and every op's second call
+    bitwise equal to its first. Timed a shard. Returns the three ops' rows."""
     from fast_srgan_torch.kernels.instance_norm import (
         instance_norm_add_from_stats,
         instance_norm_add_from_stats_reference,
@@ -2229,6 +2346,7 @@ def phase_split_in(card: str) -> dict:
         ss = [t.contiguous(memory_format=torch.channels_last) for t in skip.chunk(TILE_SHARDS, 3)]
         parts = [instance_norm_stats(x) for x in xs]
         plain_parts = [instance_norm_stats_reference(x) for x in xs]
+        shapes_ok = all(p.shape == (1, 1, 128) for p in parts)
         stats_err = max((p - q).abs().max().item() for p, q in zip(parts, plain_parts))
         stats_rel = stats_err / max(q.abs().max().item() for q in plain_parts)
         joined = [torch.cat([p.clone() for p in parts], dim=1) for _ in xs]  # a copy a shard
@@ -2246,13 +2364,21 @@ def phase_split_in(card: str) -> dict:
         same = all(torch.equal(instance_norm_prelu_from_stats(xs[0], alpha, j, count), pre[0])
                    and torch.equal(instance_norm_add_from_stats(xs[0], ss[0], j, count), add[0])
                    for j in joined)
+        # run to run: each shard's totals summed once, in block order, by
+        # whichever block arrives last; the applies on the same totals
+        rerun = (all(torch.equal(instance_norm_stats(x), p) for x, p in zip(xs, parts))
+                 and all(torch.equal(instance_norm_prelu_from_stats(x, alpha, j, count), a)
+                         for x, j, a in zip(xs, joined, pre))
+                 and all(torch.equal(instance_norm_add_from_stats(x, k, j, count), a)
+                         for x, k, j, a in zip(xs, ss, joined, add)))
         tol = BF16_TOL if dtype == torch.bfloat16 else FP32_TOL
         add_tol = ADD_BF16_TOL if dtype == torch.bfloat16 else FP32_TOL
         line = (f"[14 kernel] split IN {name}, {TILE_SHARDS} shards of {[1, 64, h, w // TILE_SHARDS]}"
-                f" ({parts[0].shape[1]} partials a shard): stats max_abs_err {stats_err:.3e}"
-                f" (rel {stats_rel:.2e}, tol 1e-5); IN+PReLU {err_pre:.3e} (tol {tol:g}), whole"
-                f" frame {whole_pre:.3e}; IN+add {err_add:.3e} (tol {add_tol:g}), whole frame"
-                f" {whole_add:.3e}; statistics bitwise equal on every shard {same}")
+                f" (statistics {list(parts[0].shape)} a shard, joined {list(joined[0].shape)}):"
+                f" stats max_abs_err {stats_err:.3e} (rel {stats_rel:.2e}, tol 1e-5); IN+PReLU"
+                f" {err_pre:.3e} (tol {tol:g}), whole frame {whole_pre:.3e}; IN+add"
+                f" {err_add:.3e} (tol {add_tol:g}), whole frame {whole_add:.3e}; statistics"
+                f" bitwise equal on every shard {same}; run to run bitwise {rerun}")
         if dtype == torch.bfloat16:
             x0, k0, j0 = xs[0], ss[0], joined[0]
             xb = x0.numel() * x0.element_size()
@@ -2274,10 +2400,24 @@ def phase_split_in(card: str) -> dict:
                 ms, plain_ms = _timed_pair(kernel, plain)
                 rows[op].update({"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                                  "library_ms": None, **bnd,
-                                 "shape": [1, 64, h, w // TILE_SHARDS]})
+                                 "shape": [1, 64, h, w // TILE_SHARDS],
+                                 "timed": "one shard replayed alone, L2-resident"})
                 line += (f"; {op} {ms:.4f} ms, {100 * bnd['bound_ms'] / ms:.1f}% of its"
                          f" {bnd['bound_ms']:.4f} ms bound ({bnd['bound_by']}), plain"
                          f" {plain_ms:.4f} ms")
+            frame = split_frame_times()
+            for op, key in (("instance_norm_prelu_from_stats", "prelu"),
+                            ("instance_norm_add_from_stats", "add")):
+                f = frame[key]
+                rows[op].update({"frame_ms": f["ms"], "frame_plain_ms": f["plain_ms"],
+                                 "frame_bound_ms": f["bound_ms"],
+                                 "frame_max_abs_err": f["max_abs_err"],
+                                 "frame_host_ms": f["host_ms"]})
+                line += (f"; a whole frame's {TILE_SHARDS} statistics and {TILE_SHARDS}"
+                         f" {key} applies {f['ms']:.4f} ms, {100 * f['bound_ms'] / f['ms']:.1f}%"
+                         f" of its {f['bound_ms']:.4f} ms bound, plain {f['plain_ms']:.4f} ms,"
+                         f" max_abs_err {f['max_abs_err']:.3e}, host {f['host_ms']:.3f} ms a"
+                         f" call")
             line += f" ({card})"
         print(line, flush=True)
         check(stats_rel <= 1e-5, f"split IN {name}: statistics off by {stats_rel:.2e}")
@@ -2285,6 +2425,8 @@ def phase_split_in(card: str) -> dict:
         check(err_add <= add_tol and whole_add <= add_tol,
               f"split IN+add {name}: {err_add}, {whole_add}")
         check(same, f"split IN {name}: the shards' statistics differ")
+        check(shapes_ok, f"split IN {name}: statistics of shape {list(parts[0].shape)}")
+        check(rerun, f"split IN {name}: two calls differ")
     return rows
 
 
@@ -2481,20 +2623,53 @@ def phase_tiled(params, frames, card: str) -> dict:
           f" engine (floor {min(INT8_PSNR_MIN_DB.values())})", flush=True)
     check(dbq >= min(INT8_PSNR_MIN_DB.values()), f"tiled int8 bf16 PSNR {dbq:.2f}")
 
-    # ms a 4K frame, bf16, the float forward alone: one device, sharded, in turns
-    arms = {"one device": lambda: one16._apply(x), "sharded": lambda: tiled16(params, x)}
-    ms = {k: [] for k in arms}
-    with torch.inference_mode():
-        for k in ("one device", "sharded", "sharded", "one device"):
-            ms[k].append(events_ms(arms[k], 10))
+    ms = forward_4k_times(params, x, one16, tiled16)
     one_ms, tiled_ms = np.mean(ms["one device"]), np.mean(ms["sharded"])
     print(f"[14 time] 4K bf16 forward: {TILE_SHARDS} shards of one card {tiled_ms:.2f} ms a frame"
           f" ({ms['sharded'][0]:.2f}, {ms['sharded'][1]:.2f}), one device {one_ms:.2f} ms"
           f" ({ms['one device'][0]:.2f}, {ms['one device'][1]:.2f}); sharded/one device"
           f" {tiled_ms / one_ms:.3f} (the halos' and split norms' cost on one card, not a"
           f" scaling number; {card}; indicative)", flush=True)
+    print("[14 time] 4K bf16 forward, device ms by CUDA-graph replay: " + ", ".join(
+        f"{k} {np.mean(ms[k + ' graph']):.3f} ({', '.join(f'{v:.3f}' for v in ms[k + ' graph'])})"
+        for k in ("sharded", "one device")) + "; host ms to enqueue one frame from an idle"
+        " card: " + ", ".join(
+        f"{k} {np.mean(ms[k + ' host']):.2f} ({', '.join(f'{v:.2f}' for v in ms[k + ' host'])})"
+        for k in ("sharded", "one device")) + f" ({card})", flush=True)
     return {"counts": counts, "int8_counts": q_counts, "tiled_ms": tiled_ms, "one_ms": one_ms,
             "one_runs": ms["one device"]}
+
+
+def _enqueue_ms(fn, iters: int) -> float:
+    """Median host ms from the call of fn() to its return, the card idle at
+    each call: the host's dispatch of one call (the host's clock spreads
+    widely between calls on a shared host)."""
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    return float(np.median(times))
+
+
+def forward_4k_times(params, x, one16, tiled16) -> dict:
+    """ms of the bf16 float forward of the 4K frame x on one device
+    (``one16._apply``) and on the width shards (``tiled16``), each arm in
+    turns (one device, sharded, sharded, one device): eager by CUDA events
+    around 10 calls; device time by replays of a CUDA graph of one call
+    (" graph", 5 replays); the host's ms to enqueue one call from an idle
+    card (" host", the median of 10 calls). Public entry points only."""
+    arms = {"one device": lambda: one16._apply(x), "sharded": lambda: tiled16(params, x)}
+    ms = {}
+    with torch.inference_mode():
+        for suffix, timer in (("", lambda fn: events_ms(fn, 10)),
+                              (" graph", lambda fn: cuda_ms(fn, 5)),
+                              (" host", lambda fn: _enqueue_ms(fn, 10))):
+            for k in ("one device", "sharded", "sharded", "one device"):
+                ms.setdefault(k + suffix, []).append(timer(arms[k]))
+    return ms
 
 
 def _random_params(scale: int, seed: int, n_layers: int = 2) -> dict:
@@ -2981,6 +3156,7 @@ def main() -> None:
     kind, card = phase_device()
     phase_build()
     in_rows = phase_kernel()
+    phase_widest_channels()
     up_row = phase_upsample_kernel(card)
     shuffle_row, stage_ms = phase_shuffle_kernel()
 
@@ -3035,12 +3211,14 @@ def main() -> None:
     # phase 13's checked calls of the loaded artifacts (the IN rows'
     # two_launch_artifact_launches the 540x960 artifact's one call). The IN
     # rows' times are the serving shape's (resident form), two_launch_* the
-    # 540x960 frame's; the s8 conv's are the four-phase launch's. library_ms
+    # 540x960 frame's (two_launch_b8_* eight of them, two_launch_fp32_* fp32
+    # at the serving shape); the s8 conv's are the four-phase launch's. library_ms
     # is null where no one PyTorch call computes the kernel's function
     # (f_instance_norm_ms and cudnn_bf16_ms are yardsticks only). op is the
     # torch.library op each wrapper calls. The split IN rows' launches are
     # phase 14's bf16 4K tiled forward (int8_launches its int8 one), the s8
-    # halo form's the int8 one; their times are a shard's. dp_launches are
+    # halo form's the int8 one; their times are a shard's (frame_* a whole
+    # frame's statistics and applies, as the forward runs them). dp_launches are
     # phase 16b's, one count a rank (both upsample arms)
     two = exported["two_launch"]
     split = tiled["counts"]

@@ -52,20 +52,35 @@
 //   makes its data visible.
 //
 //   Two launches (in_stats_kernel, in_apply_kernel): where a tile does not
-//   fit in shared memory (a sample too large for the SMs' shared memory).
-//   The apply pass walks the tiles and samples in reverse of the statistics
-//   pass, so the tiles read last, still in the 50 MB L2, are re-read first.
+//   fit in shared memory (a sample too large for the SMs' shared memory:
+//   bf16 [1,64,540,960], fp32 at the serving shape). The grid is [tiles, B]
+//   of 256-thread blocks, tiles = kTwoLaunchBlocks x the SMs (fewer for a
+//   small sample) whatever B is, so a sample's sums come out the same bits
+//   alone, in a batch and as one shard of the split form. The blocks of a
+//   sample sweep it as one front, a chunk each at a time, and a thread
+//   loads its kBatch 16-byte vectors of a chunk before it uses any (64 KB
+//   an SM in flight). The statistics pass writes each block's partial
+//   sums; the last block of a sample to arrive (a counter under
+//   __threadfence + atomicAdd, zeroed by a memset in the stream, so
+//   CUDA-graph replay stays right) sums the sample's partials in block
+//   order into its fp32 totals: the same bits
+//   whichever block arrives last. An apply block then reads O(C) totals,
+//   not every partial. The apply sweeps the batch backwards, so what the
+//   statistics pass read last, still in the 50 MB L2, is re-read first,
+//   and stores out evict-first (.cs), so that out does not push out the x
+//   still to be re-read. Bound: bytes (x read once, out written once); on
+//   an H100 the statistics pass reads x as fast as torch.sum does and the
+//   apply moves its bytes about as fast as a copy (PERF.md, section 6).
 //
 // Split form (the width-sharded forward, fast_srgan_torch/parallel/
 // spatial.py): the two passes as their own entry points. It replaces
 // `_dist_instance_norm` (fast_srgan_tpu/parallel/spatial.py), which XLA
 // lowered on the TPU: per-shard fp32 sums and sums of squares, psum'd over
 // the shards, count = H x the whole frame's width. Here each shard's
-// statistics pass writes its tiles' partials; the caller gathers every
-// shard's partials, in one order, to every shard; each shard's apply pass
-// sums all of them (n_parts, not its own grid) over the global count. The
-// sum runs in one fixed order for a given n_parts and C, so every shard
-// normalizes with bitwise the same statistics. Bound: bytes, as above.
+// statistics pass writes its totals (the psum's per-shard term); the caller
+// gathers every shard's, in shard order, to every shard; each shard's apply
+// pass adds those few rows in row order over the global count, so every
+// shard normalizes with bitwise the same statistics. Bound: bytes, as above.
 //
 // Masked forms (M = true, the bucketed forward): x is a zero-padded frame of
 // width W, and sample b's valid region is y < vh[b], x < vw[b]. They replace
@@ -76,8 +91,9 @@
 //   out = epilogue(y) at a valid pixel; PReLU: 0, add: skip at padding
 //
 // They read and write the same bytes as the unmasked forms at the padded
-// shape (x at padded pixels is fetched with its tile and left out of the
-// sums). The predicate is one per 16-byte vector (a vector is one pixel's
+// shape, or fewer (the resident form fetches x at padded pixels with its
+// tile and leaves it out of the sums; the two launches skip those loads).
+// The predicate is one per 16-byte vector (a vector is one pixel's
 // channels): each thread finds its first pixel's (row, column) once and
 // steps it by its pixel stride, with no division a vector. The resident
 // form is latency-bound, so the predicate's instructions show in its time:
@@ -85,12 +101,13 @@
 // at its top, ahead of the stages that wait on them.
 //
 // The wrapper (fast_srgan_torch/kernels/instance_norm.py) chooses the form
-// by shape, and guarantees: C % N == 0 with N = 16 / sizeof(T), C / N <=
-// 256, contiguous channels_last x, skip and out aligned to 16 bytes, alpha
-// a device fp32 scalar; for the two launches partial of B * (tiles a
-// sample) * 2 * C floats; for the resident form gridDim.x = per_wave *
-// (tiles a sample) <= the SMs, shared memory for min(waves, 3) tiles, and
-// 8 * B * (tiles + 1) * 2 * C bytes of scratch for the tagged words.
+// and the grid by shape, and guarantees: C % N == 0 with N = 16 / sizeof(T),
+// C / N <= 256, contiguous channels_last x, skip and out aligned to 16
+// bytes, alpha a device fp32 scalar; for the two launches scratch of
+// B * (tiles a sample + 1) * 2 * C + B floats; for the resident form
+// gridDim.x = per_wave * (tiles a sample) <= the SMs, shared memory for
+// min(waves, 3) tiles, and 8 * B * (tiles + 1) * 2 * C bytes of scratch for
+// the tagged words.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -98,6 +115,9 @@
 namespace {
 
 constexpr int kThreads = 256;          // two-launch form
+constexpr int kTwoLaunchBlocks = 2;    // its blocks a sample an SM
+constexpr int kBatch = 8;   // 16-byte vectors a two-launch thread loads at once
+constexpr int kRowBatch = 16;  // rows of statistics a thread loads at once
 constexpr int kResidentThreads = 512;  // resident form, at most
 constexpr int kPrelu = 0;
 constexpr int kAdd = 1;
@@ -119,8 +139,12 @@ struct Pack<float> {
   static __device__ __forceinline__ void load(const float* p, float (&v)[4]) {
     unpack(*reinterpret_cast<const uint4*>(p), v);
   }
+  static __device__ __forceinline__ uint4 pack(const float (&v)[4]) {
+    return make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]),
+                      __float_as_uint(v[2]), __float_as_uint(v[3]));
+  }
   static __device__ __forceinline__ void store(float* p, const float (&v)[4]) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+    *reinterpret_cast<uint4*>(p) = pack(v);
   }
   static __device__ __forceinline__ float round(float v) { return v; }
 };
@@ -141,15 +165,18 @@ struct Pack<__nv_bfloat16> {
                                               float (&v)[8]) {
     unpack(*reinterpret_cast<const uint4*>(p), v);
   }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p,
-                                               const float (&v)[8]) {
+  static __device__ __forceinline__ uint4 pack(const float (&v)[8]) {
     uint4 t;
     __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&t);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
     }
-    *reinterpret_cast<uint4*>(p) = t;
+    return t;
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p,
+                                               const float (&v)[8]) {
+    *reinterpret_cast<uint4*>(p) = pack(v);
   }
   static __device__ __forceinline__ float round(float v) {
     return __bfloat162float(__float2bfloat16_rn(v));
@@ -295,42 +322,55 @@ __device__ void block_sums(float (&s)[N], float (&q)[N], float* red,
   }
 }
 
-// Mean and 1/sqrt(var + eps) of one sample from its n partials
-// (partial[k][0, 2c)), summed in one fixed order, into stat[0, c) and
-// stat[c, 2c). A thread sums one 16-byte quad of statistics over a strided
-// share of the partials. red2 holds max(4 * blockDim.x, 2c) floats. Every
-// thread of the block must call it.
-__device__ void sample_stats(const float* partial, int n, int c, int count,
-                             float eps, float* red2, float* stat) {
-  const int c2 = 2 * c;
+// a += v, compensated (Kahan): e carries the low bits a lost, so a long
+// run of adds is as accurate as a tree.
+__device__ __forceinline__ void kahan_add(float& a, float& e, float v) {
+  const float y = v - e;
+  const float t = a + y;
+  e = (t - a) - y;
+  a = t;
+}
+
+// The sums of n rows of 2c floats (rows[k][0, 2c)) into out[0, 2c), in one
+// fixed order for a given n, c and blockDim.x, whichever block runs it: a
+// thread sums one 16-byte quad of statistics over the rows k = j / quads,
+// j / quads + parts, ... (kRowBatch loads issued before their adds,
+// compensated: with one part a thread adds every row, up to 2 x the SMs,
+// and the one-pass variance would pass on a plain running sum's error),
+// then the parts are added in order. red2 holds max(4 * blockDim.x, 2c)
+// floats. Every thread of the block must call it.
+__device__ void sum_rows(const float* rows, int n, int c2, float* red2,
+                         float* out) {
   const int quads = c2 / 4;
   const int parts = max(1, static_cast<int>(blockDim.x) / quads);
   for (int j = threadIdx.x; j < parts * quads; j += blockDim.x) {
-    const float4* col = reinterpret_cast<const float4*>(partial) + j % quads;
+    const float4* col = reinterpret_cast<const float4*>(rows) + j % quads;
     float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll 4
-    for (int k = j / quads; k < n; k += parts) {
-      const float4 v = __ldcg(col + (size_t)k * quads);
-      a.x += v.x;
-      a.y += v.y;
-      a.z += v.z;
-      a.w += v.w;
+    float4 e = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int k0 = j / quads; k0 < n; k0 += kRowBatch * parts) {
+      float4 v[kRowBatch];
+#pragma unroll
+      for (int i = 0; i < kRowBatch; ++i) {
+        const int k = k0 + i * parts;
+        v[i] = k < n ? __ldcg(col + (size_t)k * quads)
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int i = 0; i < kRowBatch; ++i) {
+        kahan_add(a.x, e.x, v[i].x);
+        kahan_add(a.y, e.y, v[i].y);
+        kahan_add(a.z, e.z, v[i].z);
+        kahan_add(a.w, e.w, v[i].w);
+      }
     }
     reinterpret_cast<float4*>(red2)[j] = a;  // red2[part][2c]
   }
   __syncthreads();
-  for (int ch = threadIdx.x; ch < c; ch += blockDim.x) {
-    float s = 0.f, q = 0.f;
-    for (int p = 0; p < parts; ++p) {
-      s += red2[p * c2 + ch];
-      q += red2[p * c2 + c + ch];
-    }
-    const float mean = s / (float)count;
-    const float var = fmaxf(q / (float)count - mean * mean, 0.f);
-    stat[ch] = mean;
-    stat[c + ch] = 1.0f / sqrtf(var + eps);
+  for (int stat = threadIdx.x; stat < c2; stat += blockDim.x) {
+    float a = 0.f;
+    for (int p = 0; p < parts; ++p) a += red2[p * c2 + stat];
+    out[stat] = a;
   }
-  __syncthreads();
 }
 
 // A thread's pixels p, p + stride, p + 2 * stride, ... of a W-wide frame,
@@ -580,25 +620,36 @@ int launch_resident(const T* x, const T* skip, const float* alpha,
 
 // -------------------------------------------------------------- two launches
 //
-// Thread layout: thread t owns channel group t % groups (N channels) and
-// walks the tile's pixels from t / groups with a stride of rows =
-// blockDim.x / groups.
+// A [tiles, B] grid: the blocks of sample b sweep it together, a chunk of
+// kBatch * rows pixels a block at a time (chunk j to block j mod tiles),
+// so the pixels in flight are one front that moves through the sample.
+// `tiles` depends on the sample's size only, so a sample's statistics are
+// the same bits alone, in a batch, and as one shard of the split form.
+// Thread t owns channel group g = t % groups (N channels) and pixel row
+// r = t / groups of rows = blockDim.x / groups, and loads its kBatch
+// vectors of a chunk (pixels rows apart) before it uses any of them.
 
+// The statistics pass: each block's partial sums into partial[b][block][2c];
+// the last block of a sample to arrive (arrived[b], zeroed ahead of the
+// launch) sums the sample's partials in block order into totals[b][2c].
 template <typename T, bool M>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kTwoLaunchBlocks)
     in_stats_kernel(const T* __restrict__ x, const int* __restrict__ vh,
                     const int* __restrict__ vw, float* __restrict__ partial,
-                    int hw, int w, int c, int tile_px) {
+                    float* __restrict__ totals,
+                    unsigned* __restrict__ arrived, int hw, int w, int c) {
   using P = Pack<T>;
   constexpr int N = P::N;
   extern __shared__ float smem_f[];  // red [2c][rows + 1], red2
+  __shared__ bool last;
   const int groups = c / N;
   const int rows = blockDim.x / groups;
   const int g = threadIdx.x % groups;
   const int r = threadIdx.x / groups;
-  const int tile = blockIdx.x;
+  const int c2 = 2 * c;
+  const int tiles = gridDim.x;
   const int b = blockIdx.y;
-  const int p_end = min((tile + 1) * tile_px, hw);
+  const int chunk = kBatch * rows;
 
   const T* xb = x + (size_t)b * hw * c + g * N;
   float s[N], q[N];
@@ -608,51 +659,119 @@ __global__ void __launch_bounds__(kThreads)
     q[i] = 0.f;
   }
   const int hb = M ? __ldg(vh + b) : 0, wb = M ? __ldg(vw + b) : 0;
-  PixelWalk px(tile * tile_px + r, rows, M ? w : 1);  // w is 0 unmasked
-  for (int p = tile * tile_px + r; p < p_end; p += rows, px.next()) {
-    if (M && !px.inside(hb, wb)) continue;
-    float v[N];
-    P::load(xb + (size_t)p * c, v);
+  for (int p = blockIdx.x * chunk + r; p < hw; p += tiles * chunk) {
+    PixelWalk px(p, rows, M ? w : 1);  // w is 0 unmasked
+    uint4 v[kBatch];
 #pragma unroll
-    for (int i = 0; i < N; ++i) {
-      s[i] += v[i];
-      q[i] += v[i] * v[i];
+    for (int k = 0; k < kBatch; ++k) {
+      const int pk = p + k * rows;
+      const bool ok = pk < hw && (!M || px.inside(hb, wb));
+      if (M) px.next();
+      v[k] = ok ? __ldg(reinterpret_cast<const uint4*>(xb + (size_t)pk * c))
+                : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      float e[N];
+      P::unpack(v[k], e);
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        s[i] += e[i];
+        q[i] += e[i] * e[i];
+      }
     }
   }
   float* red = smem_f;
-  float* red2 = red + 2 * c * (rows + 1);
-  float* mine = partial + ((size_t)b * gridDim.x + tile) * 2 * c;
+  float* red2 = red + c2 * (rows + 1);
+  float* mine = partial + ((size_t)b * tiles + blockIdx.x) * c2;
   block_sums<N>(s, q, red, red2, groups, c,
                 [&](int j, float v) { mine[j] = v; });
+  // publish the partial, then count the block in: the last one sums
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    last = atomicAdd(arrived + b, 1u) == static_cast<unsigned>(tiles - 1);
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  sum_rows(partial + (size_t)b * tiles * c2, tiles, c2, red2,
+           totals + (size_t)b * c2);
 }
 
-// n_parts: the partials a sample has (partial[b][n_parts][2c]); count: the
-// pixels they sum over (unmasked; the masked form counts vh[b] * vw[b]).
+// The normalize pass. totals[b][n_parts][2c] holds the sample's sums in
+// n_parts rows (1, or one a shard of a sharded frame), added here in row
+// order over count pixels (the masked form counts vh[b] * vw[b]). The
+// blocks sweep the batch backwards, the reverse of the statistics pass,
+// so what that pass read last, still in L2, is read first; out is stored
+// evict-first (st.global.cs): it is not read again here, and it would
+// push out the x still to be re-read.
 template <typename T, int E, bool M>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kTwoLaunchBlocks)
     in_apply_kernel(const T* __restrict__ x, const T* __restrict__ skip,
-                    const float* __restrict__ partial,
+                    const float* __restrict__ totals,
                     const float* __restrict__ alpha,
                     const int* __restrict__ vh, const int* __restrict__ vw,
-                    T* __restrict__ out, int hw, int w, int c, int tile_px,
-                    int n_parts, int count, float eps) {
+                    T* __restrict__ out, int hw, int w, int c, int n_parts,
+                    int count, float eps) {
   using P = Pack<T>;
   constexpr int N = P::N;
-  extern __shared__ float smem_f[];  // red2, then mean [c], 1/sqrt [c]
+  // vectors a thread loads at once: x's (and skip's)
+  constexpr int kB = E == kAdd ? kBatch / 2 : kBatch;
+  extern __shared__ float smem_f[];  // mean [c], 1/sqrt [c]
   const int groups = c / N;
   const int rows = blockDim.x / groups;
   const int g = threadIdx.x % groups;
   const int r = threadIdx.x / groups;
-  const int n_tiles = gridDim.x;
-  // reverse of the statistics pass: its last tiles are still in L2
-  const int tile = n_tiles - 1 - blockIdx.x;
-  const int b = gridDim.y - 1 - blockIdx.y;
-
-  float* red2 = smem_f;
-  float* stat = red2 + max(4 * static_cast<int>(blockDim.x), 2 * c);
+  const int b = gridDim.y - 1 - blockIdx.y;  // the last sample read first
+  const int tiles = gridDim.x;
+  const int chunk = kB * rows;
+  const int chunks = (hw + chunk - 1) / chunk;
+  const size_t base = (size_t)b * hw * c + g * N;
   const int hb = M ? __ldg(vh + b) : 0, wb = M ? __ldg(vw + b) : 0;
-  sample_stats(partial + (size_t)b * n_parts * 2 * c, n_parts, c,
-               M ? hb * wb : count, eps, red2, stat);
+
+  uint4 xv[kB], sv[kB];
+  unsigned in = 0u;  // bit k: vector k of the chunk is a valid pixel
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  auto load = [&](int p) {  // pixels p, p + rows, ...
+    PixelWalk px(p, rows, M ? w : 1);  // w is 0 unmasked
+    in = 0u;
+#pragma unroll
+    for (int k = 0; k < kB; ++k) {
+      const int pk = p + k * rows;
+      const bool here = pk < hw;
+      const bool ok = here && (!M || px.inside(hb, wb));
+      if (M) px.next();
+      in |= ok ? 1u << k : 0u;
+      const size_t at = base + (size_t)(here ? pk : 0) * c;
+      xv[k] = ok ? __ldg(reinterpret_cast<const uint4*>(x + at)) : zero;
+      if (E == kAdd) {
+        sv[k] = here ? __ldg(reinterpret_cast<const uint4*>(skip + at)) : zero;
+      }
+    }
+  };
+  // this block's chunks blockIdx.x + m * tiles, the last one first; its
+  // loads are in flight while the statistics are read
+  const int top = blockIdx.x < chunks
+                      ? blockIdx.x + (chunks - 1 - blockIdx.x) / tiles * tiles
+                      : -1;
+  if (top >= 0) load(top * chunk + r);
+
+  float* stat = smem_f;
+  const float n = M ? (float)(hb * wb) : (float)count;
+  const float* tb = totals + (size_t)b * n_parts * 2 * c;
+  for (int ch = threadIdx.x; ch < c; ch += blockDim.x) {
+    float s = 0.f, q = 0.f;
+    for (int k = 0; k < n_parts; ++k) {
+      s += __ldcg(tb + (size_t)k * 2 * c + ch);
+      q += __ldcg(tb + (size_t)k * 2 * c + c + ch);
+    }
+    const float mean = s / n;
+    const float var = fmaxf(q / n - mean * mean, 0.f);
+    stat[ch] = mean;
+    stat[c + ch] = 1.0f / sqrtf(var + eps);
+  }
+  __syncthreads();
   float m[N], rs[N];
 #pragma unroll
   for (int i = 0; i < N; ++i) {
@@ -660,20 +779,24 @@ __global__ void __launch_bounds__(kThreads)
     rs[i] = stat[c + g * N + i];
   }
   const float a = E == kPrelu ? __ldg(alpha) : 0.f;
-  const size_t base = (size_t)b * hw * c + g * N;
-  const int p_end = min((tile + 1) * tile_px, hw);
-  PixelWalk px(tile * tile_px + r, rows, M ? w : 1);  // w is 0 unmasked
-  for (int p = tile * tile_px + r; p < p_end; p += rows, px.next()) {
-    float v[N], sk[N];
-    P::load(x + base + (size_t)p * c, v);
-    if (E == kAdd) {
-      P::load(skip + base + (size_t)p * c, sk);
-    }
-    const bool in = !M || px.inside(hb, wb);  // padding: 0 into the epilogue
+  for (int j = top; j >= 0; j -= tiles) {
+    const int p = j * chunk + r;
+    if (j != top) load(p);
 #pragma unroll
-    for (int i = 0; i < N; ++i) v[i] = in ? (v[i] - m[i]) * rs[i] : 0.f;
-    epilogue<T, E, N>(v, sk, a);
-    P::store(out + base + (size_t)p * c, v);
+    for (int k = 0; k < kB; ++k) {
+      const int pk = p + k * rows;
+      if (pk < hw) {
+        float e[N], f[N];
+        P::unpack(xv[k], e);
+        if (E == kAdd) P::unpack(sv[k], f);
+        const bool ok = (in >> k) & 1u;  // padding: 0 into the epilogue
+#pragma unroll
+        for (int i = 0; i < N; ++i) e[i] = ok ? (e[i] - m[i]) * rs[i] : 0.f;
+        epilogue<T, E, N>(e, f, a);
+        __stcs(reinterpret_cast<uint4*>(out + base + (size_t)pk * c),
+               P::pack(e));
+      }
+    }
   }
 }
 
@@ -684,55 +807,66 @@ int two_launch_threads(int c) {
   return (groups >= kThreads ? 1 : kThreads / groups) * groups;
 }
 
-// The statistics pass: partial[b][tile][2c] over tiles of tile_px pixels.
+// The statistics pass on `tiles` blocks a sample: partial[b][block][2c]
+// (scratch), totals[b][2c], arrived[b] (zeroed here).
 template <typename T, bool M>
 int launch_stats(const T* x, const int* vh, const int* vw, float* partial,
-                 int b, int hw, int w, int c, int tile_px, cudaStream_t s) {
+                 float* totals, unsigned* arrived, int b, int hw, int w, int c,
+                 int tiles, cudaStream_t s) {
   const int threads = two_launch_threads<T>(c);
   const int rows = threads / (c / Pack<T>::N);
-  const dim3 grid((hw + tile_px - 1) / tile_px, b);
-  const size_t red2 = max(4 * threads, 2 * c);
-  in_stats_kernel<T, M><<<grid, threads,
-                          ((size_t)2 * c * (rows + 1) + red2) * sizeof(float),
-                          s>>>(x, vh, vw, partial, hw, w, c, tile_px);
+  const size_t smem =
+      ((size_t)2 * c * (rows + 1) + max(4 * threads, 2 * c)) * sizeof(float);
+  auto kernel = in_stats_kernel<T, M>;
+  cudaError_t err;
+  if (smem > 40 * 1024) {  // the widest C: 48 KB with the static flag
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  err = cudaMemsetAsync(arrived, 0, sizeof(unsigned) * b, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3(tiles, b), threads, smem, s>>>(x, vh, vw, partial, totals,
+                                               arrived, hw, w, c);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The normalize pass over tiles of tile_px pixels, each block reducing a
-// sample's n_parts partials (over count pixels) first.
+// The normalize pass on `tiles` blocks a sample, with a sample's n_parts
+// rows of totals (over count pixels).
 template <typename T, int E, bool M>
 int launch_apply(const T* x, const T* skip, const float* alpha, const int* vh,
-                 const int* vw, T* out, const float* partial, int b, int hw,
-                 int w, int c, int tile_px, int n_parts, int count, float eps,
+                 const int* vw, T* out, const float* totals, int b, int hw,
+                 int w, int c, int tiles, int n_parts, int count, float eps,
                  cudaStream_t s) {
-  const int threads = two_launch_threads<T>(c);
-  const dim3 grid((hw + tile_px - 1) / tile_px, b);
-  const size_t red2 = max(4 * threads, 2 * c);
   in_apply_kernel<T, E, M>
-      <<<grid, threads, (red2 + 2 * c) * sizeof(float), s>>>(
-          x, skip, partial, alpha, vh, vw, out, hw, w, c, tile_px, n_parts,
-          count, eps);
+      <<<dim3(tiles, b), two_launch_threads<T>(c), 2 * c * sizeof(float), s>>>(
+          x, skip, totals, alpha, vh, vw, out, hw, w, c, n_parts, count, eps);
   return static_cast<int>(cudaGetLastError());
 }
 
+// scratch: partial [b][tiles][2c], then totals [b][2c], then arrived [b].
 template <typename T, int E, bool M>
 int launch_two(const T* x, const T* skip, const float* alpha, const int* vh,
-               const int* vw, T* out, float* partial, int b, int hw, int w,
-               int c, int tile_px, float eps, cudaStream_t s) {
-  const int err = launch_stats<T, M>(x, vh, vw, partial, b, hw, w, c, tile_px, s);
+               const int* vw, T* out, float* scratch, int b, int hw, int w,
+               int c, int tiles, float eps, cudaStream_t s) {
+  float* totals = scratch + (size_t)b * tiles * 2 * c;
+  unsigned* arrived = reinterpret_cast<unsigned*>(totals + (size_t)b * 2 * c);
+  const int err = launch_stats<T, M>(x, vh, vw, scratch, totals, arrived, b,
+                                     hw, w, c, tiles, s);
   if (err != 0) return err;
-  return launch_apply<T, E, M>(x, skip, alpha, vh, vw, out, partial, b, hw, w,
-                               c, tile_px, (hw + tile_px - 1) / tile_px, hw,
-                               eps, s);
+  return launch_apply<T, E, M>(x, skip, alpha, vh, vw, out, totals, b, hw, w,
+                               c, tiles, 1, hw, eps, s);
 }
 
-// grid > 0: the resident form with that many blocks; grid == 0: two launches.
-// M: the masked form (vh, vw: int [b] on the device; w: the frame's width).
+// grid > 0: the resident form with that many blocks, per_wave samples a
+// wave and tiles of `tile` pixels; grid == 0: two launches of `tile` blocks
+// a sample. M: the masked form (vh, vw: int [b] on the device; w: the
+// frame's width).
 template <typename T, int E, bool M>
 int launch(const void* x, const void* skip, const void* alpha, const void* vh,
            const void* vw, void* out, void* partial, int b, int hw, int w,
-           int c, int grid, int per_wave, int tile_px, float eps,
-           void* stream) {
+           int c, int grid, int per_wave, int tile, float eps, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (grid > 0) {
     return launch_resident<T, E, M>(
@@ -740,163 +874,171 @@ int launch(const void* x, const void* skip, const void* alpha, const void* vh,
         static_cast<const float*>(alpha), static_cast<const int*>(vh),
         static_cast<const int*>(vw), static_cast<T*>(out),
         static_cast<unsigned long long*>(partial), b, hw, w, c, grid,
-        per_wave, tile_px, eps, s);
+        per_wave, tile, eps, s);
   }
   return launch_two<T, E, M>(
       static_cast<const T*>(x), static_cast<const T*>(skip),
       static_cast<const float*>(alpha), static_cast<const int*>(vh),
       static_cast<const int*>(vw), static_cast<T*>(out),
-      static_cast<float*>(partial), b, hw, w, c, tile_px, eps, s);
+      static_cast<float*>(partial), b, hw, w, c, tile, eps, s);
+}
+
+// scratch: partial [b][tiles][2c], then arrived [b].
+template <typename T>
+int stats(const void* x, void* totals, void* scratch, int b, int hw, int c,
+          int tiles, void* stream) {
+  float* partial = static_cast<float*>(scratch);
+  return launch_stats<T, false>(
+      static_cast<const T*>(x), nullptr, nullptr, partial,
+      static_cast<float*>(totals),
+      reinterpret_cast<unsigned*>(partial + (size_t)b * tiles * 2 * c), b, hw,
+      0, c, tiles, static_cast<cudaStream_t>(stream));
 }
 
 template <typename T, int E>
-int from_stats(const void* x, const void* other, const void* partial, void* out,
-               int b, int hw, int c, int n_parts, int count, int tile_px,
+int from_stats(const void* x, const void* other, const void* totals, void* out,
+               int b, int hw, int c, int n_parts, int count, int tiles,
                float eps, void* stream) {
   const T* skip = E == kAdd ? static_cast<const T*>(other) : nullptr;
   const float* alpha = E == kPrelu ? static_cast<const float*>(other) : nullptr;
   return launch_apply<T, E, false>(
       static_cast<const T*>(x), skip, alpha, nullptr, nullptr,
-      static_cast<T*>(out), static_cast<const float*>(partial), b, hw, 0, c,
-      tile_px, n_parts, count, eps, static_cast<cudaStream_t>(stream));
+      static_cast<T*>(out), static_cast<const float*>(totals), b, hw, 0, c,
+      tiles, n_parts, count, eps, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
 
 // C entry points (bound with ctypes). Each returns the cudaError_t of its
 // launches: 0 on success. grid > 0 takes the resident form (grid blocks,
-// per_wave samples a wave, tiles of tile_px pixels); grid == 0 the two
-// launches over tiles of tile_px pixels. The _masked ones take each sample's
+// per_wave samples a wave, tiles of `tile` pixels); grid == 0 the two
+// launches on `tile` blocks a sample. The _masked ones take each sample's
 // valid height and width (int [b] on the device) and the frame's width w.
 extern "C" int fsr_instance_norm_prelu_bf16(const void* x, const void* alpha,
                                             void* out, void* partial, int b,
                                             int hw, int c, int grid,
-                                            int per_wave, int tile_px,
+                                            int per_wave, int tile,
                                             float eps, void* stream) {
   return launch<__nv_bfloat16, kPrelu, false>(
       x, nullptr, alpha, nullptr, nullptr, out, partial, b, hw, 0, c, grid,
-      per_wave, tile_px, eps, stream);
+      per_wave, tile, eps, stream);
 }
 
 extern "C" int fsr_instance_norm_prelu_f32(const void* x, const void* alpha,
                                            void* out, void* partial, int b,
                                            int hw, int c, int grid,
-                                           int per_wave, int tile_px,
+                                           int per_wave, int tile,
                                            float eps, void* stream) {
   return launch<float, kPrelu, false>(x, nullptr, alpha, nullptr, nullptr,
                                       out, partial, b, hw, 0, c, grid,
-                                      per_wave, tile_px, eps, stream);
+                                      per_wave, tile, eps, stream);
 }
 
 extern "C" int fsr_instance_norm_add_bf16(const void* x, const void* skip,
                                           void* out, void* partial, int b,
                                           int hw, int c, int grid,
-                                          int per_wave, int tile_px, float eps,
+                                          int per_wave, int tile, float eps,
                                           void* stream) {
   return launch<__nv_bfloat16, kAdd, false>(
       x, skip, nullptr, nullptr, nullptr, out, partial, b, hw, 0, c, grid,
-      per_wave, tile_px, eps, stream);
+      per_wave, tile, eps, stream);
 }
 
 extern "C" int fsr_instance_norm_add_f32(const void* x, const void* skip,
                                          void* out, void* partial, int b,
                                          int hw, int c, int grid, int per_wave,
-                                         int tile_px, float eps,
+                                         int tile, float eps,
                                          void* stream) {
   return launch<float, kAdd, false>(x, skip, nullptr, nullptr, nullptr, out,
                                     partial, b, hw, 0, c, grid, per_wave,
-                                    tile_px, eps, stream);
+                                    tile, eps, stream);
 }
 
 extern "C" int fsr_instance_norm_prelu_masked_bf16(
     const void* x, const void* alpha, const void* vh, const void* vw,
     void* out, void* partial, int b, int hw, int w, int c, int grid,
-    int per_wave, int tile_px, float eps, void* stream) {
+    int per_wave, int tile, float eps, void* stream) {
   return launch<__nv_bfloat16, kPrelu, true>(x, nullptr, alpha, vh, vw, out,
                                              partial, b, hw, w, c, grid,
-                                             per_wave, tile_px, eps, stream);
+                                             per_wave, tile, eps, stream);
 }
 
 extern "C" int fsr_instance_norm_prelu_masked_f32(
     const void* x, const void* alpha, const void* vh, const void* vw,
     void* out, void* partial, int b, int hw, int w, int c, int grid,
-    int per_wave, int tile_px, float eps, void* stream) {
+    int per_wave, int tile, float eps, void* stream) {
   return launch<float, kPrelu, true>(x, nullptr, alpha, vh, vw, out, partial,
-                                     b, hw, w, c, grid, per_wave, tile_px, eps,
+                                     b, hw, w, c, grid, per_wave, tile, eps,
                                      stream);
 }
 
 extern "C" int fsr_instance_norm_add_masked_bf16(
     const void* x, const void* skip, const void* vh, const void* vw,
     void* out, void* partial, int b, int hw, int w, int c, int grid,
-    int per_wave, int tile_px, float eps, void* stream) {
+    int per_wave, int tile, float eps, void* stream) {
   return launch<__nv_bfloat16, kAdd, true>(x, skip, nullptr, vh, vw, out,
                                            partial, b, hw, w, c, grid,
-                                           per_wave, tile_px, eps, stream);
+                                           per_wave, tile, eps, stream);
 }
 
 extern "C" int fsr_instance_norm_add_masked_f32(
     const void* x, const void* skip, const void* vh, const void* vw,
     void* out, void* partial, int b, int hw, int w, int c, int grid,
-    int per_wave, int tile_px, float eps, void* stream) {
+    int per_wave, int tile, float eps, void* stream) {
   return launch<float, kAdd, true>(x, skip, nullptr, vh, vw, out, partial, b,
-                                   hw, w, c, grid, per_wave, tile_px, eps,
+                                   hw, w, c, grid, per_wave, tile, eps,
                                    stream);
 }
 
 // The split form (a frame's width sharded across devices, its statistics
-// summed over every shard's partials): the two passes as separate entry
-// points. _stats writes partial [b][ceil(hw / tile_px)][2c] (fp32 sums and
-// sums of squares of each tile); _from_stats normalizes x with the sums of
-// n_parts partials a sample (partial [b][n_parts][2c]: every shard's, in
-// one order, so each shard computes the same statistics) over count pixels.
-extern "C" int fsr_instance_norm_stats_bf16(const void* x, void* partial,
-                                            int b, int hw, int c, int tile_px,
-                                            void* stream) {
-  return launch_stats<__nv_bfloat16, false>(
-      static_cast<const __nv_bfloat16*>(x), nullptr, nullptr,
-      static_cast<float*>(partial), b, hw, 0, c, tile_px,
-      static_cast<cudaStream_t>(stream));
+// summed over every shard's): the two passes as separate entry points.
+// Both run on `tiles` blocks a sample. _stats writes totals [b][2c] (fp32
+// sums and sums of squares of each sample of this shard) through scratch
+// (partial [b][tiles][2c], then arrived [b]: tiles * 2c + 1 floats a
+// sample); _from_stats normalizes x with the sum of n_parts rows of totals
+// a sample (totals [b][n_parts][2c]: every shard's, in one order, so each
+// shard computes the same statistics) over count pixels.
+extern "C" int fsr_instance_norm_stats_bf16(const void* x, void* totals,
+                                            void* scratch, int b, int hw,
+                                            int c, int tiles, void* stream) {
+  return stats<__nv_bfloat16>(x, totals, scratch, b, hw, c, tiles, stream);
 }
 
-extern "C" int fsr_instance_norm_stats_f32(const void* x, void* partial, int b,
-                                           int hw, int c, int tile_px,
-                                           void* stream) {
-  return launch_stats<float, false>(static_cast<const float*>(x), nullptr,
-                                    nullptr, static_cast<float*>(partial), b,
-                                    hw, 0, c, tile_px,
-                                    static_cast<cudaStream_t>(stream));
+extern "C" int fsr_instance_norm_stats_f32(const void* x, void* totals,
+                                           void* scratch, int b, int hw, int c,
+                                           int tiles, void* stream) {
+  return stats<float>(x, totals, scratch, b, hw, c, tiles, stream);
 }
 
 extern "C" int fsr_instance_norm_prelu_from_stats_bf16(
-    const void* x, const void* alpha, const void* partial, void* out, int b,
-    int hw, int c, int n_parts, int count, int tile_px, float eps,
+    const void* x, const void* alpha, const void* totals, void* out, int b,
+    int hw, int c, int n_parts, int count, int tiles, float eps,
     void* stream) {
-  return from_stats<__nv_bfloat16, kPrelu>(x, alpha, partial, out, b, hw, c,
-                                           n_parts, count, tile_px, eps,
+  return from_stats<__nv_bfloat16, kPrelu>(x, alpha, totals, out, b, hw, c,
+                                           n_parts, count, tiles, eps,
                                            stream);
 }
 
 extern "C" int fsr_instance_norm_prelu_from_stats_f32(
-    const void* x, const void* alpha, const void* partial, void* out, int b,
-    int hw, int c, int n_parts, int count, int tile_px, float eps,
+    const void* x, const void* alpha, const void* totals, void* out, int b,
+    int hw, int c, int n_parts, int count, int tiles, float eps,
     void* stream) {
-  return from_stats<float, kPrelu>(x, alpha, partial, out, b, hw, c, n_parts,
-                                   count, tile_px, eps, stream);
+  return from_stats<float, kPrelu>(x, alpha, totals, out, b, hw, c, n_parts,
+                                   count, tiles, eps, stream);
 }
 
 extern "C" int fsr_instance_norm_add_from_stats_bf16(
-    const void* x, const void* skip, const void* partial, void* out, int b,
-    int hw, int c, int n_parts, int count, int tile_px, float eps,
+    const void* x, const void* skip, const void* totals, void* out, int b,
+    int hw, int c, int n_parts, int count, int tiles, float eps,
     void* stream) {
-  return from_stats<__nv_bfloat16, kAdd>(x, skip, partial, out, b, hw, c,
-                                         n_parts, count, tile_px, eps, stream);
+  return from_stats<__nv_bfloat16, kAdd>(x, skip, totals, out, b, hw, c,
+                                         n_parts, count, tiles, eps, stream);
 }
 
 extern "C" int fsr_instance_norm_add_from_stats_f32(
-    const void* x, const void* skip, const void* partial, void* out, int b,
-    int hw, int c, int n_parts, int count, int tile_px, float eps,
+    const void* x, const void* skip, const void* totals, void* out, int b,
+    int hw, int c, int n_parts, int count, int tiles, float eps,
     void* stream) {
-  return from_stats<float, kAdd>(x, skip, partial, out, b, hw, c, n_parts,
-                                 count, tile_px, eps, stream);
+  return from_stats<float, kAdd>(x, skip, totals, out, b, hw, c, n_parts,
+                                 count, tiles, eps, stream);
 }

@@ -32,15 +32,15 @@ NVCC_FLAGS = [
 ]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# (x, alpha or skip, out, partial, B, HW, C, grid, per_wave, tile_px, eps,
+# (x, alpha or skip, out, partial, B, HW, C, grid, per_wave, tile, eps,
 #  stream)
 _IN = [_P] * 4 + [_I] * 6 + [_F, _P]
 # (x, alpha or skip, valid_h, valid_w, out, partial, B, HW, W, C, grid,
-#  per_wave, tile_px, eps, stream)
+#  per_wave, tile, eps, stream)
 _IN_MASKED = [_P] * 6 + [_I] * 7 + [_F, _P]
-# (x, partial, B, HW, C, tile_px, stream)
-_IN_STATS = [_P, _P] + [_I] * 4 + [_P]
-# (x, alpha or skip, partial, out, B, HW, C, n_parts, count, tile_px, eps,
+# (x, totals, scratch, B, HW, C, tiles, stream)
+_IN_STATS = [_P] * 3 + [_I] * 4 + [_P]
+# (x, alpha or skip, totals, out, B, HW, C, n_parts, count, tiles, eps,
 #  stream)
 _IN_FROM_STATS = [_P] * 4 + [_I] * 6 + [_F, _P]
 # (x, weight, bias, alpha, out, B, H, W, C, prelu, stream)

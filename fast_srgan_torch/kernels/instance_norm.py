@@ -12,8 +12,10 @@ skip``. :func:`instance_norm_prelu` serves the 8 norms that feed a PReLU,
 
 * resident: one cooperative launch, each block keeping its tile on chip
   from the statistics to the store, so x is read from HBM once;
-* two launches (statistics, then normalize walking back), where a sample's
-  tiles do not fit in the SMs' shared memory.
+* two launches, where a sample's tiles do not fit in the SMs' shared
+  memory: statistics (each sample's totals summed once, by the last of its
+  blocks to finish), then normalize sweeping the sample back, on a grid
+  sized from the SM count (:func:`two_launch_tiles`).
 
 Both epilogues also take ``valid_hw``, the valid (height, width) of each
 sample of a zero-padded batch (the bucketed forward): the masked form sums
@@ -35,12 +37,13 @@ and strides. There is no fallback between the two.
 The split form (:func:`instance_norm_stats`, then
 :func:`instance_norm_prelu_from_stats` / :func:`instance_norm_add_from_stats`)
 runs the two launches as separate ops, so the width-sharded forward
-(``parallel/spatial.py``) can sum every shard's partial statistics before
-any shard normalizes.
+(``parallel/spatial.py``) can join every shard's totals before any shard
+normalizes.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -51,8 +54,11 @@ from fast_srgan_torch.ops.norm import EPS, instance_norm, instance_norm_masked, 
 #: (valid_h, valid_w): int32 [B] tensors, the valid region of each sample.
 ValidHW = Optional[Tuple[torch.Tensor, torch.Tensor]]
 
-#: Pixels per tile of the two-launch form (gridDim.x = ceil(H*W / TILE_PX)).
-TILE_PX = 1024
+#: The two-launch form's blocks an SM, threads a block and 16-byte vectors a
+#: thread loads at once (csrc ``kTwoLaunchBlocks``, ``kThreads``, ``kBatch``).
+TWO_LAUNCH_BLOCKS = 2
+TWO_LAUNCH_THREADS = 256
+TWO_LAUNCH_BATCH = 8
 #: Threads of a resident block, at most (a multiple of C / vector width).
 RESIDENT_THREADS = 512
 #: 16-byte vectors a resident thread holds in registers, at most.
@@ -201,6 +207,24 @@ def plan(shape: Tuple[int, int, int, int], itemsize: int, n_sms: int
     return per_wave * tiles, per_wave, tile_px
 
 
+def two_launch_chunk(c: int, itemsize: int) -> int:
+    """Pixels a two-launch statistics block reads at once: a chunk."""
+    groups = c // (16 // itemsize)
+    return TWO_LAUNCH_BATCH * max(1, TWO_LAUNCH_THREADS // groups)
+
+
+@functools.lru_cache(maxsize=64)  # called on the host path of every split op
+def two_launch_tiles(shape: Tuple[int, int, int, int], itemsize: int, n_sms: int) -> int:
+    """Blocks a sample of the two-launch and split forms' [tiles, B] grid:
+    TWO_LAUNCH_BLOCKS an SM, but no more than the sample's chunks (the
+    blocks of a sample take its chunks in turn, chunk j block j mod tiles,
+    so each has one at least). Not a function of B: a sample's statistics
+    come out the same bits alone, in any batch, and as one shard of the
+    split form."""
+    _, c, h, w = shape
+    return max(1, min(TWO_LAUNCH_BLOCKS * n_sms, -(-(h * w) // two_launch_chunk(c, itemsize))))
+
+
 _SMS = {}
 
 
@@ -224,10 +248,12 @@ def _launch(
     with torch.cuda.device(x.device):
         found = plan((b, c, h, w), x.element_size(), _sm_count(x.device))
         if found is None:
-            grid, per_wave, tile_px = 0, 0, TILE_PX
-            scratch = b * ((hw + TILE_PX - 1) // TILE_PX) * 2 * c
+            tile = two_launch_tiles((b, c, h, w), x.element_size(), _sm_count(x.device))
+            grid, per_wave = 0, 0
+            # each block's partial sums, each sample's totals, its counter
+            scratch = b * (tile + 1) * 2 * c + b
         else:
-            grid, per_wave, tile_px = found
+            grid, per_wave, tile = found
             # 64-bit tagged words (zeroed ahead of the kernel): each tile's
             # partial sums, then each sample's totals
             scratch = 2 * b * (grid // per_wave + 1) * 2 * c
@@ -241,11 +267,11 @@ def _launch(
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if valid_hw is None:
             err = fn(x.data_ptr(), second.data_ptr(), out.data_ptr(), partial.data_ptr(),
-                     b, hw, c, grid, per_wave, tile_px, EPS, stream)
+                     b, hw, c, grid, per_wave, tile, EPS, stream)
         else:
             err = fn(x.data_ptr(), second.data_ptr(), valid_hw[0].data_ptr(),
                      valid_hw[1].data_ptr(), out.data_ptr(), partial.data_ptr(),
-                     b, hw, w, c, grid, per_wave, tile_px, EPS, stream)
+                     b, hw, w, c, grid, per_wave, tile, EPS, stream)
     if err:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
     counted = instance_norm_add if residual else instance_norm_prelu
@@ -410,24 +436,19 @@ instance_norm_add.masked_launches = 0
 #
 # The width-sharded forward (parallel/spatial.py) normalizes each shard of a
 # frame with the statistics of the whole frame: every shard's statistics op
-# writes the fp32 sums and sums of squares of its tiles of TILE_PX pixels;
-# the caller gathers every shard's partials to every shard, in one order;
-# each shard's apply op sums all of them and divides by the frame's pixel
-# count (H x the sum of the shard widths). The port of
-# ``_dist_instance_norm`` (fast_srgan_tpu/parallel/spatial.py), which XLA
-# lowered on the TPU. The kernel sums the partials in one order fixed by
-# their number and C, so every shard gets bitwise the same statistics.
+# writes its fp32 sums and sums of squares, [B, 1, 2C] (the per-shard term
+# that ``_dist_instance_norm`` in fast_srgan_tpu/parallel/spatial.py psums,
+# which XLA lowered on the TPU); the caller joins every shard's along dim 1,
+# in shard order, on every shard; each shard's apply op adds those rows in
+# row order and divides by the frame's pixel count (H x the sum of the shard
+# widths), so every shard gets bitwise the same statistics.
 
 
 def instance_norm_stats_reference(x: torch.Tensor) -> torch.Tensor:
     """Plain version of :func:`instance_norm_stats`: the fp32 sums and sums
-    of squares of each tile of TILE_PX pixels (row-major, the last one
-    short), [B, ceil(H * W / TILE_PX), 2C]."""
+    of squares of each sample over its pixels, [B, 1, 2C]."""
     b, c, h, w = x.shape
-    tiles = -(-(h * w) // TILE_PX)
-    x32 = x.float().permute(0, 2, 3, 1).reshape(b, h * w, c)
-    x32 = torch.nn.functional.pad(x32, (0, 0, 0, tiles * TILE_PX - h * w))
-    x32 = x32.view(b, tiles, TILE_PX, c)
+    x32 = x.float().permute(0, 2, 3, 1).reshape(b, 1, h * w, c)
     return torch.cat([x32.sum(2), x32.square().sum(2)], dim=2)
 
 
@@ -478,16 +499,19 @@ def _launch_stats(x: torch.Tensor) -> torch.Tensor:
     lib = load_library()
     b, c, h, w = x.shape
     with torch.cuda.device(x.device):
-        partials = torch.empty((b, -(-(h * w) // TILE_PX), 2 * c), dtype=torch.float32,
-                               device=x.device)
+        tiles = two_launch_tiles((b, c, h, w), x.element_size(), _sm_count(x.device))
+        # one allocation (this op's host time is the tiled frame's): each
+        # sample's totals, returned as a view, then the scratch, each
+        # block's partial sums and each sample's counter
+        buf = torch.empty(b * (tiles + 1) * 2 * c + b, dtype=torch.float32, device=x.device)
         fn = (lib.fsr_instance_norm_stats_bf16 if x.dtype == torch.bfloat16
               else lib.fsr_instance_norm_stats_f32)
-        err = fn(x.data_ptr(), partials.data_ptr(), b, h * w, c, TILE_PX,
-                 torch.cuda.current_stream(x.device).cuda_stream)
+        err = fn(x.data_ptr(), buf.data_ptr(), buf.data_ptr() + 4 * b * 2 * c, b, h * w, c,
+                 tiles, torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"instance_norm_stats launch failed: cudaError {err}")
     instance_norm_stats.launches += 1
-    return partials
+    return buf.as_strided((b, 1, 2 * c), (2 * c, 2 * c, 1))
 
 
 def _launch_from_stats(x, other, partials, count, residual: bool) -> torch.Tensor:
@@ -503,11 +527,12 @@ def _launch_from_stats(x, other, partials, count, residual: bool) -> torch.Tenso
     name = f"fsr_instance_norm_{'add' if residual else 'prelu'}_from_stats_"
     name += "bf16" if x.dtype == torch.bfloat16 else "f32"
     with torch.cuda.device(x.device):
+        tiles = two_launch_tiles((b, c, h, w), x.element_size(), _sm_count(x.device))
         out = torch.empty_like(x, memory_format=torch.channels_last)
         second = other if residual else other.detach().reshape(1).to(torch.float32).contiguous()
         err = getattr(lib, name)(
             x.data_ptr(), second.data_ptr(), partials.data_ptr(), out.data_ptr(), b, h * w, c,
-            partials.shape[1], count, TILE_PX, EPS,
+            partials.shape[1], count, tiles, EPS,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     if err:
@@ -518,8 +543,7 @@ def _launch_from_stats(x, other, partials, count, residual: bool) -> torch.Tenso
 
 
 def _stats_fake(x):
-    b, c, h, w = x.shape
-    return x.new_empty((b, -(-(h * w) // TILE_PX), 2 * c), dtype=torch.float32)
+    return x.new_empty((x.shape[0], 1, 2 * x.shape[1]), dtype=torch.float32)
 
 
 def _from_stats_fake(x, other, partials, count):
@@ -553,9 +577,10 @@ _ADD_FROM_STATS_OP = torch.ops.fast_srgan.instance_norm_add_from_stats.default
 
 def instance_norm_stats(x: torch.Tensor) -> torch.Tensor:
     """The split form's statistics of [B, C, H, W] x (on CUDA: bf16 or fp32,
-    channels_last, the same C as the fused forms take): fp32 partial sums and
-    sums of squares, [B, ceil(H * W / TILE_PX), 2C]. Inference only (no
-    gradient). ``instance_norm_stats.launches`` counts the kernel's launches."""
+    channels_last, the same C as the fused forms take): each sample's fp32
+    sums and sums of squares, [B, 1, 2C] (one shard's term of a frame's
+    statistics). Inference only (no gradient). ``instance_norm_stats.launches``
+    counts the kernel's launches."""
     _check_device(x, "instance_norm_stats")
     return _STATS_OP(x)
 
@@ -564,8 +589,9 @@ def instance_norm_prelu_from_stats(
     x: torch.Tensor, alpha: torch.Tensor, partials: torch.Tensor, count: int
 ) -> torch.Tensor:
     """IN + PReLU of x with the statistics that ``partials`` ([B, n, 2C]
-    fp32: :func:`instance_norm_stats` outputs joined along dim 1) sum over
-    ``count`` pixels. ``.launches`` counts the kernel's launches."""
+    fp32: n shards' :func:`instance_norm_stats` joined along dim 1, added in
+    row order) sum over ``count`` pixels. ``.launches`` counts the kernel's
+    launches."""
     _check_device(x, "instance_norm_prelu_from_stats")
     return _PRELU_FROM_STATS_OP(x, alpha, partials, int(count))
 

@@ -9,8 +9,8 @@ and the forward stays exact:
     which is the one-device conv's padding) and convolved with no width
     padding (cuDNN ``padding=(1, 0)``; the s8 kernel's halo form);
   * instance norm is global over the frame: each shard's statistics op
-    writes its partial sums, every shard gathers all of them in one order,
-    and each normalizes with the sums over the whole frame's pixel count
+    writes its sums, every shard gathers all of them in shard order, and
+    each normalizes with their sum over the whole frame's pixel count
     (``kernels/instance_norm.py``'s split form), so every shard computes
     bitwise the same statistics;
   * pixel shuffle, PReLU and tanh act within a shard;
@@ -20,7 +20,7 @@ and the forward stays exact:
     (a shard's column i gives output columns 2i and 2i+1 in the same shard).
 
 The mesh (``parallel/mesh.py``) is a grid of ``torch.device``s in this
-process. Halo columns and partials move by ``Tensor.to``, which orders the
+process. Halo columns and statistics move by ``Tensor.to``, which orders the
 copy on the consumer's current stream; on a repeated device a halo is a
 slice, by the same code. Shards are launched one after another, so shards
 on different cards overlap. Each device holds one copy of the weights,
@@ -99,8 +99,9 @@ def halo_conv(xs: Shards, weights: Sequence[torch.Tensor],
 
 
 def _joined_partials(xs: Shards):
-    """Every shard's statistics partials joined in shard order, on each
-    shard's device (one copy a device), and the frame's pixel count."""
+    """Every shard's statistics ([B, 1, 2C] each) joined in shard order,
+    [B, shards, 2C] on each shard's device (one copy a device), and the
+    frame's pixel count."""
     parts = [instance_norm_stats(x) for x in xs]
     joined: Dict[torch.device, torch.Tensor] = {}
     for x in xs:
@@ -111,18 +112,20 @@ def _joined_partials(xs: Shards):
 
 
 def dist_norm_prelu(xs: Shards, alphas: Sequence[torch.Tensor]) -> Shards:
-    """IN + PReLU of the sharded frame with the whole frame's statistics."""
+    """IN + PReLU of the sharded frame with the whole frame's statistics.
+    The shards normalize last first: on one card the last shard's x is what
+    the statistics read last, still in L2."""
     partials, count = _joined_partials(xs)
     return [instance_norm_prelu_from_stats(x, a, p, count)
-            for x, a, p in zip(xs, alphas, partials)]
+            for x, a, p in reversed(list(zip(xs, alphas, partials)))][::-1]
 
 
 def dist_norm_add(xs: Shards, skips: Shards) -> Shards:
     """IN + residual add of the sharded frame with the whole frame's
-    statistics."""
+    statistics, the shards last first (as :func:`dist_norm_prelu`)."""
     partials, count = _joined_partials(xs)
     return [instance_norm_add_from_stats(x, s, p, count)
-            for x, s, p in zip(xs, skips, partials)]
+            for x, s, p in reversed(list(zip(xs, skips, partials)))][::-1]
 
 
 # -- the generator over pluggable ops -----------------------------------------

@@ -127,6 +127,97 @@ def test_near_constant_is_finite(device, shape, dtype):
     assert torch.isfinite(out).all() and torch.isfinite(out_add).all()
 
 
+# the two-launch form: the 4K frame (bf16), fp32 at the serving shape, the
+# 4K frame in its bucket (masked)
+_TWO_LAUNCH_CASES = [((1, 64, 540, 960), torch.bfloat16, None),
+                     ((8, 64, 180, 320), torch.float32, None),
+                     ((1, 64, 544, 960), torch.bfloat16, [(540, 960)])]
+
+
+@pytest.mark.parametrize("shape,dtype,sizes", _TWO_LAUNCH_CASES)
+@pytest.mark.parametrize("residual", [False, True])
+def test_two_launch_is_bitwise_run_to_run(device, shape, dtype, sizes, residual):
+    """Each sample's totals are summed once, by whichever of its statistics
+    blocks arrives last, in block order: two calls and two replays of one
+    CUDA graph (the arrival counters zeroed by the captured memset) give
+    the same bits."""
+    assert plan(shape, torch.finfo(dtype).bits // 8,
+                torch.cuda.get_device_properties(device).multi_processor_count) is None
+    x = _activation(device, shape, dtype, seed=sum(shape) + 7)
+    valid = _valid_hw(device, sizes) if sizes else None
+    fn = instance_norm_add if residual else instance_norm_prelu
+    other = _skip(device, shape, dtype, seed=8) if residual else torch.tensor([0.173], device=device)
+    first = fn(x, other, valid)
+    assert torch.equal(fn(x, other, valid), first)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(x, other, valid)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(x, other, valid)
+    for _ in range(2):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, first)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_two_launch_is_batch_invariant(device, dtype):
+    """The two-launch grid depends on a sample's size, not on the batch: a
+    sample normalizes to the same bits alone and in a batch, and the split
+    form on one shard (its statistics, then the apply) to the same bits as
+    the fused form."""
+    from fast_srgan_torch.kernels.instance_norm import (
+        instance_norm_prelu_from_stats,
+        instance_norm_stats,
+    )
+
+    shape = (3, 64, 540, 960) if dtype == torch.bfloat16 else (3, 64, 180, 320)
+    x = _activation(device, shape, dtype, seed=11)
+    alpha = torch.tensor([0.173], device=device)
+    batch = instance_norm_prelu(x, alpha)
+    for i in range(shape[0]):
+        xi = x[i:i + 1].contiguous(memory_format=torch.channels_last)
+        alone = instance_norm_prelu(xi, alpha)
+        split = instance_norm_prelu_from_stats(xi, alpha, instance_norm_stats(xi),
+                                               shape[2] * shape[3])
+        assert torch.equal(alone, batch[i:i + 1]) and torch.equal(split, alone)
+
+
+@pytest.mark.parametrize("dtype,tol,add_tol", [(torch.bfloat16, 2e-2, 3e-2),
+                                               (torch.float32, 2e-5, 2e-5)])
+def test_two_launch_widest_channels(device, dtype, tol, add_tol):
+    """The widest C the kernels take (256 vectors a pixel) in the two
+    launches, where the statistics block's shared memory passes 40 KB and
+    needs its opt-in: both epilogues and the split form against their
+    plain versions. fp32 on normal draws, where the one-pass variance's
+    cancellation magnifies the error of the sums at the tails (the last
+    statistics block adds up to 2 x the SMs' partials, compensated); bf16
+    on uniform draws (|y| < 1.8, where 2e-2 is more than one ulp)."""
+    from fast_srgan_torch.kernels.instance_norm import (
+        instance_norm_stats,
+        instance_norm_stats_reference,
+    )
+
+    c = 2048 if dtype == torch.bfloat16 else 1024
+    shape = (2, c, 48, 48)
+    assert plan(shape, torch.finfo(dtype).bits // 8,
+                torch.cuda.get_device_properties(device).multi_processor_count) is None
+    x = _activation(device, shape, dtype, seed=12)
+    skip = _skip(device, shape, dtype, seed=13)
+    alpha = torch.tensor([0.173], device=device)
+    got_p, got_a = instance_norm_prelu(x, alpha), instance_norm_add(x, skip)
+    stats = instance_norm_stats(x)
+    want = instance_norm_stats_reference(x)
+    torch.cuda.synchronize()
+    assert (got_p.float() - instance_norm_prelu_reference(x, alpha).float()).abs().max() <= tol
+    assert (got_a.float() - instance_norm_add_reference(x, skip).float()).abs().max() <= add_tol
+    assert (stats - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
 def test_bf16_slope_is_read_on_device(device):
     x = _activation(device, (2, 64, 20, 30), torch.bfloat16, seed=1)
     alpha = torch.tensor([0.25], device=device, dtype=torch.bfloat16)
@@ -807,9 +898,10 @@ def _shards(frame, n):
                                                (torch.float32, 2e-5, 2e-5)])
 def test_split_in_matches_plain(device, n_shards, dtype, tol, add_tol):
     """A 540x960 frame in width shards: each shard's statistics kernel
-    against the plain sums, each normalize kernel against its plain
-    version on the same joined partials and against the plain norm of the
-    whole frame; every shard's statistics bitwise the same."""
+    ([1, 1, 2C], its totals) against the plain sums and bitwise against its
+    own second call, each normalize kernel against its plain version on the
+    same joined totals and against the plain norm of the whole frame;
+    every shard's statistics bitwise the same."""
     from fast_srgan_torch.kernels.instance_norm import (
         instance_norm_add_from_stats,
         instance_norm_add_from_stats_reference,
@@ -828,7 +920,7 @@ def test_split_in_matches_plain(device, n_shards, dtype, tol, add_tol):
     parts = [instance_norm_stats(x) for x in xs]
     for p, x in zip(parts, xs):
         want = instance_norm_stats_reference(x)
-        assert p.shape == want.shape and p.dtype == torch.float32
+        assert p.shape == want.shape == (1, 1, 128) and p.dtype == torch.float32
         assert (p - want).abs().max().item() <= 1e-5 * want.abs().max().item()
     joined = [torch.cat([p.clone() for p in parts], dim=1) for _ in xs]  # one copy a shard
     count = 540 * 960
@@ -838,6 +930,7 @@ def test_split_in_matches_plain(device, n_shards, dtype, tol, add_tol):
     n = n_shards
     assert (instance_norm_stats.launches - before[0], instance_norm_prelu_from_stats.launches
             - before[1], instance_norm_add_from_stats.launches - before[2]) == (n, n, n)
+    assert all(torch.equal(instance_norm_stats(x), p) for x, p in zip(xs, parts))  # run to run
     for x, s, j, a, b in zip(xs, skips, joined, prelu_out, add_out):
         assert a.dtype == dtype and a.is_contiguous(memory_format=torch.channels_last)
         want_a = instance_norm_prelu_from_stats_reference(x, alpha, j, count)
@@ -850,6 +943,7 @@ def test_split_in_matches_plain(device, n_shards, dtype, tol, add_tol):
     # the same statistics on every shard: shard 0 normalized with each copy
     outs = [instance_norm_prelu_from_stats(xs[0], alpha, j, count) for j in joined]
     assert all(torch.equal(outs[0], o) for o in outs[1:])
+    assert torch.equal(outs[0], prelu_out[0])
 
 
 def test_split_in_rejects(device):

@@ -262,9 +262,11 @@ def _op_cases():
                                   (xq, [w.packed for w in ph.phases], ph.tiled, ph.cout, ph.cin,
                                    ph.n_tile, torch.rand(32) + 0.5, s, torch.randn(32), alpha,
                                    torch.float32, [0, 0])),
+        # the split form: a shard's statistics are [B, 1, 2C] (fake and real);
+        # the apply ops take n shards' joined, [B, n, 2C]
         "instance_norm_stats": (ops.instance_norm_stats.default, (cl(2, 16, 40, 30),)),
         "instance_norm_prelu_from_stats": (ops.instance_norm_prelu_from_stats.default,
-                                           (x, alpha, torch.rand(2, 3, 32), 70)),
+                                           (x, alpha, torch.rand(2, 4, 32), 70)),
         "instance_norm_add_from_stats": (ops.instance_norm_add_from_stats.default,
                                          (x, cl(2, 16, 5, 7), torch.rand(2, 1, 32), 35)),
     }

@@ -40,8 +40,11 @@ from fast_srgan_torch.kernels.instance_norm import (
     instance_norm_add_reference,
     instance_norm_prelu,
     instance_norm_prelu_reference,
+    TWO_LAUNCH_BLOCKS,
     plan,
     resident_smem,
+    two_launch_chunk,
+    two_launch_tiles,
 )
 from fast_srgan_torch.ops.norm import instance_norm
 
@@ -313,6 +316,45 @@ class TestPlan:
                     groups = c * itemsize // 16
                     assert tile_px * groups <= HELD * (RESIDENT_THREADS // groups) * groups
 
+    @pytest.mark.parametrize("itemsize", [2, 4])
+    @pytest.mark.parametrize("n_sms", [132, 8])
+    def test_two_launch_grid_covers_every_pixel_once(self, n_sms, itemsize):
+        """The two-launch and split forms' [tiles, B] grid: the blocks of a
+        sample take its chunks in turn (chunk j to block j mod tiles), as
+        csrc/instance_norm.cu's loops do; every pixel falls in one chunk of
+        one block, and no block is left without a chunk."""
+        for b in (1, 2, 3, 8, 24, 200, 300):
+            for c in (16, 64, 256):
+                for hw in (1, 31, 32, 1023, 37 * 53, 180 * 320, 540 * 240, 540 * 960):
+                    tiles = two_launch_tiles((b, c, 1, hw), itemsize, n_sms)
+                    chunk = two_launch_chunk(c, itemsize)
+                    covered = np.zeros(hw, np.int32)
+                    blocks = np.zeros(tiles, np.int32)
+                    for t in range(tiles):
+                        for start in range(t * chunk, hw, tiles * chunk):
+                            covered[start:start + chunk] += 1
+                            blocks[t] += 1
+                    assert (covered == 1).all() and (blocks >= 1).all()
+
+    @pytest.mark.parametrize("shape,itemsize", [((1, 64, 540, 240), 2), ((1, 64, 540, 960), 2),
+                                                ((8, 64, 540, 960), 2), ((8, 64, 180, 320), 4),
+                                                ((1, 64, 540, 240), 4)])
+    def test_two_launch_grid_fills_the_sms(self, shape, itemsize):
+        """At least TWO_LAUNCH_BLOCKS blocks an SM of an H100's 132 at the
+        shapes that take the two launches (a tiled 4K shard, the 4K frame
+        one and eight at a time, fp32 serving), each with 8 pixels' vectors
+        a thread (a chunk) at least."""
+        tiles = two_launch_tiles(shape, itemsize, 132)
+        assert shape[0] * tiles >= TWO_LAUNCH_BLOCKS * 132
+        assert tiles * two_launch_chunk(shape[1], itemsize) <= shape[2] * shape[3]
+
+    def test_two_launch_grid_is_the_same_for_every_batch(self):
+        """A sample takes the same blocks alone, in a batch and as a shard of
+        one, so its statistics come out the same bits."""
+        for hw in ((37, 53), (180, 320), (540, 240), (540, 960)):
+            got = {two_launch_tiles((b, 64) + hw, 2, 132) for b in (1, 2, 8, 300)}
+            assert len(got) == 1
+
 
 class TestCallSites:
     """The generator's 9 residual-add norms go through instance_norm_add."""
@@ -372,9 +414,10 @@ class TestBuild:
 
 class TestSplitForm:
     """The split form's plain versions (the width-sharded forward's norms):
-    per-shard statistics joined in shard order, then each shard normalized
-    with the whole frame's; against ``ops/norm``'s norm of the whole frame
-    and JAX's ``instance_norm_nhwc``: fp32 2e-5 (summation order only)."""
+    each shard's statistics ([B, 1, 2C], its sums) joined in shard order,
+    then each shard normalized with the whole frame's; against
+    ``ops/norm``'s norm of the whole frame and JAX's ``instance_norm_nhwc``:
+    fp32 2e-5 (summation order only)."""
 
     @pytest.mark.parametrize("n_shards", [1, 2, 4])
     @pytest.mark.parametrize("shape", [(2, 16, 9, 40), (1, 64, 33, 2048)])
@@ -392,9 +435,9 @@ class TestSplitForm:
         alpha = torch.tensor([0.23])
         xs, ss = torch.chunk(xt, n_shards, dim=3), torch.chunk(st, n_shards, dim=3)
         parts = [instance_norm_stats(s) for s in xs]
-        tiles = -(-(shape[2] * shape[3] // n_shards) // 1024)
-        assert all(p.shape == (shape[0], tiles, 2 * shape[1]) for p in parts)
+        assert all(p.shape == (shape[0], 1, 2 * shape[1]) for p in parts)
         joined = torch.cat(parts, dim=1)
+        assert joined.shape == (shape[0], n_shards, 2 * shape[1])
         count = shape[2] * shape[3]
         prelu_out = torch.cat([instance_norm_prelu_from_stats(s, alpha, joined, count)
                                for s in xs], dim=3)
@@ -409,15 +452,16 @@ class TestSplitForm:
             0, 2, 3, 1))).max() <= 2e-5
 
     def test_stats_are_tile_sums(self):
-        from fast_srgan_torch.kernels.instance_norm import TILE_PX, instance_norm_stats
+        """The statistics are the shard's totals (its tiles' sums, summed):
+        [B, 1, 2C] fp32, within rtol 1e-6 of float64 sums."""
+        from fast_srgan_torch.kernels.instance_norm import instance_norm_stats
 
         x = torch.arange(2 * 4 * 3 * 700, dtype=torch.float32).reshape(2, 4, 3, 700) / 1e3
         p = instance_norm_stats(x.contiguous(memory_format=torch.channels_last))
+        assert p.shape == (2, 1, 8) and p.dtype == torch.float32
         flat = x.permute(0, 2, 3, 1).reshape(2, 2100, 4).double()
-        for t in range(3):
-            chunk = flat[:, t * TILE_PX:(t + 1) * TILE_PX]
-            want = torch.cat([chunk.sum(1), chunk.square().sum(1)], dim=1)
-            assert torch.allclose(p[:, t].double(), want, rtol=1e-6)
+        want = torch.cat([flat.sum(1), flat.square().sum(1)], dim=1)
+        assert torch.allclose(p[:, 0].double(), want, rtol=1e-6, atol=0)
 
     def test_count_is_the_frame_not_the_shard(self):
         """A shard normalized with its own count would still look plausible;
