@@ -66,10 +66,14 @@ own line; any failure exits non-zero and prints no result:
  11. bucketed and streaming serving: the masked forms of both IN epilogues
      (a zero-padded batch, statistics over each sample's valid region)
      against their plain versions in bf16 and fp32, in the resident form
-     (8 x 192x320 with valid sizes 180x320, 192x320, 150x300, 33x47) and
-     the two launches (544x960 holding 540x960), padding exactly 0 (PReLU)
-     or equal to skip (add), timed beside the unmasked kernel at the same
-     padded shape; the pretrained 4x engine with bucket=32 answers 12
+     (8 x 192x320 with valid sizes 180x320, 192x320, 150x300, 33x47; one
+     192x320 among seven 33x47; all 192x320) and the two launches (544x960
+     holding 540x960), padding exactly 0 (PReLU) or equal to skip (add),
+     bitwise run to run and under CUDA-graph replay, a wholly valid batch
+     bitwise the unmasked kernel, the bf16 cases timed (share of bound)
+     beside the unmasked kernel at the same padded shape; the bucketed bf16
+     forward of 8x192x320 at the first case's sizes timed by graph replay
+     (busy) and eager; the pretrained 4x engine with bucket=32 answers 12
      mixed-size requests from 4 threads through the micro-batcher (exact
      masked launch counts, no unmasked IN), fp32 bucketed within 1 count
      of fp32 unbucketed, bf16 bucketed >= 40 dB against it, the canonical
@@ -1602,10 +1606,48 @@ def _valid_hw(sizes) -> tuple:
             torch.tensor([w for _, w in sizes], dtype=torch.int32, device=dev))
 
 
+#: the smoke's mixed valid sizes in the serving bucket (two of each)
+SERVING_BUCKET_SIZES = [(180, 320), (192, 320), (150, 300), (33, 47)] * 2
+#: phase 11a's cases: (label, padded shape, valid sizes a sample, kernels-line
+#: key prefix); the serving bucket's resident form (bf16) with the smoke's
+#: mixed sizes, one whole sample among seven mostly padding, and wholly
+#: valid (bitwise the unmasked kernel); a 540x960 frame in its 544x960
+#: bucket (two launches)
+MASKED_CASES = [
+    ("serving bucket", (8, 64, 192, 320), SERVING_BUCKET_SIZES, ""),
+    ("one whole among 33x47", (8, 64, 192, 320), [(192, 320)] + [(33, 47)] * 7, "one_whole_"),
+    ("all valid", (8, 64, 192, 320), [(192, 320)] * 8, "all_valid_"),
+    ("540x960 bucket", (1, 64, 544, 960), [(540, 960)], "two_launch_"),
+]
+
+
+def _replays_bitwise(fn, want: torch.Tensor) -> bool:
+    """Two replays of a CUDA graph of one call of fn() (any scratch zeroed
+    by the captured memsets) give want's bits."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    same = True
+    for _ in range(2):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        same = same and torch.equal(out, want)
+    return same
+
+
 def phase_masked_kernel(card: str) -> dict:
-    """11a: the masked forms of both epilogues against their plain versions,
-    timed beside the unmasked kernel at the same padded shape. Returns each
-    masked form's row of the kernels line."""
+    """11a: the masked forms of both epilogues against their plain versions
+    in MASKED_CASES, bitwise run to run and under CUDA-graph replay (a wholly
+    valid batch bitwise the unmasked kernel), the bf16 cases timed beside
+    the unmasked kernel at the same padded shape. Returns each masked form's
+    row of the kernels line (the serving bucket's keys bare, the other
+    cases' under their prefixes)."""
     from fast_srgan_torch.kernels.instance_norm import (
         instance_norm_add,
         instance_norm_add_reference,
@@ -1625,16 +1667,12 @@ def phase_masked_kernel(card: str) -> dict:
         "instance_norm_add_masked": (instance_norm_add, instance_norm_add_reference,
                                      ADD_BF16_TOL, 1),
     }
-    cases = [
-        ("serving bucket", (8, 64, 192, 320),
-         [(180, 320), (192, 320), (150, 300), (33, 47)] * 2),
-        ("540x960 bucket", (1, 64, 544, 960), [(540, 960)]),
-    ]
     rows = {name: {} for name in forms}
-    for case, shape, sizes in cases:
+    for case, shape, sizes, key in MASKED_CASES:
         valid = _valid_hw(sizes)
         pad = (valid_mask(shape[2], shape[3], *valid)[0] == 0).expand(shape)
         n_valid = sum(h * w for h, w in sizes)
+        whole = all(s == shape[2:] for s in sizes)
         for dtype in (torch.bfloat16, torch.float32):
             found = plan(shape, torch.finfo(dtype).bits // 8, n_sms)
             form = "two launches" if found is None else "resident %s" % (found,)
@@ -1659,9 +1697,15 @@ def phase_masked_kernel(card: str) -> dict:
                 err = (got.float() - want.float()).abs().max().item()
                 padding = (torch.equal(got[pad], other[pad]) if extra_reads
                            else bool(torch.all(got[pad] == 0)))
+                bitwise = (torch.equal(fn(x, other, valid), got)
+                           and _replays_bitwise(lambda: fn(x, other, valid), got))
                 line = (f"[11 kernel] {label} {list(shape)} ({form}): max_abs_err {err:.3e}"
                         f" (tol {tol:g}); padding {'= skip' if extra_reads else '= 0'}"
-                        f" {padding}")
+                        f" {padding}; bitwise run to run and under graph replay {bitwise}")
+                unmasked_equal = True
+                if whole:
+                    unmasked_equal = torch.equal(fn(x, other), got)
+                    line += f"; bitwise the unmasked kernel {unmasked_equal}"
                 if dtype == torch.bfloat16:
                     ms, plain_ms = _timed_pair(lambda: fn(x, other, valid),
                                                lambda: plain(x, other, valid))
@@ -1675,18 +1719,45 @@ def phase_masked_kernel(card: str) -> dict:
                              f" {bnd['bound_ms']:.4f} ms bound ({bnd['bound_by']}); unmasked"
                              f" kernel at the padded shape {unmasked_ms:.4f} ms; plain"
                              f" {plain_ms:.4f} ms ({card})")
-                    if case == "serving bucket":
+                    if key:
+                        rows[name].update({key + "ms": ms, key + "plain_ms": plain_ms,
+                                           key + "bound_ms": bnd["bound_ms"],
+                                           key + "unmasked_ms": unmasked_ms})
+                    else:
                         rows[name].update({"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                                            "library_ms": None, **bnd,
                                            "unmasked_ms": unmasked_ms})
-                    else:
-                        rows[name].update({"two_launch_ms": ms, "two_launch_plain_ms": plain_ms,
-                                           "two_launch_bound_ms": bnd["bound_ms"],
-                                           "two_launch_unmasked_ms": unmasked_ms})
                 print(line, flush=True)
                 check(err <= tol, f"{label}: max_abs_err {err} > {tol}")
                 check(padding, f"{label}: the padding is not {'skip' if extra_reads else '0'}")
+                check(bitwise, f"{label}: not bitwise run to run or under graph replay")
+                check(unmasked_equal, f"{label}: a wholly valid batch differs from unmasked")
     return rows
+
+
+def bucketed_forward_times(params) -> dict:
+    """ms of the bf16 bucket=32 engine's masked forward (``forward_u8_masked``)
+    of 8 frames padded to 192x320 with the smoke's mixed valid sizes (17
+    masked norms): device time by replays of a CUDA graph of one call
+    ("graph", 10 replays, the busy time) and eager by CUDA events around 10
+    calls, in turns (graph, eager, eager, graph). Public entry points
+    only."""
+    from fast_srgan_torch.inference import SRInferenceEngine
+
+    engine = SRInferenceEngine(params, device="cuda", dtype=torch.bfloat16, bucket=32)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    x = torch.randint(0, 256, (8, 192, 320, 3), generator=gen, device="cuda",
+                      dtype=torch.uint8)
+    vh, vw = _valid_hw(SERVING_BUCKET_SIZES)
+    for b, (h, w) in enumerate(SERVING_BUCKET_SIZES):
+        x[b, h:] = 0
+        x[b, :, w:] = 0
+    fn = lambda: engine.forward_u8_masked(x, vh, vw)  # noqa: E731
+    ms = {"graph": [], "eager": []}
+    with torch.inference_mode():
+        for arm in ("graph", "eager", "eager", "graph"):
+            ms[arm].append(cuda_ms(fn, 10) if arm == "graph" else events_ms(fn, 10))
+    return ms
 
 
 BUCKET_SIZES = ((90, 160), (100, 170), (180, 320), (175, 310))
@@ -3177,6 +3248,10 @@ def main() -> None:
     phase_int8_throughput(params, frames, card)
     masked_rows = phase_masked_kernel(card)
     bucketed = phase_bucketed_engine(params)
+    ms = bucketed_forward_times(params)
+    print(f"[11 bucketed] bf16 bucket=32 masked forward, 8x192x320 at the smoke's sizes:"
+          f" {np.mean(ms['graph']):.4f} ms by graph replay (busy; {ms['graph']}), eager"
+          f" {np.mean(ms['eager']):.4f} ({ms['eager']}) ({card})", flush=True)
     phase_masked_int8(params, frames)
     phase_stream(params, frames, staged_fps, card)
     split_rows = phase_split_in(card)

@@ -90,15 +90,24 @@
 //   sums over the valid pixels only; mean = sum(x) / (vh * vw), ex2 likewise
 //   out = epilogue(y) at a valid pixel; PReLU: 0, add: skip at padding
 //
-// They read and write the same bytes as the unmasked forms at the padded
-// shape, or fewer (the resident form fetches x at padded pixels with its
-// tile and leaves it out of the sums; the two launches skip those loads).
-// The predicate is one per 16-byte vector (a vector is one pixel's
-// channels): each thread finds its first pixel's (row, column) once and
-// steps it by its pixel stride, with no division a vector. The resident
-// form is latency-bound, so the predicate's instructions show in its time:
-// each iteration reads its samples' valid sizes and builds both bit masks
-// at its top, ahead of the stages that wait on them.
+// Neither form reads x at a padded pixel, and both write out everywhere (0
+// or skip). The two launches predicate each load (one 16-byte vector is one
+// pixel's channels): each thread finds its first pixel's (row, column) once
+// and steps it by its pixel stride, with no division a vector. The resident
+// form is latency-bound, so it keeps the mask off its critical path: when a
+// wave's copy is issued (two iterations before its sums), each block works
+// out once whether its tile holds a valid pixel at all and each thread which
+// of its vectors do (a TileMask, carried with the tile to the normalize; the
+// valid sizes it needs are loaded earlier in that iteration, behind C2's
+// wait). A valid vector is copied; a padded one is zero-filled in shared
+// memory by a cp.async of source size 0, which reads nothing. Zeros add
+// nothing to either sum, so C1 sums the tile with no validity test, exactly
+// as the unmasked form does, and A sends the padding to 0 or skip by the
+// mask. A tile wholly in padding takes the short road: no copy, zero
+// partial sums written without the block's reduction, no wait for the
+// totals in A, and zeros (PReLU) or skip (add) stored evict-first. A fully
+// valid batch takes the unmasked form's copies, sums and order: bitwise its
+// results. The unmasked instantiation (M = false) compiles none of this.
 //
 // The wrapper (fast_srgan_torch/kernels/instance_norm.py) chooses the form
 // and the grid by shape, and guarantees: C % N == 0 with N = 16 / sizeof(T),
@@ -188,6 +197,25 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
                "l"(gmem)
                : "memory");
+}
+
+// cp_async16 where fetch, else 16 zero bytes into smem, reading nothing (a
+// source size of 0).
+__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem,
+                                                 bool fetch) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(fetch ? 16 : 0)
+               : "memory");
+}
+
+// An int of read-only memory, loaded where the call stands: as asm volatile
+// the compiler keeps it in order with the kernel's other asm and cannot sink
+// it to its use, past the stages that hide its latency.
+__device__ __forceinline__ int ld_early(const int* p) {
+  int v;
+  asm volatile("ld.global.nc.s32 %0, [%1];\n" : "=r"(v) : "l"(p));
+  return v;
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -395,6 +423,11 @@ struct PixelWalk {
 
 // ---------------------------------------------------------------- resident
 
+// masked: a TileMask's bit that the tile holds a valid pixel at all (bits 0
+// .. kHeld - 1: which of the thread's vectors do); a block carries the masks
+// of four waves in one 64-bit word, 16 bits each.
+constexpr unsigned kAny = 1u << 15;
+
 template <typename T, int E, bool M>
 __global__ void __launch_bounds__(kResidentThreads, 1)
     in_resident_kernel(const T* __restrict__ x, const T* __restrict__ skip,
@@ -419,25 +452,37 @@ __global__ void __launch_bounds__(kResidentThreads, 1)
   const int slot = blockIdx.x / tiles;     // sample of the wave
   const int tile = blockIdx.x % tiles;
   const int waves = (batch + per_wave - 1) / per_wave;
+  // masked: the valid sizes of waves 0 and 1 (0 past the batch), loaded
+  // first so that the set-up below hides their latency
+  const bool has1 = per_wave + slot < batch;
+  const int h0 = M && slot < batch ? ld_early(vh + slot) : 0;
+  const int w0 = M && slot < batch ? ld_early(vw + slot) : 0;
+  const int h1 = M && has1 ? ld_early(vh + per_wave + slot) : 0;
+  const int w1 = M && has1 ? ld_early(vw + per_wave + slot) : 0;
   const int nbuf = min(waves, 3);
   const int p0 = min(tile * tile_px, hw);
   const int nvec = (min(p0 + tile_px, hw) - p0) * groups;  // 16-byte vectors
   const size_t tile_elems = (size_t)tile_px * c;
-  // masked: bit k set where the thread's vector t + k * threads lies in
-  // sample b's valid region (its pixel is p0 + t / groups + k * rows). The
-  // walk's start is the same in every wave: found once.
+  // masked: the tile's first pixel (ya, xa) and its last one's row yb. It
+  // holds a valid pixel where its first one is, or where it reaches a
+  // second row that is valid (its column 0 is). The thread's vector k = t +
+  // k * threads is pixel p0 + t / groups + k * rows. All are the same in
+  // every wave: found once.
+  const int ya = M ? p0 / width : 0, xa = M ? p0 % width : 0;
+  const int yb = M ? max(p0, p0 + nvec / groups - 1) / width : 0;
   const PixelWalk walk0(M ? p0 + t / groups : 0, threads / groups, M ? width : 1);
-  auto valid_bits = [&](int b) -> unsigned {
-    if (!M) return ~0u;
-    const int hb = __ldg(vh + b), wb = __ldg(vw + b);
+  auto tile_mask = [&](int hb, int wb) -> unsigned {  // 0: all padding
+    if (!(nvec > 0 && ((ya < hb && xa < wb) || (yb > ya && ya + 1 < hb)))) {
+      return 0u;
+    }
     PixelWalk px = walk0;
-    unsigned bits = 0u;
+    unsigned mask = kAny;
 #pragma unroll
     for (int k = 0; k < kHeld; ++k) {
-      if (px.inside(hb, wb)) bits |= 1u << k;
+      if (px.inside(hb, wb)) mask |= 1u << k;
       px.next();
     }
-    return bits;
+    return mask;
   };
 
   T* xbuf = reinterpret_cast<T*>(smem);  // a ring of nbuf tiles of x
@@ -451,20 +496,40 @@ __global__ void __launch_bounds__(kResidentThreads, 1)
   unsigned long long* part = words;
   unsigned long long* sums = words + (size_t)batch * tiles * c2;
 
-  auto copy_tile = [&](int w) {  // wave w's tile into its ring slot
+  // wave w's tile into its ring slot (masked: its valid vectors, the others
+  // zero-filled; nothing for a tile all padding)
+  auto copy_tile = [&](int w, unsigned mask) {
     const int b = w * per_wave + slot;
     if (w >= waves || b >= batch) return;
     const T* from = x + ((size_t)b * hw + p0) * c;
     T* to = xbuf + (w % nbuf) * tile_elems;
-    for (int v = t; v < nvec; v += threads) {
-      cp_async16(to + (size_t)v * N, from + (size_t)v * N);
+    if (!M) {
+      for (int v = t; v < nvec; v += threads) {
+        cp_async16(to + (size_t)v * N, from + (size_t)v * N);
+      }
+      return;
+    }
+    if (!(mask & kAny)) return;
+#pragma unroll
+    for (int k = 0; k < kHeld; ++k) {
+      const int v = t + k * threads;
+      if (v < nvec) {
+        cp_async16_zfill(to + (size_t)v * N, from + (size_t)v * N,
+                         (mask >> k) & 1u);
+      }
     }
   };
+  // masked: the TileMasks of waves w - 2, w - 1, w and w + 1 at the top of
+  // iteration w (wave w - 2 + i at bit 16 i)
+  const unsigned m0 = h0 > 0 ? tile_mask(h0, w0) : 0u;
+  const unsigned m1 = h1 > 0 ? tile_mask(h1, w1) : 0u;
+  unsigned long long masks =
+      ((unsigned long long)m0 << 32) | ((unsigned long long)m1 << 48);
 
   const float a = E == kPrelu ? __ldg(alpha) : 0.f;
-  copy_tile(0);
+  copy_tile(0, m0);
   cp_async_commit();
-  copy_tile(1);
+  copy_tile(1, m1);
   cp_async_commit();
 
   uint4 held[kHeld];  // wave w - 2's tile, moved out of shared memory
@@ -477,11 +542,9 @@ __global__ void __launch_bounds__(kResidentThreads, 1)
     const bool sums_now = w < waves && b < batch;
     const bool totals_now = w >= 1 && b1 < batch;
     const bool norm_now = w >= 2 && b2 < batch;
-    // masked: the samples' valid sizes read once, ahead of the stages
-    const unsigned ok_sums = sums_now ? valid_bits(b) : 0u;
-    const unsigned ok_norm = norm_now ? valid_bits(b2) : 0u;
-    const float count =
-        (M && norm_now) ? (float)(__ldg(vh + b2) * __ldg(vw + b2)) : (float)hw;
+    const unsigned m_norm = static_cast<unsigned>(masks);  // (low 16 bits)
+    const unsigned m_held = static_cast<unsigned>(masks >> 16);
+    const unsigned m_sum = static_cast<unsigned>(masks >> 32);
     if (E == kAdd && norm_now) {
       const uint4* sk =
           reinterpret_cast<const uint4*>(skip + ((size_t)b2 * hw + p0) * c);
@@ -492,8 +555,8 @@ __global__ void __launch_bounds__(kResidentThreads, 1)
       }
     }
 
-    // C1. wave w's partial sums
-    if (sums_now) {
+    // C1. wave w's partial sums (masked: its padding is zeros)
+    if (sums_now && (!M || (m_sum & kAny))) {
       const T* cur = xbuf + (w % nbuf) * tile_elems;
       cp_async_wait<1>();  // pending: tiles w and w + 1
       float s[N], q[N];
@@ -505,7 +568,7 @@ __global__ void __launch_bounds__(kResidentThreads, 1)
 #pragma unroll
       for (int k = 0; k < kHeld; ++k) {
         const int v = t + k * threads;
-        if (v < nvec && ((ok_sums >> k) & 1u)) {
+        if (v < nvec) {
           float e[N];
           P::load(cur + (size_t)v * N, e);
 #pragma unroll
@@ -518,7 +581,20 @@ __global__ void __launch_bounds__(kResidentThreads, 1)
       unsigned long long* row = part + ((size_t)b * tiles + tile) * c2;
       block_sums<N>(s, q, red, red2, groups, c,
                     [&](int j, float v) { st_word(row + j, tagged(v)); });
+    } else if (M && sums_now) {  // all padding: its sums are 0
+      unsigned long long* row = part + ((size_t)b * tiles + tile) * c2;
+      for (int j = t; j < c2; j += threads) st_word(row + j, tagged(0.f));
     }
+
+    // masked: wave w + 2's valid size for its copy at the bottom and wave
+    // w - 2's for A's count, loaded after C1 (where registers are scarcest)
+    // and ahead of C2's wait, which hides them
+    const int bn = b + 2 * per_wave;
+    const bool copy_next = M && w + 2 < waves && bn < batch;
+    const int hn = copy_next ? ld_early(vh + bn) : 0;
+    const int wn = copy_next ? ld_early(vw + bn) : 0;
+    const int h2 = (M && norm_now) ? ld_early(vh + b2) : 0;
+    const int w2 = (M && norm_now) ? ld_early(vw + b2) : 0;
 
     // C2. this block's share of wave w - 1's totals: statistic j of tile
     // j mod tiles, over every tile's partial (written an iteration ago)
@@ -530,12 +606,18 @@ __global__ void __launch_bounds__(kResidentThreads, 1)
       }
     }
 
+    // masked: wave w + 2's TileMask and wave w - 2's count, now that C2's
+    // wait has hidden their loads (fewer registers through A)
+    const unsigned m_new = copy_next ? tile_mask(hn, wn) : 0u;
+    const float valid_count = M ? (float)(h2 * w2) : 0.f;
+
     // A. normalize wave w - 2 (totals published an iteration ago)
-    if (norm_now) {
+    if (norm_now && (!M || (m_norm & kAny))) {
       for (int j = t; j < c2; j += threads) {
         tot[j] = wait_word(sums + (size_t)b2 * c2 + j);
       }
       __syncthreads();
+      const float count = M ? valid_count : (float)hw;
       for (int ch = t; ch < c; ch += threads) {
         const float mean = tot[ch] / count;
         const float var = fmaxf(tot[c + ch] / count - mean * mean, 0.f);
@@ -557,17 +639,32 @@ __global__ void __launch_bounds__(kResidentThreads, 1)
           float e[N], f[N];
           P::unpack(held[k], e);
           if (E == kAdd) P::unpack(skr[k], f);
-          const bool in = (ok_norm >> k) & 1u;  // padding: 0 into the epilogue
+          // masked padding: 0 into the add's epilogue (out = skip); the
+          // PReLU's 0 is stored whole (one select a vector, not a value)
+          const bool in = !M || ((m_norm >> k) & 1u);
 #pragma unroll
-          for (int i = 0; i < N; ++i) e[i] = in ? (e[i] - m[i]) * rs[i] : 0.f;
+          for (int i = 0; i < N; ++i) {
+            e[i] = E == kAdd && !in ? 0.f : (e[i] - m[i]) * rs[i];
+          }
           epilogue<T, E, N>(e, f, a);
-          P::store(o + (size_t)v * N, e);
+          if (E == kPrelu && !in) {
+            *reinterpret_cast<uint4*>(o + (size_t)v * N) = make_uint4(0u, 0u, 0u, 0u);
+          } else {
+            P::store(o + (size_t)v * N, e);
+          }
         }
+      }
+    } else if (M && norm_now) {  // all padding: 0 or skip, no statistics
+      uint4* o = reinterpret_cast<uint4*>(out + ((size_t)b2 * hw + p0) * c);
+#pragma unroll
+      for (int k = 0; k < kHeld; ++k) {
+        const int v = t + k * threads;
+        if (v < nvec) __stcs(o + v, E == kAdd ? skr[k] : make_uint4(0u, 0u, 0u, 0u));
       }
     }
 
     // R. wave w - 1's tile into registers; wave w + 2's into its slot
-    if (totals_now) {
+    if (totals_now && (!M || (m_held & kAny))) {
       const uint4* from =
           reinterpret_cast<const uint4*>(xbuf + ((w - 1) % nbuf) * tile_elems);
 #pragma unroll
@@ -576,8 +673,9 @@ __global__ void __launch_bounds__(kResidentThreads, 1)
         if (v < nvec) held[k] = from[v];
       }
     }
-    copy_tile(w + 2);
+    copy_tile(w + 2, m_new);
     cp_async_commit();
+    masks = (masks >> 16) | ((unsigned long long)m_new << 48);
   }
   cp_async_wait<0>();
 }

@@ -1,7 +1,8 @@
 """Batched HTTP super-resolution server on the PyTorch port.
 
     python -m fast_srgan_torch.serve [--host 127.0.0.1] [--port 8000]
-        [--checkpoint X.npz|X.pt] [--bucket 32] [--max_batch 8] [--max_wait_ms 5]
+        [--checkpoint X.npz|X.pt] [--config F] [--bucket 32] [--max_batch 8]
+        [--max_wait_ms 5]
         [--fp32] [--int8 [--calib_dir DIR]] [--warm H1xW1,...|none]
         [--device cuda]
 
@@ -13,6 +14,12 @@ Concurrent requests are micro-batched onto the device
 default, so requests of different sizes share one batch, exactly (the
 masked forward). ``--int8`` serves the int8 ``ups`` tier, calibrated on
 ``--calib_dir``'s images when given, else on the synthetic batch.
+
+``--config`` (default ``configs/config.yaml``, which may be absent; a file
+given on the command line must exist) is read as the JAX server reads it.
+The checkpoint sets the architecture, and the config's ``kernels:`` section
+reaches no engine option: the port always runs its kernels on the card
+(``infer``'s docstring says why).
 
 Before it accepts traffic the server runs one request of each ``--warm``
 shape, so no live request pays the first use of a shape: on the card, the
@@ -30,7 +37,13 @@ import numpy as np
 import torch
 
 from fast_srgan_torch import quant
-from fast_srgan_torch.infer import image_names, load_generator_params, resolve_default_checkpoint
+from fast_srgan_torch.config import load_config
+from fast_srgan_torch.infer import (
+    DEFAULT_CONFIG,
+    image_names,
+    load_generator_params,
+    resolve_default_checkpoint,
+)
 from fast_srgan_torch.inference import SRInferenceEngine, load_image
 from fast_srgan_torch.serving import make_server
 
@@ -46,6 +59,11 @@ def parse_args(argv=None) -> argparse.Namespace:
         "--checkpoint", default=None,
         help="a .npz or .pt generator (default: the first of infer.DEFAULT_CHECKPOINTS"
         " that exists)",
+    )
+    parser.add_argument(
+        "--config", default=DEFAULT_CONFIG,
+        help="config file (the default may be absent; a file given must exist); the"
+        " architecture comes from the checkpoint",
     )
     parser.add_argument(
         "--bucket", default=32, type=int,
@@ -89,7 +107,12 @@ def warm_shapes(spec: str) -> List[Tuple[int, int]]:
 def build_server(args: argparse.Namespace):
     """The engine the flags ask for, warmed, behind a built (not started)
     server."""
-    params = load_generator_params(args.checkpoint or resolve_default_checkpoint())
+    ckpt = args.checkpoint or resolve_default_checkpoint()
+    try:
+        load_config(args.config, required=args.config != DEFAULT_CONFIG)
+    except FileNotFoundError as e:
+        raise SystemExit(f"--config: {e}") from None
+    params = load_generator_params(ckpt)
     calib = None
     if args.int8 and args.calib_dir:
         batch = quant.calibration_batch_from_images(

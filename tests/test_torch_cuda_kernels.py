@@ -735,11 +735,15 @@ def _valid_hw(device, sizes):
 
 
 # (padded shape, valid sizes a sample): the serving bucket (resident in
-# bf16), a 540x960 frame in its 544x960 bucket (two launches), ragged
+# bf16), a 540x960 frame in its 544x960 bucket (two launches), ragged; the
+# serving bucket with one whole sample among seven that are mostly padding
+# (most tiles of the resident form all padding), and wholly valid
 _MASKED_CASES = [
     ((8, 64, 192, 320), [(180, 320), (192, 320), (150, 300), (33, 47)] * 2),
     ((1, 64, 544, 960), [(540, 960)]),
     ((3, 64, 37, 53), [(37, 53), (20, 11), (1, 1)]),
+    ((8, 64, 192, 320), [(192, 320)] + [(33, 47)] * 7),
+    ((8, 64, 192, 320), [(192, 320)] * 8),
 ]
 
 
@@ -768,6 +772,39 @@ def test_masked_kernel_matches_plain(device, shape, sizes, dtype, residual):
         assert torch.equal(got[pad], other[pad])
     else:
         assert torch.all(got[pad] == 0)
+
+
+@pytest.mark.parametrize("sizes", [_MASKED_CASES[0][1], _MASKED_CASES[3][1],
+                                   _MASKED_CASES[4][1]], ids=["mixed", "one-whole", "all-valid"])
+@pytest.mark.parametrize("residual", [False, True])
+def test_masked_resident_is_bitwise(device, sizes, residual):
+    """The masked resident form at the serving bucket (bf16): two calls and
+    two replays of one CUDA graph (the tagged words zeroed by the captured
+    memset) give the same bits; a wholly valid batch gives the unmasked
+    kernel's bits (the same plan, copies and order of sums)."""
+    shape, dtype = (8, 64, 192, 320), torch.bfloat16
+    assert plan(shape, 2, torch.cuda.get_device_properties(device).multi_processor_count)
+    x = _activation(device, shape, dtype, seed=19)
+    valid = _valid_hw(device, sizes)
+    fn = instance_norm_add if residual else instance_norm_prelu
+    other = _skip(device, shape, dtype, seed=20) if residual else torch.tensor([0.173], device=device)
+    first = fn(x, other, valid)
+    assert torch.equal(fn(x, other, valid), first)
+    if all(s == shape[2:] for s in sizes):
+        assert torch.equal(fn(x, other), first)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(x, other, valid)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(x, other, valid)
+    for _ in range(2):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, first)
 
 
 def test_masked_rejects(device):

@@ -75,6 +75,18 @@ def _max_valid_err(got, want, scale=1, vh=VALID[0], vw=VALID[1]) -> float:
 
 
 VH, VW = [7, 12, 1], [16, 9, 3]
+# valid regions of a 12x16 frame at the edges the kernel's masked resident
+# form treats apart: mixed sizes; a 1x1 region; whole columns (vh = H, vw <
+# W) and whole rows (vw = W, vh < H); regions that end inside a row; rows
+# that end before most of the frame; the whole frame (the unmasked norm)
+EDGES = [
+    (VH, VW),
+    ([1, 12, 4], [1, 5, 16]),
+    ([7, 3, 12], [9, 15, 16]),
+    ([2, 1, 12], [16, 13, 16]),
+    ([12, 12, 12], [16, 16, 16]),
+]
+EDGE_IDS = ["mixed", "1x1-columns-rows", "inside-a-row", "short", "all-valid"]
 
 
 class TestMaskedNorm:
@@ -104,30 +116,41 @@ class TestMaskedNorm:
         assert torch.all(out[pad] == 0) and not torch.signbit(out[pad]).any()
         assert torch.equal(out[~pad], v[~pad])
 
-    def test_masked_prelu_epilogue_matches_jax(self):
-        x = _activation(1)
+    @pytest.mark.parametrize("vh,vw", EDGES, ids=EDGE_IDS)
+    def test_masked_prelu_epilogue_matches_jax(self, vh, vw):
+        x = _activation(1)  # nonzero in the padding
         alpha = np.array([0.173], np.float32)
         before = (instance_norm_prelu.launches, instance_norm_prelu.masked_launches)
-        got = _nhwc(instance_norm_prelu(_cl(x), torch.from_numpy(alpha), _valid(VH, VW)))
+        got = _nhwc(instance_norm_prelu(_cl(x), torch.from_numpy(alpha), _valid(vh, vw)))
         assert (instance_norm_prelu.launches, instance_norm_prelu.masked_launches) == before
-        jmask, jcount = valid_mask_nhwc(12, 16, *_jax_valid(VH, VW))
+        jmask, jcount = valid_mask_nhwc(12, 16, *_jax_valid(vh, vw))
         y = instance_norm_masked_nhwc(jnp.asarray(x), jmask, jcount)
         want = np.asarray(jnp.where(y >= 0, y, alpha[0] * y))
         np.testing.assert_allclose(got, want, atol=TOL)
         assert np.all(got[np.broadcast_to(np.asarray(jmask) == 0, got.shape)] == 0)
+        if min(vh) == 12 and min(vw) == 16:  # all valid: the unmasked norm
+            plain = _nhwc(instance_norm_prelu(_cl(x), torch.from_numpy(alpha)))
+            np.testing.assert_allclose(got, plain, atol=TOL)
 
-    def test_masked_add_epilogue_matches_jax(self):
+    @pytest.mark.parametrize("vh,vw", EDGES, ids=EDGE_IDS)
+    def test_masked_add_epilogue_matches_jax(self, vh, vw):
         """JAX's ``instance_norm_masked_nhwc(y) + x``, with x (the block's
-        input) zero in the padding, as on the generator's path."""
+        input) zero in the padding, as on the generator's path; y nonzero
+        there."""
         y = _activation(2)
-        jmask, jcount = valid_mask_nhwc(12, 16, *_jax_valid(VH, VW))
+        jmask, jcount = valid_mask_nhwc(12, 16, *_jax_valid(vh, vw))
         skip = (_activation(3) * np.asarray(jmask)).astype(np.float32)
         before = (instance_norm_add.launches, instance_norm_add.masked_launches)
-        got = _nhwc(instance_norm_add(_cl(y), _cl(skip), _valid(VH, VW)))
+        got = _nhwc(instance_norm_add(_cl(y), _cl(skip), _valid(vh, vw)))
         assert (instance_norm_add.launches, instance_norm_add.masked_launches) == before
         want = np.asarray(instance_norm_masked_nhwc(jnp.asarray(y), jmask, jcount)
                           + jnp.asarray(skip))
         np.testing.assert_allclose(got, want, atol=TOL)
+        pad = np.broadcast_to(np.asarray(jmask) == 0, got.shape)
+        np.testing.assert_array_equal(got[pad], skip[pad])
+        if min(vh) == 12 and min(vw) == 16:  # all valid: the unmasked norm
+            plain = _nhwc(instance_norm_add(_cl(y), _cl(skip)))
+            np.testing.assert_allclose(got, plain, atol=TOL)
 
     def test_masked_gradients_vanish_in_the_padding(self):
         x = _cl(_activation(4)).requires_grad_(True)

@@ -60,16 +60,25 @@ def test_bench_serve_end_to_end(monkeypatch, capsys):
 
 
 def test_bench_serve_counts_shapes_new_under_load(monkeypatch, capsys):
-    """Without the warm-up the load's batch shapes are new: the count sees them."""
+    """Without the warm-up the load's batch shapes are new: the count sees them.
+
+    The engine forgets its shapes through the warm-up and through the probe
+    request (with one SHAPE, the first call the server makes), so whether
+    the micro-batcher joins the load's two requests or runs them apart,
+    their batches are new."""
     monkeypatch.setenv("CONCURRENCY", "2")
     monkeypatch.setenv("REQUESTS", "1")
     monkeypatch.setenv("SHAPE", "12x16")
     real = bench_serve.SRInferenceEngine
 
     class Forgetful(real):
+        served = None  # calls made by the server, once it is built
+
         def upscale_images(self, images, batch_size=8, pad_singletons=False):
             out = super().upscale_images(images, batch_size)
-            if not getattr(self, "_serving", False):
+            if self.served is not None:
+                self.served += 1
+            if self.served is None or self.served == 1:
                 self.batch_shapes.clear()  # as if the warm-up had not run
             return out
 
@@ -77,7 +86,7 @@ def test_bench_serve_counts_shapes_new_under_load(monkeypatch, capsys):
     real_make_server = bench_serve.make_server
 
     def make_server(engine, **kw):
-        engine._serving = True
+        engine.served = 0
         return real_make_server(engine, **kw)
 
     monkeypatch.setattr(bench_serve, "make_server", make_server)

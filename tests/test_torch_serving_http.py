@@ -5,7 +5,8 @@ A bucketed fp32 engine behind ``make_server`` on port 0: replies equal the
 engine's own output bitwise, concurrent mixed sizes share batches, and the
 error paths answer 400, 404 and 413 (tests/test_serving.py's cases). The
 CLI parses the JAX ``serve.py`` flags plus ``--device``, warms its shapes,
-and serves end to end with ``--device cpu``.
+and serves end to end with ``--device cpu``; its ``--config`` takes JAX's
+rule (the default path may be absent, a path given must exist).
 """
 
 import io
@@ -184,6 +185,34 @@ class TestCli:
                                  "--calib_dir", str(tmp_path), "--warm", "none"])
         with pytest.raises(SystemExit):
             serve.build_server(args)
+
+    @pytest.mark.parametrize("given", [False, True])
+    def test_config_default_may_be_absent(self, checkpoint, tmp_path, monkeypatch, given):
+        monkeypatch.chdir(tmp_path)  # no configs/config.yaml here
+        flags = ["--checkpoint", checkpoint, "--device", "cpu", "--warm", "none", "--port", "0"]
+        if given:
+            (tmp_path / "serve.yaml").write_text("inference:\n  bucket: 16\n")
+            flags += ["--config", "serve.yaml"]
+        srv = serve.build_server(serve.parse_args(flags))
+        try:
+            assert srv.batcher.engine.bucket == 32  # the flag's default, as JAX's server
+        finally:
+            srv.server_close()
+            srv.batcher.close()
+
+    def test_config_given_must_exist(self, checkpoint, tmp_path):
+        missing = str(tmp_path / "missing.yaml")
+        args = serve.parse_args(["--checkpoint", checkpoint, "--device", "cpu",
+                                 "--warm", "none", "--config", missing])
+        with pytest.raises(SystemExit, match="missing.yaml"):
+            serve.build_server(args)
+        proc = subprocess.run(
+            [sys.executable, "-m", "fast_srgan_torch.serve", "--checkpoint", checkpoint,
+             "--device", "cpu", "--warm", "none", "--config", missing],
+            capture_output=True, text=True, cwd=REPO, timeout=120,
+            env=dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=REPO),
+        )
+        assert proc.returncode != 0 and "missing.yaml" in proc.stderr, proc.stderr[-2000:]
 
     def test_runs_on_the_card_by_default(self, checkpoint):
         if torch.cuda.is_available():
