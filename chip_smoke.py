@@ -207,10 +207,21 @@ own line; any failure exits non-zero and prints no result:
      each rank's IN, shuffle and fused-upsample launches as its steps
      predict. Two ranks on one card stage every collective through the
      host: their times are that staging, not scaling.
+ 17. operating points: (a) the activation quantize and the int8 4x head conv
+     (1024 -> 48, 3x3, bf16) on the head's input at batch 40 of 180x320
+     ([40, 1024, 180, 320], past 2^31 elements), the last two samples
+     (past the 2^31 offset) bitwise their plain versions on those samples
+     alone, timed; (b) ``eval_int8`` at 4x, batch 40, arms int8 and
+     int8_tail_only, one iteration: both timed (none ``unsupported``), at
+     least their PSNR bars; (c) the batch budget the engine resolves for
+     each tier (bf16, int8 ups, int8 tail, bucketed bf16 and int8 ups) and
+     scale; (d) ``phase_summed_head_experiment`` at 540x960, batches 1 and
+     8, one iteration: both head forms of both arms timed, their exactness
+     printed.
 
 Phases 7 and 8 run right after phase 3, phase 10 after phase 6, phase 11
 after phase 10, phase 14 after phase 11 and 15's ``bench_4k`` after 14,
-phase 9 and then 12, 16, 13 and the rest of 15 last.
+phase 9 and then 12, 16, 13, the rest of 15 and 17 last.
 
 The line before the last is a JSON object describing each kernel (its
 bound: the larger of its bytes over 3.35 TB/s and its operations over the
@@ -2917,8 +2928,8 @@ def _run_script(name: str, args=(), env=None, timeout: int = 600) -> dict:
                           time.perf_counter() - t0)
 
 
-def _summary(label: str, result: dict, keys) -> None:
-    print(f"[15 {label}] " + json.dumps({k: result.get(k) for k in keys}
+def _summary(label: str, result: dict, keys, phase: int = 15) -> None:
+    print(f"[{phase} {label}] " + json.dumps({k: result.get(k) for k in keys}
                                         | {"seconds": round(result["_seconds"], 1)}),
           flush=True)
 
@@ -3223,6 +3234,92 @@ def phase_dp_ranks(card: str) -> dict:
     return dp
 
 
+# --- phase 17: operating points ----------------------------------------------
+
+#: the int8 4x head's input at batch 40 of 180x320: the 16F = 1024-channel
+#: phase concat the full and tail modes quantize and convolve, 2.36e9
+#: elements; samples 38 and 39 lie past the 2^31st
+HEAD_INPUT_PAST_2_31 = (40, 1024, 180, 320)
+#: (label, quantize, bucket) of each tier whose budget the engine resolves
+BUDGET_TIERS = (("bf16", False, 0), ("int8 ups", "ups", 0), ("int8 tail", "tail", 0),
+                ("bucketed bf16", False, 32), ("bucketed int8 ups", "ups", 32))
+
+
+def _f1_on_the_card(card: str) -> None:
+    """17a: quantize_act and the int8 head conv (1024 -> 48, 3x3) on the
+    head's input past 2^31 elements; the last two samples bitwise their
+    plain versions run on those samples alone."""
+    from fast_srgan_torch.kernels.int8_conv import int8_conv, int8_conv_reference, pack_int8_weight
+    from fast_srgan_torch.kernels.quantize import quantize_act, quantize_act_reference
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(17)
+    b, cin, h, w = HEAD_INPUT_PAST_2_31
+    x = torch.empty(HEAD_INPUT_PAST_2_31, dtype=torch.bfloat16, device=dev,
+                    memory_format=torch.channels_last).normal_(0, 2, generator=gen)
+    check(x.numel() >= 2**31 and (b - 2) * x[0].numel() >= 2**31, "17a: not past 2^31")
+    s = torch.tensor(3.7, device=dev)
+    before = quantize_act.launches
+    xq = quantize_act(x, s)
+    q_equal = torch.equal(xq[-2:], quantize_act_reference(x[-2:], s))
+    q_ms = events_ms(lambda: quantize_act(x, s), 5)
+    del x
+    k = torch.randint(-127, 128, (3, 3, cin, 48), dtype=torch.int8,
+                      generator=torch.Generator().manual_seed(17))
+    weight = pack_int8_weight(k, dev)
+    ws = torch.rand(48, device=dev, generator=gen) * 1e-3 + 1e-4
+    c_before = int8_conv.launches
+    got = int8_conv(xq, weight, ws, s, out_dtype=torch.bfloat16)
+    c_equal = torch.equal(got[-2:], int8_conv_reference(xq[-2:], weight, ws, s,
+                                                         out_dtype=torch.bfloat16))
+    c_ms = events_ms(lambda: int8_conv(xq, weight, ws, s, out_dtype=torch.bfloat16), 5)
+    launches = (quantize_act.launches - before, int8_conv.launches - c_before)
+    ops = 2 * b * h * w * cin * 9 * 48
+    print(f"[17 past 2^31] [{b},{cin},{h},{w}] bf16 ({xq.numel()} elements): quantize_act"
+          f" samples {b - 2}-{b - 1} bitwise the plain version {q_equal}, {q_ms:.4f} ms"
+          f" (bound {bound(xq.numel() * 3, 0, INT8_OPS)['bound_ms']:.4f}); the int8 head conv"
+          f" -> 48 bitwise {c_equal}, {c_ms:.4f} ms ({ops / c_ms / 1e9:.1f} TOP/s); launches"
+          f" {launches} ({card})", flush=True)
+    check(q_equal and c_equal, "17a: a kernel past 2^31 elements differs from its plain version")
+    check(launches[0] >= 1 and launches[1] >= 1, f"17a: launches {launches}")
+    del xq, got
+    torch.cuda.empty_cache()
+
+
+def _budgets() -> None:
+    """17c: the budget each (tier, scale) resolves to, in LR pixels and in
+    frames of 180x320."""
+    from fast_srgan_torch.inference import SRInferenceEngine
+
+    rows = []
+    for label, mode, bucket in BUDGET_TIERS:
+        for scale in (2, 4, 8):
+            px = SRInferenceEngine.resolve_pixel_budget(scale, mode or None, bucket)
+            check(px > 0, f"17c: {label} {scale}x budget {px}")
+            rows.append(f"{label} {scale}x {px} ({px / (180 * 320):g} frames)")
+    print("[17 budgets] " + "; ".join(rows), flush=True)
+
+
+def phase_operating_points(card: str) -> None:
+    """17: F1 on the card (17a), a short eval_int8 of the int8 heads past
+    2^31 (17b), the resolved budgets (17c), a cut run of the head-form
+    script (17d)."""
+    _f1_on_the_card(card)
+    ev = _run_script("eval_int8", ["--scale", "4", "--batch", "40", "--iters", "1",
+                                   "--arms", "int8,int8_tail_only"])
+    _summary("eval_int8 batch 40", ev, ("psnr_by_arm", "arms"), 17)
+    _check_eval_int8("17b eval_int8 batch 40", ev, 4)  # timed, none unsupported; PSNR bars
+    _budgets()
+    hd = _run_script("phase_summed_head_experiment", ["--shape", "540x960", "--batches", "1,8",
+                                                      "--iters", "1"])
+    _summary("head forms 540x960", hd, ("exactness", "arms", "max_batch"), 17)
+    for b, row in hd["arms"].items():
+        for name, cell in row.items():
+            check("fps" in cell and np.isfinite(cell["ms"]), f"17d: batch {b} {name}: {cell}")
+    for arm, ex in hd["exactness"].items():
+        check(np.isfinite(ex["fp32_max_abs"]), f"17d: {arm} exactness {ex}")
+
+
 def main() -> None:
     kind, card = phase_device()
     phase_build()
@@ -3270,6 +3367,7 @@ def main() -> None:
     phase_tools()
     phase_fault_routing()
     phase_scripts()
+    phase_operating_points(card)
     art = exported["total"]
 
     check("jax" not in sys.modules, "jax was imported")

@@ -97,7 +97,13 @@
 // weight int8 [Npad / NT][ceil(Cin / 32)][slots][2][NT][16]; mult fp32
 // [Cout]; bias and alpha fp32 (already rounded to the glue dtype) or null;
 // rscale one fp32 value or null; out [(4,) B, H, W, Cout] contiguous, 16-byte
-// aligned, Cout even; B <= 65535; every index below 2^31.
+// aligned, Cout even; B <= 65535 (gridDim.z), N tiles <= 65535 (gridDim.y),
+// (H / 8) x (W / 16) tiles below 2^31 (gridDim.x). Tensors may pass 2^31
+// elements (the 4x int8 head's 1024-channel input does at batch 37 of
+// 180x320): every offset into x, out and the weights is formed in 64 bits
+// (the halo source and the weight chunks as size_t, the output store and
+// the phase stride as long long); what stays 32-bit indexes one sample's
+// rows and columns, one tile or shared memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -22,7 +22,10 @@
 //
 // The wrapper (fast_srgan_torch/kernels/quantize.py) guarantees: x and out
 // dense buffers of n elements, 16-byte aligned; scale one fp32 value on the
-// device; n < 2^31.
+// device; n >= 1. n and every offset are 64-bit: the 4x int8 head's input,
+// the 1024-channel phase concat, passes 2^31 elements at batch 37 of
+// 180x320, and the grid-stride loop takes any n with a grid of at most 132 x
+// 32 blocks.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -64,7 +67,7 @@ __device__ __forceinline__ float to_float(bf16 v) { return __bfloat162float(v); 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     quantize_kernel(const T* __restrict__ x, const float* __restrict__ scale,
-                    int8_t* __restrict__ out, int n) {
+                    int8_t* __restrict__ out, long long n) {
   const float r = 127.0f / __ldg(scale);
   const long long stride = (long long)gridDim.x * kThreads * 8;
   for (long long i = ((long long)blockIdx.x * kThreads + threadIdx.x) * 8;
@@ -86,8 +89,9 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <typename T>
-int launch(const void* x, const void* scale, void* out, int n, void* stream) {
-  const long long blocks = ((long long)n + kThreads * 8 - 1) / (kThreads * 8);
+int launch(const void* x, const void* scale, void* out, long long n,
+           void* stream) {
+  const long long blocks = (n + kThreads * 8 - 1) / (kThreads * 8);
   const int grid = (int)(blocks < 132LL * 32 ? blocks : 132LL * 32);
   quantize_kernel<T><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(x), static_cast<const float*>(scale),
@@ -100,11 +104,11 @@ int launch(const void* x, const void* scale, void* out, int n, void* stream) {
 // C entry points (bound with ctypes): x [n] bf16 or fp32, scale one fp32
 // value on the device, out [n] int8. Each returns cudaGetLastError().
 extern "C" int fsr_quantize_bf16(const void* x, const void* scale, void* out,
-                                 int n, void* stream) {
+                                 long long n, void* stream) {
   return launch<bf16>(x, scale, out, n, stream);
 }
 
 extern "C" int fsr_quantize_f32(const void* x, const void* scale, void* out,
-                                int n, void* stream) {
+                                long long n, void* stream) {
   return launch<float>(x, scale, out, n, stream);
 }

@@ -25,9 +25,17 @@ contiguous slices, one per mesh device, launched back to back so the
 devices overlap, and the outputs are gathered in order on the first. One
 frame too large for a card is ``parallel/spatial.py``'s (width tiling).
 
-What the JAX engine does only for XLA's compiled shapes on the TPU is not
-here: eager PyTorch compiles nothing per shape, so batches are never padded
-to a compiled size and there is no "never batch 2..7" rule.
+Each batch holds at most ``pixel_budget`` LR pixels, resolved per tier and
+scale in the JAX engine's order (:meth:`SRInferenceEngine.
+resolve_pixel_budget`), each value set by a sweep on the card. The JAX
+engine's other batch rule is not here: it never runs a batch of 2..7 but
+pads one up to 8, because its compiled programs of 2..7 cost 2-4x as much
+an LR pixel. On the card a batch always takes longer than any smaller one,
+so padding never pays: 180x320 at 4x, three processes (``eval_int8 --batch
+1,2,3,4,5,6,7,8 --iters 20``; NVIDIA H100 80GB HBM3, 700 W; PERF.md section
+6, the batch table), bf16 2.023-2.740 ms a batch of 1, 3.020-3.594 of 2,
+10.491-10.575 of 8; int8 ``ups`` 2.072-2.833, 2.420-3.069 and 7.626-8.477.
+The engine runs the batch it is given.
 """
 
 from __future__ import annotations
@@ -141,10 +149,23 @@ class SRInferenceEngine:
     that were chosen on purpose. :meth:`recalibrate` clears it.
     """
 
-    #: Default LR-pixel budget per batch: 16 frames of 180x320. Not an H100
-    #: measurement; a conservative bound (the widest bf16 intermediates are a
-    #: few KiB per LR pixel) until a batch/memory sweep on the card sets it.
-    PIXEL_BUDGET = 16 * 180 * 320
+    #: LR pixels a batch, per scale, of the float tiers, of every int8 mode
+    #: but an unbucketed ``ups`` and of every bucketed engine. Each is the
+    #: frames/s optimum of a sweep of 180x320 batches from 1 frame to out of
+    #: memory, or the smallest batch whose best run is no slower a frame than
+    #: the optimum's slowest run (``python -m fast_srgan_torch.scripts.
+    #: eval_int8 --arms bf16,int8_ups_only --scale S --iters 5``; NVIDIA H100
+    #: 80GB HBM3, 700 W; PERF.md section 6, the budget table): 2x 64 frames,
+    #: 1963.2 frames/s (the optimum 96, 1964.5; 16 frames 1896.3); 4x 64,
+    #: 786.5 (the optimum 96, 786.9; 16: 773.4); 8x 24, 230.4, the optimum
+    #: (16: 229.6). bf16 runs out of memory at 384 frames at 4x, 96 at 8x.
+    PIXEL_BUDGETS = {2: 64 * 180 * 320, 4: 64 * 180 * 320, 8: 24 * 180 * 320}
+    #: LR pixels a batch, per scale, of the unbucketed int8 ``ups`` tier, by
+    #: the same rule and sweep: 2x 64 frames, 2231.8 frames/s (the optimum
+    #: 256, 2233.8; 16: 2148.9); 4x 64, 1107.7, the optimum (16: 1080.6); 8x
+    #: 32, 360.9, the optimum (16: 357.8). It runs out of memory at 512
+    #: frames at 4x, 128 at 8x.
+    INT8_UPS_PIXEL_BUDGETS = {2: 64 * 180 * 320, 4: 64 * 180 * 320, 8: 32 * 180 * 320}
 
     def __init__(
         self,
@@ -186,10 +207,10 @@ class SRInferenceEngine:
             )
         self.SCALE = arch["scale_factor"]
         self.dtype = dtype
-        self.pixel_budget = pixel_budget or self.PIXEL_BUDGET
         mode = "ups" if quantize is True else (quantize or None)
         if mode is not None and mode not in quant.MODES:
             raise ValueError(f"quantize must be True/'tail'/'ups'/'full'/'trunk': {mode!r}")
+        self.pixel_budget = self.resolve_pixel_budget(self.SCALE, mode, bucket, pixel_budget)
         self.quantize = mode is not None
         self.quantize_mode = mode
         if bucket < 0:
@@ -232,6 +253,20 @@ class SRInferenceEngine:
                     self._calib_plan, calib_batches or [quant.default_calibration_batch()]
                 )
             self._set_scales(act_scales)
+
+    @classmethod
+    def resolve_pixel_budget(cls, scale: int, mode: Optional[str], bucket: int,
+                             pixel_budget: Optional[int] = None) -> int:
+        """LR pixels a batch, in the JAX engine's order: an explicit
+        ``pixel_budget``; else the unbucketed int8 ``ups`` tier's own budget
+        for ``scale`` (``mode`` is the int8 mode or None); else the float
+        budget for ``scale``, which every other mode and every bucketed
+        engine takes."""
+        if pixel_budget is not None:
+            return pixel_budget
+        if mode == "ups" and not bucket and scale in cls.INT8_UPS_PIXEL_BUDGETS:
+            return cls.INT8_UPS_PIXEL_BUDGETS[scale]
+        return cls.PIXEL_BUDGETS[scale]
 
     def recalibrate(self, batches: Iterable[Any]) -> None:
         """Recompute the int8 activation scales from sample inputs and swap

@@ -51,12 +51,13 @@ _INT8_CONV = [_P] * 7 + [_I] * 10 + [_P]
 # (x, weight, mult, bias, alpha, out, B, H, W_in, Cin, Cout, n_tile, pad_left,
 #  pad_right, stream)
 _INT8_PHASES = [_P] * 6 + [_I] * 8 + [_P]
-# (x, scale, out, n, stream)
-_QUANTIZE = [_P] * 3 + [_I, _P]
+# (x, scale, out, n (64-bit), stream)
+_QUANTIZE = [_P] * 3 + [ctypes.c_longlong, _P]
 
 #: Every ``extern "C"`` entry point of csrc/*.cu and its argument types, in
 #: order: a pointer (and the stream) is c_void_p, or ctypes would pass it as
-#: a 32-bit int. Each returns its launches' cudaError_t as an int.
+#: a 32-bit int; a ``long long`` is c_longlong, which a c_int would cut.
+#: Each returns its launches' cudaError_t as an int.
 ENTRY_POINTS = {
     "fsr_instance_norm_prelu_bf16": _IN,
     "fsr_instance_norm_prelu_f32": _IN,

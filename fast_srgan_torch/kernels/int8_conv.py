@@ -216,7 +216,25 @@ def int8_conv_phases_reference(
     ]
 
 
-def _check_x(xq: torch.Tensor, cin: int, cpad: int, npad: int, out_dtype) -> None:
+#: the CUDA grid's limits: blockIdx.z is the sample, blockIdx.y the N tile,
+#: blockIdx.x the 8x16-pixel output tile
+GRID_YZ_MAX = 65535
+GRID_X_MAX = 2**31 - 1
+
+
+def check_size(shape: Sequence[int], n_tiles: int) -> None:
+    """Raise ValueError unless the kernel's grid takes an input of ``shape``
+    ([B, C, H, W]) with ``n_tiles`` N tiles: B and the N tiles at most
+    65535, the (H / 8) x (W / 16) output tiles below 2^31 (the output is at
+    most W wide). The kernel forms its offsets in 64 bits, so tensors of
+    2^31 elements or more are taken."""
+    b, _, h, w = shape
+    tiles = -(-h // 8) * -(-w // 16)
+    if b * h * w == 0 or b > GRID_YZ_MAX or n_tiles > GRID_YZ_MAX or tiles > GRID_X_MAX:
+        raise ValueError(f"unsupported size {tuple(shape)} -> {n_tiles} N tiles")
+
+
+def _check_x(xq: torch.Tensor, cin: int, n_tiles: int, out_dtype) -> None:
     if out_dtype not in _DTYPES:
         raise ValueError(f"int8_conv writes bf16 or fp32, got {out_dtype}")
     if xq.dtype != torch.int8 or xq.dim() != 4:
@@ -227,9 +245,7 @@ def _check_x(xq: torch.Tensor, cin: int, cpad: int, npad: int, out_dtype) -> Non
         raise ValueError("xq must be contiguous in torch.channels_last")
     if xq.data_ptr() % 16:
         raise ValueError("xq must be 16-byte aligned")
-    b, _, h, w = xq.shape
-    if b > 65535 or b * h * w == 0 or b * h * w * max(cpad, npad) >= 2**31:
-        raise ValueError(f"unsupported size {tuple(xq.shape)} -> Npad={npad}")
+    check_size(xq.shape, n_tiles)
 
 
 def check_kernel_inputs(
@@ -237,8 +253,8 @@ def check_kernel_inputs(
     out_scale: Optional[torch.Tensor] = None,
 ) -> None:
     """Raise ValueError unless the CUDA kernel takes these as they are."""
-    npad, kh, kw, cpad = weight.packed.shape
-    _check_x(xq, weight.cin, cpad, npad, out_dtype)
+    npad, kh, kw, _ = weight.packed.shape
+    _check_x(xq, weight.cin, -(-npad // weight.n_tile), out_dtype)
     if (kh, kw) not in ((3, 3), (2, 2)):
         raise ValueError(f"int8_conv takes 3x3 or 2x2 kernels, got {kh}x{kw}")
     top, left, right = conv_pads(kw, padding)
@@ -433,7 +449,7 @@ def _launch_phases(xq, weights, wscale, act_scale, bias, alpha, out_dtype, paddi
     from fast_srgan_torch.kernels._build import load_library
 
     npad, _, _, cpad = weights.phases[0].packed.shape
-    _check_x(xq, weights.cin, cpad, npad, out_dtype)
+    _check_x(xq, weights.cin, -(-npad // weights.n_tile), out_dtype)
     if weights.cout % 2 or weights.n_tile != PHASES_N_TILE or npad % weights.n_tile:
         raise ValueError(f"Cout={weights.cout} must be even, and the N tile one the kernel takes")
     if weights.tiled.device != xq.device:

@@ -19,6 +19,9 @@ between the two.
 
 from __future__ import annotations
 
+import math
+from typing import Sequence
+
 import torch
 
 _DTYPES = (torch.bfloat16, torch.float32)
@@ -42,6 +45,16 @@ def _dense(x: torch.Tensor) -> bool:
     return x.is_contiguous() or x.is_contiguous(memory_format=torch.channels_last)
 
 
+def check_size(shape: Sequence[int]) -> None:
+    """Raise ValueError unless the kernel's grid takes a tensor of this
+    shape: any nonempty one. The kernel's count and offsets are 64-bit and
+    its grid-stride loop runs on at most 132 x 32 blocks, so 2^31 elements
+    or more are taken (the 4x int8 head's 1024-channel input at batch 37 or
+    more of 180x320)."""
+    if math.prod(shape) == 0:
+        raise ValueError(f"unsupported size {tuple(shape)}")
+
+
 def check_kernel_inputs(x: torch.Tensor, scale: torch.Tensor) -> None:
     """Raise ValueError unless the CUDA kernel takes (x, scale) as they are."""
     if x.dtype not in _DTYPES:
@@ -50,8 +63,7 @@ def check_kernel_inputs(x: torch.Tensor, scale: torch.Tensor) -> None:
         raise ValueError("x must be contiguous (NCHW or channels_last)")
     if x.data_ptr() % 16:
         raise ValueError("x must be 16-byte aligned")
-    if x.numel() == 0 or x.numel() >= 2**31:
-        raise ValueError(f"unsupported size {tuple(x.shape)}")
+    check_size(x.shape)
     if scale.numel() != 1 or scale.device != x.device:
         raise ValueError("scale must be one value on x's device")
 

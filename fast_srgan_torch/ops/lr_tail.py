@@ -181,16 +181,26 @@ def prepare_lr_tail(
 
 # --- the tails ---------------------------------------------------------------
 
-#: LR-pixel threshold of the "memory-capped streaming" shape class for the
-#: 4x head form. The value (the 540x960 frame) was measured on TPU v5e; its
-#: H100 value awaits a measurement of summed against concat on the card.
-CONCAT_HEAD_MIN_PIXELS = 540 * 960
+#: The smallest LR frame (pixels) at which the float 4x tail's concat head
+#: beats the summed one at batch 2 or more; None: summed never loses. Swept
+#: on the card (``python -m fast_srgan_torch.scripts.
+#: phase_summed_head_experiment``; NVIDIA H100 80GB HBM3, 700 W; PERF.md
+#: section 6, the head-form table): at 180x320 (batches 8 to 256), 360x640
+#: and 540x960 (batches 2 to 8) summed takes 3.3-6.5% less time a frame in
+#: bf16 (540x960 batch 8: 11.592 ms a frame against 12.354) and 6.2-8.8% in
+#: int8 ``ups``, every slowest summed run faster than the fastest concat
+#: one; concat holds 1.4x the peak memory (bf16, 256 frames of 180x320:
+#: 73.17 GiB against 51.44) and in int8 runs out of it first (384 frames).
+CONCAT_HEAD_MIN_PIXELS: Optional[int] = None
 
 
 def head_form_4x(batch: int, lr_pixels: int) -> str:
     """``"concat"`` for >= 2 frames of >= CONCAT_HEAD_MIN_PIXELS LR pixels,
-    else ``"summed"``: the JAX package's per-shape-class policy."""
-    if batch >= 2 and lr_pixels >= CONCAT_HEAD_MIN_PIXELS:
+    else ``"summed"`` (always, with the threshold None): the JAX package's
+    per-shape-class policy for the float tail. The int8 tail and the 8x
+    sub-tail stay summed whatever it says."""
+    if (CONCAT_HEAD_MIN_PIXELS is not None and batch >= 2
+            and lr_pixels >= CONCAT_HEAD_MIN_PIXELS):
         return "concat"
     return "summed"
 

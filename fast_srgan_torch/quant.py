@@ -14,8 +14,12 @@ The port of ``fast_srgan_tpu/quant.py``. Static PTQ, shaped to this network:
 
 Four modes choose what quantizes (``MODES``): ``ups`` (the upsampling
 stages; the JAX package's production tier, ``SRInferenceEngine(quantize=
-True)``), ``tail`` (stages and head), ``full`` and ``trunk``. Which mode is
-fastest was measured on a TPU; on the H100 it is an open measurement.
+True)``), ``tail`` (stages and head), ``full`` and ``trunk``. On the H100
+(NVIDIA H100 80GB HBM3, 700 W; ``python -m fast_srgan_torch.scripts.eval_int8``
+in ``chip_smoke.py``'s phase 15, PERF.md section 6) ``ups`` is the fastest
+arm at every scale of 180x320 frames: 1039.8 frames/s at 4x batch 8 (tail
+1018.6, full 917.2, trunk 683.0, bf16 761.1), 1113.1 at 2x batch 2, 326.5
+at 8x batch 2.
 
 On the card each int8 conv is ``kernels/int8_conv.py`` (CUDA C++,
 s8 x s8 -> s32 on the tensor cores) and each activation quantization

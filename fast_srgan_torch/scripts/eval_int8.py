@@ -26,8 +26,10 @@ with ``--hybrids``): ``int8`` quantizes every conv (``quant.MODES`` full),
 ``int8_trunk_only`` neck, stems and bottleneck (trunk), ``int8_ups_only``
 the upsampling stages (ups, the production tier), ``int8_head_only`` the
 head conv alone. A batch that runs out of device memory is recorded as
-``{"oom": true}`` in its row, one a kernel refuses as too large for its
-32-bit indexing as ``{"unsupported": ...}``; the sweep goes on.
+``{"oom": true}`` in its row, one a kernel's grid refuses as
+``{"unsupported": ...}``; the sweep goes on. Each timed cell also holds the
+three runs' ms (``ms_runs``: their range is the run-to-run spread) and the
+peak device memory (``peak_bytes``).
 
 ``--scale 2`` or ``8`` adapts the 4x checkpoint (the reference ships only
 4x weights): 2x drops ``upsampling_1``, 8x clones it as ``upsampling_2``;
@@ -56,7 +58,13 @@ from fast_srgan_torch.infer import (
 )
 from fast_srgan_torch.inference import SRInferenceEngine, load_image, sr_forward_u8
 from fast_srgan_torch.ops.precision import cudnn_without_tf32
-from fast_srgan_torch.scripts.measure import emit, ms_per_call, script_device
+from fast_srgan_torch.scripts.measure import (
+    emit,
+    peak_memory,
+    reset_peak_memory,
+    runs_ms,
+    script_device,
+)
 
 
 def _head_only(name: str) -> bool:
@@ -185,23 +193,21 @@ def calib_ab(quality: Quality, source: str, h: int, w: int) -> dict:
     return ab
 
 
-def best_ms(fn: Callable[[], object], iters: int, device: torch.device,
-            repeats: int = 3) -> float:
-    """Best of ``repeats`` runs of ``iters`` back-to-back calls, ms a call."""
-    return min(ms_per_call(fn, iters, device, warmup=1 if r == 0 else 0)
-               for r in range(repeats))
-
-
 def time_arm(forward_u8: Callable[[torch.Tensor], torch.Tensor], b: int, h: int, w: int,
              iters: int, device: torch.device, rng: np.random.Generator) -> dict:
-    """ms a batch and frames/s of ``forward_u8`` at [b, h, w, 3] uint8
-    frames staged on the device; ``{"oom": true}`` when the device runs out
-    of memory (the staging included), ``{"unsupported": why}`` when a
-    kernel refuses a tensor this large (its 32-bit indexing)."""
+    """ms a batch (the best of three runs of ``iters`` calls) and frames/s of
+    ``forward_u8`` at [b, h, w, 3] uint8 frames staged on the device, with
+    each run's ms and the peak device memory (null on the CPU);
+    ``{"oom": true}`` when the device runs out of memory (the staging
+    included), ``{"unsupported": why}`` when a kernel's grid refuses a
+    tensor this large."""
     try:
+        reset_peak_memory(device)
         x = torch.from_numpy(rng.integers(0, 256, (b, h, w, 3), dtype=np.uint8)).to(device)
-        ms = best_ms(lambda: forward_u8(x), iters, device)
-    except torch.cuda.OutOfMemoryError:
+        runs = runs_ms(lambda: forward_u8(x), iters, device)
+    except RuntimeError as e:  # torch.cuda.OutOfMemoryError, or cuDNN's workspace
+        if not isinstance(e, torch.cuda.OutOfMemoryError) and "out of memory" not in str(e):
+            raise
         gc.collect()
         torch.cuda.empty_cache()
         return {"oom": True}
@@ -209,7 +215,9 @@ def time_arm(forward_u8: Callable[[torch.Tensor], torch.Tensor], b: int, h: int,
         if "unsupported size" not in str(e):
             raise
         return {"unsupported": str(e)}
-    return {"ms": round(ms, 3), "fps": round(b / ms * 1e3, 1)}
+    ms = min(runs)
+    return {"ms": round(ms, 3), "fps": round(b / ms * 1e3, 1),
+            "ms_runs": [round(r, 3) for r in runs], "peak_bytes": peak_memory(device)}
 
 
 def main(argv=None) -> dict:

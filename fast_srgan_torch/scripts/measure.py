@@ -75,6 +75,25 @@ def ms_per_call(fn: Callable[[], object], iters: int, device: torch.device,
     return start.elapsed_time(end) / iters
 
 
+def runs_ms(fn: Callable[[], object], iters: int, device: torch.device,
+            repeats: int = 3) -> list:
+    """ms a call in each of ``repeats`` runs of ``iters`` back-to-back calls
+    (one warm-up call before the first): their minimum is the best of
+    ``repeats``, their range the run-to-run spread."""
+    return [ms_per_call(fn, iters, device, warmup=1 if r == 0 else 0) for r in range(repeats)]
+
+
+def reset_peak_memory(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def peak_memory(device: torch.device) -> Optional[int]:
+    """Bytes ``max_memory_allocated`` since the last reset on the card,
+    None on the CPU."""
+    return torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
+
+
 def emit(result: dict, device: torch.device) -> dict:
     """Print ``result`` with the device's kind and the card's name and power
     limit as one JSON line, the script's last; returns it."""

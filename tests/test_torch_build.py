@@ -2,9 +2,10 @@
 
 Every ``extern "C"`` function in fast_srgan_torch/csrc/*.cu must have an
 entry in ``_build.ENTRY_POINTS`` with one argument type per parameter: a
-pointer (and the stream) as c_void_p, an int as c_int, a float as c_float.
-A missing or short binding would let ctypes pass a 64-bit pointer as a
-32-bit int, which only a card would show.
+pointer (and the stream) as c_void_p, an int as c_int, a long long as
+c_longlong, a float as c_float. A missing or short binding would let ctypes
+pass a 64-bit pointer or count as a 32-bit int, which only a card would
+show.
 """
 
 import ctypes
@@ -30,6 +31,8 @@ def _ctype(param: str):
         return ctypes.c_void_p
     if param.split()[0] == "float":
         return ctypes.c_float
+    if param.split()[:2] == ["long", "long"]:
+        return ctypes.c_longlong
     assert param.split()[0] == "int", param
     return ctypes.c_int
 

@@ -25,7 +25,10 @@ and ``stream`` on the card: fp32 bucketed within 1 count of the CPU,
 ``stream`` bitwise equal to ``upscale_batch`` on the same batches.
 Pixel shuffle: bitwise. int8 activation quantize and s8 x s8 -> s32 conv
 (with its dequantize + bias + PReLU epilogue, bf16 and fp32 glue, the
-fused requantize and the four-phase launch): bitwise;
+fused requantize and the four-phase launch): bitwise, also past 2^31
+elements (the int8 4x head's input at batch 40 of 180x320, the four
+phases' at batch 148: the samples past the 2^31 offset against the plain
+version on those samples alone);
 the int8 engine (fp32 glue) against the CPU port on the same scales: the
 bounded-flip contract (at most 3 uint8 counts, under 2% off by more than 1).
 """
@@ -701,6 +704,144 @@ def test_int8_conv_rejects(device):
         int8_conv(xq, weight, ws, s, padding=(0, 0))  # a 3x3 kernel reads the one-pad
     with pytest.raises(ValueError, match="out_scale"):
         int8_conv(xq, weight, ws, s, out_scale=torch.tensor(1.0))  # not on the card
+
+
+# --- past 2^31 elements: the int8 head's input at 4x, batch 40 of 180x320 ---
+
+#: [40, 1024, 180, 320]: the 16F = 1024-channel phase concat the int8 head
+#: of the full and tail modes quantizes and convolves, 2.36e9 elements; its
+#: last two samples start past the 2^31st
+_HEAD_INPUT = (40, 1024, 180, 320)
+
+
+def _free(device):
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_quantize_past_2_31_elements(device, dtype):
+    """The last two samples, past the 2^31 offset, bitwise the plain version
+    run on those samples alone."""
+    from fast_srgan_torch.kernels.quantize import quantize_act, quantize_act_reference
+
+    gen = torch.Generator(device=device).manual_seed(31)
+    x = torch.empty(_HEAD_INPUT, dtype=dtype, device=device,
+                    memory_format=torch.channels_last).normal_(0, 2, generator=gen)
+    assert x.numel() >= 2**31 and 38 * x[0].numel() >= 2**31
+    s = torch.tensor(3.7, device=device)
+    got = quantize_act(x, s)[-2:]
+    want = quantize_act_reference(x[-2:], s)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    del x, got, want
+    _free(device)
+
+
+def test_int8_conv_past_2_31_elements(device):
+    """The int8 4x head (1024 -> 48, 3x3) on [40, 1024, 180, 320]: the last
+    two samples bitwise the plain version on those samples alone."""
+    from fast_srgan_torch.kernels.int8_conv import int8_conv, int8_conv_reference, pack_int8_weight
+
+    gen = torch.Generator(device=device).manual_seed(32)
+    b, cin, h, w = _HEAD_INPUT
+    xq = torch.randint(-127, 128, (b, h, w, cin), dtype=torch.int8, device=device,
+                       generator=gen).permute(0, 3, 1, 2)
+    q = torch.randint(-127, 128, (3, 3, cin, 48), generator=torch.Generator().manual_seed(33))
+    weight = pack_int8_weight(q.to(torch.int8), device)
+    ws = torch.rand(48, device=device, generator=gen) * 1e-3 + 1e-4
+    s = torch.tensor(2.3, device=device)
+    for dtype in (torch.bfloat16, torch.float32):
+        got = int8_conv(xq, weight, ws, s, out_dtype=dtype)[-2:]
+        want = int8_conv_reference(xq[-2:], weight, ws, s, out_dtype=dtype)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        del got, want
+    del xq
+    _free(device)
+
+
+def test_int8_conv_phases_past_2_31_elements(device):
+    """The four stage-2 phases at 4x, batch 148 of 180x320: their int8
+    input [148, 256, 180, 320] passes 2^31 elements (and their output 2^33);
+    the last two samples bitwise the plain version on those samples alone."""
+    from fast_srgan_torch.kernels.int8_conv import (
+        int8_conv_phases,
+        int8_conv_phases_reference,
+        pack_int8_phases,
+        pack_int8_weight,
+    )
+    from fast_srgan_torch.ops.lr_tail import _phase_kernels_2x
+
+    gen = torch.Generator(device=device).manual_seed(34)
+    b, cin, h, w = 148, 256, 180, 320
+    k = torch.randint(-127, 128, (3, 3, cin // 4, 256),
+                      generator=torch.Generator().manual_seed(35)).to(torch.int8)
+    phases = pack_int8_phases(
+        [(pq, pack_int8_weight(kp, device)) for pq, kp in _phase_kernels_2x(k).items()])
+    xq = torch.randint(-127, 128, (b, h, w, cin), dtype=torch.int8, device=device,
+                       generator=gen).permute(0, 3, 1, 2)
+    assert xq.numel() >= 2**31
+    ws = torch.rand(256, device=device, generator=gen) * 1e-2 + 1e-3
+    s = torch.tensor(2.3, device=device)
+    got = [o[-2:] for o in int8_conv_phases(xq, phases, ws, s, out_dtype=torch.bfloat16)]
+    want = int8_conv_phases_reference(xq[-2:], phases, ws, s, out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, want))
+    del xq, got, want
+    _free(device)
+
+
+def test_int8_kernels_still_refuse_past_the_grid(device):
+    """Past gridDim.z = 65535 samples the kernels raise; nothing falls back
+    to the plain version (a shape check, nothing allocated)."""
+    from fast_srgan_torch.kernels.int8_conv import check_size, int8_conv, pack_int8_weight
+
+    with pytest.raises(ValueError, match="unsupported size"):
+        check_size((65536, 64, 1, 1), 1)
+    xq = torch.zeros((65536, 1, 1, 16), dtype=torch.int8, device=device).permute(0, 3, 1, 2)
+    weight = pack_int8_weight(torch.zeros((3, 3, 16, 64), dtype=torch.int8), device)
+    with pytest.raises(ValueError, match="unsupported size"):
+        int8_conv(xq, weight, torch.ones(64, device=device), torch.tensor(1.0, device=device))
+
+
+@pytest.mark.parametrize("mode", ["tail", "full"])
+def test_int8_head_modes_run_past_2_31_elements(device, mode):
+    """The int8 head's modes at 4x, batch 40 of 180x320 (the head's input
+    past 2^31 elements): finite outputs of the right shape, one quantize of
+    the concat and one head conv launched beyond stage 1 and the phases."""
+    from fast_srgan_torch import quant
+    from fast_srgan_torch.checkpoints.npz_io import load_npz_params
+    from fast_srgan_torch.kernels.int8_conv import int8_conv
+
+    params = load_npz_params("models/generator_pretrained.npz")
+    fp32 = quant.prepare_generator(params, None, torch.float32, device)
+    scales = quant.calibrate_scales(fp32, [quant.default_calibration_batch(h=48, w=80, n=1)])
+    plan = quant.prepare_generator(params, mode, torch.bfloat16, device)
+    x = torch.rand((40, 3, 180, 320), device=device) * 2 - 1
+    before = int8_conv.launches
+    with torch.inference_mode():
+        y = quant.sr_quant_forward(plan, scales, x)
+    torch.cuda.synchronize()
+    assert y.shape == (40, 3, 720, 1280) and torch.isfinite(y).all().item()
+    assert int8_conv.launches - before >= 2  # stage 1 and the head at least
+    del y, x, plan
+    _free(device)
+
+
+def test_head_form_script_on_the_card(device):
+    """``phase_summed_head_experiment`` cut to 540x960 at batches 1 and 2:
+    every cell timed, the two forms' fp32 outputs within 1e-4."""
+    from fast_srgan_torch.scripts import phase_summed_head_experiment as head
+
+    result = head.main(["--shape", "540x960", "--batches", "1,2", "--iters", "1"])
+    assert result["card"] and result["device"] == torch.cuda.get_device_name(0)
+    for row in result["arms"].values():
+        assert all("fps" in cell and cell["peak_bytes"] > 0 for cell in row.values())
+    assert all(ex["fp32_max_abs"] <= 1e-4 for ex in result["exactness"].values())
+    _free(device)
 
 
 def test_int8_engine_launches_and_matches_cpu(device):

@@ -118,7 +118,11 @@ class TestTails:
 
 
 class TestHeadPolicy:
-    def test_policy_table_matches_jax(self):
+    def test_policy_table_matches_jax(self, monkeypatch):
+        """The policy's mechanism, held at JAX's threshold: the port's own
+        value is the card's (None: summed never loses, PERF.md section 6)."""
+        monkeypatch.setattr(port_lr_tail, "CONCAT_HEAD_MIN_PIXELS",
+                            jax_lr_tail.CONCAT_HEAD_MIN_PIXELS)
         for batch, px in [(128, 180 * 320), (512, 90 * 160), (1, 540 * 960),
                           (8, 540 * 960), (2, port_lr_tail.CONCAT_HEAD_MIN_PIXELS)]:
             assert head_form_4x(batch, px) == jax_lr_tail.head_form_4x(batch, px)
