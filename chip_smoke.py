@@ -217,7 +217,22 @@ own line; any failure exits non-zero and prints no result:
      each tier (bf16, int8 ups, int8 tail, bucketed bf16 and int8 ups) and
      scale; (d) ``phase_summed_head_experiment`` at 540x960, batches 1 and
      8, one iteration: both head forms of both arms timed, their exactness
-     printed.
+     printed; (e) past the grid: IN+PReLU and IN + add on bf16 batches
+     past 2^31 elements (2x batch 768 of 180x320, the resident form; 72
+     frames of 540x960, the two launches), the last two samples within
+     the bars of the plain version on those samples and, in the two
+     launches, bitwise the same samples run alone, timed with their
+     bound; every IN form (unmasked, masked with ragged valid sizes,
+     split; 8x8 and 4x8 samples, bitwise their batch chunks run alone) and
+     the s8 conv and four phases at 70,000 samples of 4x4 (more than the
+     grid's 65535) against their plain versions (the s8 bitwise), the
+     IN+PReLU timed; the pretrained 4x engine on one
+     [70000, 4, 4, 3] uint8 batch (its effective batch 70,000, one
+     forward, one count a norm and an s8 call) in fp32, bf16 and int8
+     ``ups`` against the same frames in chunks of 4096: fp32 within 1
+     count, bf16 >= 40 dB against the chunked fp32, int8 under 2% off by
+     more than 1; ``eval_int8 --scale 2`` at batch 768, arms bf16 and
+     int8_ups_only, one iteration: both timed, at least their PSNR bars.
 
 Phases 7 and 8 run right after phase 3, phase 10 after phase 6, phase 11
 after phase 10, phase 14 after phase 11 and 15's ``bench_4k`` after 14,
@@ -3320,6 +3335,263 @@ def phase_operating_points(card: str) -> None:
         check(np.isfinite(ex["fp32_max_abs"]), f"17d: {arm} exactness {ex}")
 
 
+# --- phase 17e: past the grid ------------------------------------------------
+
+#: bf16 IN inputs past 2^31 elements: 2x batch 768 of 180x320 (the resident
+#: form) and 72 frames of 540x960 (the two launches)
+IN_PAST_2_31 = ((768, 64, 180, 320), (72, 64, 540, 960))
+#: more samples than a grid's y or z axis holds (65535): the 4x engine's
+#: one batch of 70,000 frames of 4x4
+PAST_GRID = 70000
+ENGINE_CHUNK = 4096
+
+
+def _uniform(shape, dtype, gen) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="cuda",
+                       memory_format=torch.channels_last).uniform_(-1, 1, generator=gen)
+
+
+def _stratified(shape, dtype, gen, valid=None) -> torch.Tensor:
+    """Stratified uniform draws: each sample's (valid) pixels of a channel
+    take the evenly spaced values from -1 to 1 in a random order, so its
+    normalized values stay below 2, the regime of the bf16 bars, however
+    few its pixels and however many the samples (plain draws of 64 pixels
+    reach |y| >= 2 in some of 4.5 million pairs). Padding: other values."""
+    b, c, h, w = shape
+    u = torch.rand((b, c, h * w), device="cuda", generator=gen)
+    count = torch.full((b, 1, 1), float(h * w), device="cuda")
+    inside = None
+    if valid is not None:
+        rows_in = torch.arange(h, device="cuda").view(1, h, 1) < valid[0].view(-1, 1, 1)
+        cols_in = torch.arange(w, device="cuda").view(1, 1, w) < valid[1].view(-1, 1, 1)
+        inside = (rows_in & cols_in).view(b, 1, h * w)
+        u = torch.where(inside, u, u + 2)  # the padding ranks last
+        count = (valid[0] * valid[1]).view(b, 1, 1).float()
+    x = -1 + 2 * u.argsort(dim=2).argsort(dim=2).float() / (count - 1)
+    if inside is not None:
+        x = torch.where(inside, x, u - 2.5)
+    return x.view(b, c, h, w).to(dtype).contiguous(memory_format=torch.channels_last)
+
+
+def _in_past_2_31(card: str) -> None:
+    """17e: both IN epilogues on bf16 batches past 2^31 elements; the last
+    two samples within the bars of the plain version and, in the two
+    launches (statistics independent of the batch), bitwise the same
+    samples alone; timed with their bound."""
+    from fast_srgan_torch.kernels.instance_norm import (
+        instance_norm_add,
+        instance_norm_add_reference,
+        instance_norm_prelu,
+        instance_norm_prelu_reference,
+        plan,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(170)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    alpha = torch.tensor([0.173], device="cuda")
+    for shape in IN_PAST_2_31:
+        x = _uniform(shape, torch.bfloat16, gen)
+        skip = _uniform(shape, torch.bfloat16, gen)
+        check(x.numel() >= 2**31 and (shape[0] - 2) * x[0].numel() >= 2**31,
+              f"17e: {shape} not past 2^31")
+        form = "resident" if plan(shape, 2, sms) else "two launches"
+        for residual in (False, True):
+            fn = instance_norm_add if residual else instance_norm_prelu
+            plain = instance_norm_add_reference if residual else instance_norm_prelu_reference
+            other, tail = (skip, skip[-2:]) if residual else (alpha, alpha)
+            tol = ADD_BF16_TOL if residual else BF16_TOL
+            got = fn(x, other)[-2:]
+            alone = fn(x[-2:], tail)
+            err = (got.float() - plain(x[-2:], tail).float()).abs().max().item()
+            bitwise = torch.equal(got, alone)
+            del got, alone
+            ms = events_ms(lambda: fn(x, other), 3)
+            bnd = bound(x.numel() * 2 * (3 if residual else 2), 0, BF16_FLOPS)
+            print(f"[17 past 2^31] {fn.__name__} bf16 {list(shape)} ({x.numel()} elements,"
+                  f" {form}): samples {shape[0] - 2}-{shape[0] - 1} max_abs_err {err:.3g}"
+                  f" (tol {tol}), bitwise the same samples alone {bitwise}; {ms:.4f} ms"
+                  f" (bound {bnd['bound_ms']:.4f}, {100 * bnd['bound_ms'] / ms:.1f}%) ({card})",
+                  flush=True)
+            check(err <= tol, f"17e: {fn.__name__} {shape} off its plain version: {err}")
+            check(form == "resident" or bitwise,
+                  f"17e: {fn.__name__} {shape}: a sample differs from itself alone")
+        del x, skip
+        torch.cuda.empty_cache()
+
+
+def _kernels_past_grid(card: str) -> None:
+    """17e: every IN form and the s8 conv and four phases at PAST_GRID
+    samples against their plain versions (the s8 bitwise); the IN's
+    unmasked and masked forms bitwise their batch chunks run alone (each
+    below the grid's limit); one count a call; the IN+PReLU timed. The IN
+    samples are 8x8 stratified draws (:func:`_stratified`), masked to 4..8
+    rows and columns."""
+    from fast_srgan_torch.kernels.instance_norm import (
+        instance_norm_add,
+        instance_norm_add_from_stats,
+        instance_norm_add_from_stats_reference,
+        instance_norm_add_reference,
+        instance_norm_prelu,
+        instance_norm_prelu_from_stats,
+        instance_norm_prelu_from_stats_reference,
+        instance_norm_prelu_reference,
+        instance_norm_stats,
+        instance_norm_stats_reference,
+    )
+    from fast_srgan_torch.kernels.int8_conv import (
+        int8_conv,
+        int8_conv_phases,
+        int8_conv_phases_reference,
+        int8_conv_reference,
+    )
+
+    from fast_srgan_torch.kernels.batching import rows
+    from fast_srgan_torch.kernels.instance_norm import launch_plan
+
+    gen = torch.Generator(device="cuda").manual_seed(171)
+    shape = (PAST_GRID, 64, 8, 8)
+    spans = launch_plan(shape)
+    alpha = torch.tensor([0.173], device="cuda")
+    vh = torch.randint(4, 9, (PAST_GRID,), device="cuda", generator=gen, dtype=torch.int32)
+    vw = torch.randint(4, 9, (PAST_GRID,), device="cuda", generator=gen, dtype=torch.int32)
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = "bf16" if dtype == torch.bfloat16 else "fp32"
+        skip = _uniform(shape, dtype, gen)
+        inputs = {None: _stratified(shape, dtype, gen),
+                  (vh, vw): _stratified(shape, dtype, gen, (vh, vw))}
+        for residual in (False, True):
+            fn = instance_norm_add if residual else instance_norm_prelu
+            plain = instance_norm_add_reference if residual else instance_norm_prelu_reference
+            other = skip if residual else alpha
+            tol = FP32_TOL if dtype == torch.float32 else (ADD_BF16_TOL if residual else BF16_TOL)
+            for valid, x in inputs.items():
+                counter = "launches" if valid is None else "masked_launches"
+                before = getattr(fn, counter)
+                got = fn(x, other, valid)
+                err = (got.float() - plain(x, other, valid).float()).abs().max().item()
+                key = f"{fn.__name__}{'' if valid is None else ' masked'} {name}"
+                errs[key] = err
+                check(err <= tol and getattr(fn, counter) == before + 1,
+                      f"17e: {key} at {PAST_GRID} samples: {err} (tol {tol})")
+                alone = torch.cat([fn(x[a:b], other[a:b] if residual else other,
+                                      rows(valid, a, b)) for a, b in spans])
+                check(len(spans) == 2 and torch.equal(got, alone),
+                      f"17e: {key} differs from its batch chunks run alone")
+        # the split form: two width shards of [B, 64, 4, 4], the frame 4x8
+        frame = _stratified((PAST_GRID, 64, 4, 8), dtype, gen)
+        xs = [t.contiguous(memory_format=torch.channels_last) for t in frame.chunk(2, dim=3)]
+        parts = [instance_norm_stats(t) for t in xs]
+        joined = torch.cat(parts, dim=1)
+        stat_err = max((p - instance_norm_stats_reference(t)).abs().max().item()
+                       / instance_norm_stats_reference(t).abs().max().item()
+                       for p, t in zip(parts, xs))
+        tol = FP32_TOL if dtype == torch.float32 else BF16_TOL
+        add_tol = FP32_TOL if dtype == torch.float32 else ADD_BF16_TOL
+        a = instance_norm_prelu_from_stats(xs[0], alpha, joined, 32)
+        b = instance_norm_add_from_stats(xs[1], xs[0], joined, 32)
+        errs[f"split prelu {name}"] = (a.float() - instance_norm_prelu_from_stats_reference(
+            xs[0], alpha, joined, 32).float()).abs().max().item()
+        errs[f"split add {name}"] = (b.float() - instance_norm_add_from_stats_reference(
+            xs[1], xs[0], joined, 32).float()).abs().max().item()
+        check(stat_err <= 1e-5 and errs[f"split prelu {name}"] <= tol
+              and errs[f"split add {name}"] <= add_tol,
+              f"17e: split form at {PAST_GRID} samples: stats {stat_err}, {errs}")
+        if dtype == torch.bfloat16:
+            x = inputs[None]
+            ms = cuda_ms(lambda: instance_norm_prelu(x, alpha), 20)
+            bnd = bound(x.numel() * 2 * 2, 0, BF16_FLOPS)
+            errs["ms"] = (ms, bnd["bound_ms"])
+        del x, inputs, skip, frame, xs
+    ms, bnd_ms = errs.pop("ms")
+    print(f"[17 past the grid] IN forms at {PAST_GRID} samples of 8x8 (64 channels; two chunks,"
+          f" each bitwise itself alone), max_abs_err against their plain versions: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+          + f"; instance_norm_prelu bf16 {ms:.4f} ms (bound {bnd_ms:.4f},"
+          f" {100 * bnd_ms / ms:.1f}%) ({card})", flush=True)
+
+    xq, weight, ws, s, bias, a8 = _int8_conv_args(gen, PAST_GRID, 64, 4, 4, 3, torch.bfloat16,
+                                                  cout=64)
+    before = int8_conv.launches
+    conv_equal = torch.equal(int8_conv(xq, weight, ws, s, (1, 1), bias, a8, torch.bfloat16),
+                             int8_conv_reference(xq, weight, ws, s, (1, 1), bias, a8,
+                                                 torch.bfloat16))
+    check(int8_conv.launches == before + 1, "17e: s8 conv launch count")
+    args = _int8_phases_args(gen, PAST_GRID, 64, 4, 4, torch.bfloat16)
+    before = int8_conv_phases.launches
+    phases_equal = all(torch.equal(g, w) for g, w in zip(int8_conv_phases(*args),
+                                                         int8_conv_phases_reference(*args)))
+    check(int8_conv_phases.launches == before + 1, "17e: s8 phases launch count")
+    print(f"[17 past the grid] s8 conv [{PAST_GRID},64,4,4] -> 64 bitwise its plain version"
+          f" {conv_equal}; the four phases -> 256 bitwise {phases_equal}", flush=True)
+    check(conv_equal and phases_equal, "17e: the s8 conv past the grid differs from its plain"
+          " version")
+    del xq, args
+    torch.cuda.empty_cache()
+
+
+def _engine_past_grid(params, frames) -> dict:
+    """17e: the pretrained 4x engine on one [PAST_GRID, 4, 4, 3] batch
+    (one forward, as the JAX engine runs it) against the same frames in
+    chunks of ENGINE_CHUNK; returns each tier's launches of that forward."""
+    from fast_srgan_torch.inference import SRInferenceEngine
+
+    batch = np.random.default_rng(17).integers(0, 256, (PAST_GRID, 4, 4, 3), dtype=np.uint8)
+    calib = np.stack([f for f in frames if f.shape[:2] == (180, 320)])
+    outs, counts = {}, {}
+    for name, dtype, quantize in (("fp32", torch.float32, False), ("bf16", torch.bfloat16, False),
+                                  ("int8 ups", torch.bfloat16, True)):
+        engine = SRInferenceEngine(params, device="cuda", dtype=dtype, quantize=quantize,
+                                   calib_batches=[calib] if quantize else None)
+        eff = engine.effective_batch_size(4, 4, PAST_GRID)
+        check(eff == PAST_GRID, f"17e: {name} effective batch {eff}")
+        engine.forward_calls = 0
+        _zero_counts()
+        t0 = time.perf_counter()
+        one = engine.upscale_batch(batch)
+        seconds = time.perf_counter() - t0
+        counts[name] = _read_counts()
+        check(engine.forward_calls == 1, f"17e: {name} took {engine.forward_calls} forwards")
+        chunked = np.concatenate([engine.upscale_batch(batch[i:i + ENGINE_CHUNK])
+                                  for i in range(0, PAST_GRID, ENGINE_CHUNK)])
+        outs[name] = (one, chunked)
+        launched = {k: v for k, v in counts[name].items() if v}
+        print(f"[17 past the grid] {name} engine: one batch of {PAST_GRID} 4x4 frames in"
+              f" {seconds:.3f} s host to host ({PAST_GRID / seconds:.0f} frames/s, indicative);"
+              f" launches {launched}", flush=True)
+        del engine
+    want = {"in_prelu": 8, "in_add": 9}
+    for name in outs:
+        extra = {"s8_stage1": 1, "s8_phases": 1, "quantize": 1} if name == "int8 ups" else {}
+        check({k: v for k, v in counts[name].items() if v} == want | extra,
+              f"17e: {name} launches {counts[name]}")
+    ref = outs["fp32"][1]
+    mx32, _, _ = _u8_compare(outs["fp32"][0], ref)
+    db = psnr(outs["bf16"][0], ref)
+    mx8, frac8, _ = _u8_compare(*outs["int8 ups"])
+    print(f"[17 past the grid] one batch against chunks of {ENGINE_CHUNK}: fp32 max {mx32}"
+          f" counts (bar 1); bf16 {db:.2f} dB against the chunked fp32 (bar {PSNR_MIN_DB});"
+          f" int8 ups max {mx8}, {100 * frac8:.3f}% off by > 1 (bar 2%)", flush=True)
+    check(mx32 <= 1 and db >= PSNR_MIN_DB and frac8 < 0.02,
+          f"17e: the {PAST_GRID}-frame batch off its chunks: {mx32}, {db}, {frac8}")
+    return counts
+
+
+def phase_past_the_grid(params, frames, card: str) -> dict:
+    """17e: the IN family past 2^31 elements, every form and the s8 conv
+    past 65535 samples, the 4x engine on 70,000 frames of 4x4 as one batch,
+    and eval_int8 at 2x batch 768. Returns the engine run's launches."""
+    _in_past_2_31(card)
+    _kernels_past_grid(card)
+    counts = _engine_past_grid(params, frames)
+    torch.cuda.empty_cache()
+    ev = _run_script("eval_int8", ["--scale", "2", "--batch", "768", "--iters", "1",
+                                   "--arms", "bf16,int8_ups_only"])
+    _summary("eval_int8 2x batch 768", ev, ("psnr_by_arm", "arms"), 17)
+    _check_eval_int8("17e eval_int8 2x batch 768", ev, 2)  # timed, none unsupported; PSNR bars
+    return counts
+
+
 def main() -> None:
     kind, card = phase_device()
     phase_build()
@@ -3368,6 +3640,7 @@ def main() -> None:
     phase_fault_routing()
     phase_scripts()
     phase_operating_points(card)
+    past = phase_past_the_grid(params, frames, card)
     art = exported["total"]
 
     check("jax" not in sys.modules, "jax was imported")
@@ -3392,7 +3665,9 @@ def main() -> None:
     # phase 14's bf16 4K tiled forward (int8_launches its int8 one), the s8
     # halo form's the int8 one; their times are a shard's (frame_* a whole
     # frame's statistics and applies, as the forward runs them). dp_launches are
-    # phase 16b's, one count a rank (both upsample arms)
+    # phase 16b's, one count a rank (both upsample arms); past_grid_launches
+    # phase 17e's one forward of 70,000 frames (bf16; int8 ups for the s8
+    # and quantize rows), one count a call however many batch chunks
     two = exported["two_launch"]
     split = tiled["counts"]
     split_q = tiled["int8_counts"]
@@ -3403,12 +3678,14 @@ def main() -> None:
         {"name": "instance_norm_prelu", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": KERNEL_REPLACES, "op": "torch.ops.fast_srgan.instance_norm_prelu",
          "launches": launches[0], "trainer_launches": trainer["in_prelu"],
+         "past_grid_launches": past["bf16"]["in_prelu"],
          "dp_launches": dp["in_prelu"],
          "artifact_launches": art["in_prelu"], "two_launch_artifact_launches": two["in_prelu"],
          **in_rows["instance_norm_prelu"]},
         {"name": "instance_norm_add", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": ADD_REPLACES, "op": "torch.ops.fast_srgan.instance_norm_add",
          "launches": launches[1], "trainer_launches": trainer["in_add"],
+         "past_grid_launches": past["bf16"]["in_add"],
          "dp_launches": dp["in_add"],
          "artifact_launches": art["in_add"], "two_launch_artifact_launches": two["in_add"],
          **in_rows["instance_norm_add"]},
@@ -3429,11 +3706,13 @@ def main() -> None:
          "replaces": INT8_CONV_REPLACES,
          "op": "torch.ops.fast_srgan.int8_conv, torch.ops.fast_srgan.int8_conv_phases",
          "launches": int8_launches[0] + int8_launches[1],
+         "past_grid_launches": past["int8 ups"]["s8_stage1"] + past["int8 ups"]["s8_phases"],
          "launches_stage1": int8_launches[0], "launches_phases": int8_launches[1],
          "artifact_launches": art["s8_stage1"] + art["s8_phases"], **conv_row},
         {"name": "quantize_act", "route": "cuda", "source": QUANTIZE_SOURCE,
          "replaces": QUANTIZE_REPLACES, "op": "torch.ops.fast_srgan.quantize_act",
-         "launches": int8_launches[2], "artifact_launches": art["quantize"], **quant_row},
+         "launches": int8_launches[2], "artifact_launches": art["quantize"],
+         "past_grid_launches": past["int8 ups"]["quantize"], **quant_row},
         {"name": "instance_norm_prelu_masked", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": MASKED_REPLACES, "op": "torch.ops.fast_srgan.instance_norm_prelu",
          "launches": bucketed["in_prelu_masked"], **masked_rows["instance_norm_prelu_masked"]},

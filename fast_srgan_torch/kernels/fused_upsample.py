@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.flop_counter import register_flop_formula
 
+from fast_srgan_torch.kernels.batching import GRID_YZ_MAX
 from fast_srgan_torch.kernels.pixel_shuffle import phase_major_permutation
 
 #: Input channels the kernel is built for (the generator's n_filters).
@@ -108,16 +109,26 @@ def tile_weights(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return torch.take(weight.detach(), idx).to(dtype)
 
 
+def size_takes(shape, c4: int) -> bool:
+    """True where the kernel's launch takes an x of ``shape`` [B, 64, H, W]
+    and 4C output channels: at most 65535 samples (the fp32 form's
+    ``blockIdx.z``), B x H x W x 4C below 2^31, and not empty."""
+    b, _, h, w = shape
+    return 0 < b * h * w and b <= GRID_YZ_MAX and b * h * w * c4 < 2**31
+
+
 def kernel_takes(x: torch.Tensor, weight: torch.Tensor) -> bool:
-    """True exactly when the CUDA kernel is built for these shapes and this
-    dtype: x [B, 64, H, W] in bf16 or fp32, weight [4C, 64, 3, 3] with 4C a
-    multiple of 64. Reads shapes and dtypes only, so it answers on any
-    device; ``UpSamplingBlock`` sends every other stage to the unfused form,
-    as the JAX ``fused_upsample`` sends it to its lax composition."""
+    """True exactly when the CUDA kernel takes these shapes and this dtype:
+    x [B, 64, H, W] in bf16 or fp32, weight [4C, 64, 3, 3] with 4C a
+    multiple of 64, and a size the launch takes (:func:`size_takes`). Reads
+    shapes and dtypes only, so it answers on any device; ``UpSamplingBlock``
+    sends every other stage to the unfused form, as the JAX
+    ``fused_upsample`` sends it to its lax composition."""
     c4 = weight.shape[0]
     return (
         x.dtype in _DTYPES and x.dim() == 4 and x.shape[1] == C_IN
         and tuple(weight.shape) == (c4, C_IN, 3, 3) and c4 % 64 == 0
+        and size_takes(x.shape, c4)
     )
 
 
@@ -144,8 +155,7 @@ def check_kernel_inputs(
         raise ValueError("x must be contiguous in torch.channels_last")
     if x.data_ptr() % 16:
         raise ValueError("x must be 16-byte aligned")
-    b, _, h, w = x.shape
-    if b > 65535 or b * h * w == 0 or b * h * w * c4 >= 2**31:
+    if not size_takes(x.shape, c4):
         raise ValueError(f"unsupported size {tuple(x.shape)} -> 4C={c4}")
     if any(t.device != x.device for t in (weight, bias, alpha)):
         raise ValueError("weight, bias and alpha must be on x's device")

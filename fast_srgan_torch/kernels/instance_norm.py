@@ -39,16 +39,24 @@ The split form (:func:`instance_norm_stats`, then
 runs the two launches as separate ops, so the width-sharded forward
 (``parallel/spatial.py``) can join every shard's totals before any shard
 normalizes.
+
+Every form takes any batch: the two launches and the split form hold the
+sample on the grid's y axis, so a call of more than 65535 samples runs
+over batch chunks (:func:`launch_plan`), each planned as that chunk, and
+counts one launch. The kernels form their offsets in 64 bits, so neither
+the batch nor a sample is limited in elements; a sample's pixel index is
+32-bit (:data:`MAX_SAMPLE_PX`).
 """
 
 from __future__ import annotations
 
 import functools
 import math
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
+from fast_srgan_torch.kernels.batching import GRID_YZ_MAX, batch_chunks, over_chunks, rows
 from fast_srgan_torch.ops.norm import EPS, instance_norm, instance_norm_masked, valid_mask
 
 #: (valid_h, valid_w): int32 [B] tensors, the valid region of each sample.
@@ -71,6 +79,12 @@ SMEM_LIMIT = 232448
 # 16-byte vectors: values per load, and the most channel groups a block takes.
 _VEC = {torch.bfloat16: 8, torch.float32: 4}
 _MAX_GROUPS = 256
+#: Pixels a sample may hold. The kernels index a sample's pixels with 32-bit
+#: ints, which run up to one grid stride past its last pixel (at most two
+#: blocks an SM of 2048 pixels each: under 2^22 for up to 1024 SMs); every
+#: offset into a tensor is 64-bit. Memory runs out first from C = 16 on
+#: (such a bf16 sample is 68 GB).
+MAX_SAMPLE_PX = 2**31 - 2**22
 
 
 def _norm(x: torch.Tensor, valid_hw: ValidHW) -> torch.Tensor:
@@ -159,8 +173,36 @@ def _check_activation(x: torch.Tensor, name: str) -> None:
         raise ValueError("x must be contiguous in torch.channels_last")
     if x.data_ptr() % 16:
         raise ValueError("x must be 16-byte aligned")
-    if b > 65535 or b * h * w * c >= 2**31 or b * h * w == 0:
-        raise ValueError(f"unsupported size {tuple(x.shape)}")
+    check_size(x.shape)
+
+
+def check_size(shape: Tuple[int, int, int, int]) -> None:
+    """Raise ValueError unless a call takes a [B, C, H, W] activation of
+    this size: any B, and each sample 1 to MAX_SAMPLE_PX pixels."""
+    b, _, h, w = shape
+    if b * h * w == 0 or h * w > MAX_SAMPLE_PX:
+        raise ValueError(f"unsupported size {tuple(shape)}")
+
+
+def check_launch(shape: Tuple[int, int, int, int]) -> None:
+    """Raise ValueError unless one launch takes this size: as
+    :func:`check_size`, and at most GRID_YZ_MAX samples (the two launches'
+    and the split form's ``dim3(tiles, B)`` grid)."""
+    check_size(shape)
+    if shape[0] > GRID_YZ_MAX:
+        raise ValueError(f"unsupported size {tuple(shape)}: more than {GRID_YZ_MAX} samples")
+
+
+def launch_plan(shape: Tuple[int, int, int, int], most: int = GRID_YZ_MAX
+                ) -> List[Tuple[int, int]]:
+    """The batch chunks a call of any form launches over, [start, stop)
+    spans covering the batch in order (``batching.batch_chunks``), each
+    checked against one launch's limits: one span for a batch of at most
+    ``most`` samples, which launches as it would unchunked."""
+    spans = batch_chunks(shape[0], most)
+    for start, stop in spans:
+        check_launch((stop - start, *shape[1:]))
+    return spans
 
 
 def resident_smem(c: int, itemsize: int, tile_px: int, waves: int) -> int:
@@ -239,41 +281,53 @@ def _launch(
     x: torch.Tensor, other: torch.Tensor, residual: bool, valid_hw: ValidHW = None
 ) -> torch.Tensor:
     """One call of the kernel family: ``other`` is the slope (PReLU) or
-    skip (residual add); ``valid_hw`` selects the masked form."""
+    skip (residual add); ``valid_hw`` selects the masked form. One launch
+    (or two) a batch chunk (:func:`launch_plan`), each chunk planned as
+    that chunk; one count a call."""
     from fast_srgan_torch.kernels._build import load_library
 
     lib = load_library()
     b, c, h, w = x.shape
     hw = h * w
+    spans = launch_plan(x.shape)
+    name = "fsr_instance_norm_" + ("add" if residual else "prelu")
+    name += "_masked" if valid_hw is not None else ""
+    name += "_bf16" if x.dtype == torch.bfloat16 else "_f32"
+    fn = getattr(lib, name)
     with torch.cuda.device(x.device):
-        found = plan((b, c, h, w), x.element_size(), _sm_count(x.device))
-        if found is None:
-            tile = two_launch_tiles((b, c, h, w), x.element_size(), _sm_count(x.device))
-            grid, per_wave = 0, 0
-            # each block's partial sums, each sample's totals, its counter
-            scratch = b * (tile + 1) * 2 * c + b
-        else:
-            grid, per_wave, tile = found
-            # 64-bit tagged words (zeroed ahead of the kernel): each tile's
-            # partial sums, then each sample's totals
-            scratch = 2 * b * (grid // per_wave + 1) * 2 * c
+        n_sms = _sm_count(x.device)
         out = torch.empty_like(x, memory_format=torch.channels_last)
-        partial = torch.empty(scratch, dtype=torch.float32, device=x.device)
-        name = "fsr_instance_norm_" + ("add" if residual else "prelu")
-        name += "_masked" if valid_hw is not None else ""
-        name += "_bf16" if x.dtype == torch.bfloat16 else "_f32"
-        fn = getattr(lib, name)
         second = other if residual else other.detach().reshape(1).to(torch.float32).contiguous()
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        if valid_hw is None:
-            err = fn(x.data_ptr(), second.data_ptr(), out.data_ptr(), partial.data_ptr(),
-                     b, hw, c, grid, per_wave, tile, EPS, stream)
-        else:
-            err = fn(x.data_ptr(), second.data_ptr(), valid_hw[0].data_ptr(),
-                     valid_hw[1].data_ptr(), out.data_ptr(), partial.data_ptr(),
-                     b, hw, w, c, grid, per_wave, tile, EPS, stream)
-    if err:
-        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+
+        def launch(start: int, stop: int, out_part: torch.Tensor) -> None:
+            n = stop - start
+            found = plan((n, c, h, w), x.element_size(), n_sms)
+            if found is None:
+                tile = two_launch_tiles((b, c, h, w), x.element_size(), n_sms)
+                grid, per_wave = 0, 0
+                # each block's partial sums, each sample's totals, its counter
+                scratch = n * (tile + 1) * 2 * c + n
+            else:
+                grid, per_wave, tile = found
+                # 64-bit tagged words (zeroed ahead of the kernel): each tile's
+                # partial sums, then each sample's totals
+                scratch = 2 * n * (grid // per_wave + 1) * 2 * c
+            partial = torch.empty(scratch, dtype=torch.float32, device=x.device)
+            x_part = rows(x, start, stop)
+            other_part = rows(second, start, stop) if residual else second
+            if valid_hw is None:
+                err = fn(x_part.data_ptr(), other_part.data_ptr(), out_part.data_ptr(),
+                         partial.data_ptr(), n, hw, c, grid, per_wave, tile, EPS, stream)
+            else:
+                vh, vw = rows(valid_hw, start, stop)
+                err = fn(x_part.data_ptr(), other_part.data_ptr(), vh.data_ptr(), vw.data_ptr(),
+                         out_part.data_ptr(), partial.data_ptr(), n, hw, w, c, grid, per_wave,
+                         tile, EPS, stream)
+            if err:
+                raise RuntimeError(f"{name} launch failed: cudaError {err}")
+
+        over_chunks(spans, out, launch)
     counted = instance_norm_add if residual else instance_norm_prelu
     if valid_hw is None:
         counted.launches += 1
@@ -488,8 +542,8 @@ def check_partials(x: torch.Tensor, partials: torch.Tensor, count: int) -> None:
                          f"{partials.dtype} {tuple(partials.shape)}")
     if partials.device != x.device or not partials.is_contiguous():
         raise ValueError("partials must be contiguous on x's device")
-    if partials.numel() >= 2**31 or not 1 <= count < 2**31:
-        raise ValueError(f"unsupported partials {tuple(partials.shape)} or count {count}")
+    if not 1 <= count < 2**31:
+        raise ValueError(f"unsupported count {count}")
 
 
 def _launch_stats(x: torch.Tensor) -> torch.Tensor:
@@ -498,18 +552,24 @@ def _launch_stats(x: torch.Tensor) -> torch.Tensor:
     _check_activation(x, "instance_norm_stats")
     lib = load_library()
     b, c, h, w = x.shape
+    spans = launch_plan(x.shape)
     with torch.cuda.device(x.device):
         tiles = two_launch_tiles((b, c, h, w), x.element_size(), _sm_count(x.device))
         # one allocation (this op's host time is the tiled frame's): each
-        # sample's totals, returned as a view, then the scratch, each
-        # block's partial sums and each sample's counter
-        buf = torch.empty(b * (tiles + 1) * 2 * c + b, dtype=torch.float32, device=x.device)
+        # sample's totals, returned as a view, then the scratch of the
+        # first (largest) chunk, each block's partial sums and each sample's
+        # counter, which the chunks take in turn on the stream
+        most = spans[0][1]
+        buf = torch.empty(b * 2 * c + most * (tiles * 2 * c + 1), dtype=torch.float32,
+                          device=x.device)
         fn = (lib.fsr_instance_norm_stats_bf16 if x.dtype == torch.bfloat16
               else lib.fsr_instance_norm_stats_f32)
-        err = fn(x.data_ptr(), buf.data_ptr(), buf.data_ptr() + 4 * b * 2 * c, b, h * w, c,
-                 tiles, torch.cuda.current_stream(x.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"instance_norm_stats launch failed: cudaError {err}")
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        for start, stop in spans:
+            err = fn(rows(x, start, stop).data_ptr(), buf.data_ptr() + 4 * start * 2 * c,
+                     buf.data_ptr() + 4 * b * 2 * c, stop - start, h * w, c, tiles, stream)
+            if err:
+                raise RuntimeError(f"instance_norm_stats launch failed: cudaError {err}")
     instance_norm_stats.launches += 1
     return buf.as_strided((b, 1, 2 * c), (2 * c, 2 * c, 1))
 
@@ -524,19 +584,25 @@ def _launch_from_stats(x, other, partials, count, residual: bool) -> torch.Tenso
     check_partials(x, partials, count)
     lib = load_library()
     b, c, h, w = x.shape
+    spans = launch_plan(x.shape)
     name = f"fsr_instance_norm_{'add' if residual else 'prelu'}_from_stats_"
     name += "bf16" if x.dtype == torch.bfloat16 else "f32"
+    fn = getattr(lib, name)
     with torch.cuda.device(x.device):
         tiles = two_launch_tiles((b, c, h, w), x.element_size(), _sm_count(x.device))
         out = torch.empty_like(x, memory_format=torch.channels_last)
         second = other if residual else other.detach().reshape(1).to(torch.float32).contiguous()
-        err = getattr(lib, name)(
-            x.data_ptr(), second.data_ptr(), partials.data_ptr(), out.data_ptr(), b, h * w, c,
-            partials.shape[1], count, tiles, EPS,
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    if err:
-        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+
+        def launch(start: int, stop: int, out_part: torch.Tensor) -> None:
+            other_part = rows(second, start, stop) if residual else second
+            err = fn(rows(x, start, stop).data_ptr(), other_part.data_ptr(),
+                     rows(partials, start, stop).data_ptr(), out_part.data_ptr(), stop - start,
+                     h * w, c, partials.shape[1], count, tiles, EPS, stream)
+            if err:
+                raise RuntimeError(f"{name} launch failed: cudaError {err}")
+
+        over_chunks(spans, out, launch)
     counted = instance_norm_add_from_stats if residual else instance_norm_prelu_from_stats
     counted.launches += 1
     return out

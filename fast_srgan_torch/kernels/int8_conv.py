@@ -35,6 +35,11 @@ for the plain version, ``tiled`` for the kernel. Dispatch follows the
 tensor: the ops' CPU implementations are the plain versions; their CUDA
 ones launch the kernel or raise ``ValueError`` for what the kernel does not
 take. There is no fallback between the two.
+
+The kernel's grid holds the sample on its z axis (at most 65535), so a
+call of more samples runs over batch chunks (``batching.batch_chunks``),
+one launch each, and counts one launch; the four phases' [4, B, H, W, C]
+output is assembled chunk by chunk.
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.flop_counter import register_flop_formula
 
+from fast_srgan_torch.kernels.batching import GRID_YZ_MAX, batch_chunks, over_chunks, rows
 from fast_srgan_torch.kernels.quantize import quantize_act_reference, quantize_reciprocal
 
 _DTYPES = (torch.bfloat16, torch.float32)
@@ -216,18 +222,18 @@ def int8_conv_phases_reference(
     ]
 
 
-#: the CUDA grid's limits: blockIdx.z is the sample, blockIdx.y the N tile,
-#: blockIdx.x the 8x16-pixel output tile
-GRID_YZ_MAX = 65535
+#: the CUDA grid's limits: blockIdx.z is the sample, blockIdx.y the N tile
+#: (both at most GRID_YZ_MAX), blockIdx.x the 8x16-pixel output tile
 GRID_X_MAX = 2**31 - 1
 
 
 def check_size(shape: Sequence[int], n_tiles: int) -> None:
-    """Raise ValueError unless the kernel's grid takes an input of ``shape``
+    """Raise ValueError unless one launch's grid takes an input of ``shape``
     ([B, C, H, W]) with ``n_tiles`` N tiles: B and the N tiles at most
     65535, the (H / 8) x (W / 16) output tiles below 2^31 (the output is at
     most W wide). The kernel forms its offsets in 64 bits, so tensors of
-    2^31 elements or more are taken."""
+    2^31 elements or more are taken; a call of more samples runs over
+    batch chunks that each pass."""
     b, _, h, w = shape
     tiles = -(-h // 8) * -(-w // 16)
     if b * h * w == 0 or b > GRID_YZ_MAX or n_tiles > GRID_YZ_MAX or tiles > GRID_X_MAX:
@@ -293,7 +299,8 @@ def _ptr(t: Optional[torch.Tensor]):
 def _launch(xq, weight, wscale, act_scale, padding, bias, alpha, out_dtype, out_scale):
     from fast_srgan_torch.kernels._build import load_library
 
-    check_kernel_inputs(xq, weight, padding, out_dtype, out_scale)
+    spans = batch_chunks(xq.shape[0])
+    check_kernel_inputs(rows(xq, *spans[0]), weight, padding, out_dtype, out_scale)
     lib = load_library()
     b, _, h, w = xq.shape
     _, kh, kw, cpad = weight.packed.shape
@@ -308,13 +315,18 @@ def _launch(xq, weight, wscale, act_scale, padding, bias, alpha, out_dtype, out_
             device=xq.device, memory_format=torch.channels_last,
         )
         fn = lib.fsr_int8_conv_bf16 if out_dtype == torch.bfloat16 else lib.fsr_int8_conv_f32
-        err = fn(
-            xq.data_ptr(), weight.tiled.data_ptr(), mult.data_ptr(), _ptr(b32), _ptr(a32),
-            _ptr(rscale), out.data_ptr(), b, h, w, cpad, weight.cout, weight.n_tile, kh,
-            top, left, right, torch.cuda.current_stream(xq.device).cuda_stream,
-        )
-    if err:
-        raise RuntimeError(f"int8_conv launch failed: cudaError {err}")
+        stream = torch.cuda.current_stream(xq.device).cuda_stream
+
+        def launch(start: int, stop: int, out_part: torch.Tensor) -> None:
+            err = fn(
+                rows(xq, start, stop).data_ptr(), weight.tiled.data_ptr(), mult.data_ptr(),
+                _ptr(b32), _ptr(a32), _ptr(rscale), out_part.data_ptr(), stop - start, h, w,
+                cpad, weight.cout, weight.n_tile, kh, top, left, right, stream,
+            )
+            if err:
+                raise RuntimeError(f"int8_conv launch failed: cudaError {err}")
+
+        over_chunks(spans, out, launch)
     if left + right == kw - 1:
         int8_conv.launches += 1
     else:
@@ -449,7 +461,8 @@ def _launch_phases(xq, weights, wscale, act_scale, bias, alpha, out_dtype, paddi
     from fast_srgan_torch.kernels._build import load_library
 
     npad, _, _, cpad = weights.phases[0].packed.shape
-    _check_x(xq, weights.cin, -(-npad // weights.n_tile), out_dtype)
+    spans = batch_chunks(xq.shape[0])
+    _check_x(rows(xq, *spans[0]), weights.cin, -(-npad // weights.n_tile), out_dtype)
     if weights.cout % 2 or weights.n_tile != PHASES_N_TILE or npad % weights.n_tile:
         raise ValueError(f"Cout={weights.cout} must be even, and the N tile one the kernel takes")
     if weights.tiled.device != xq.device:
@@ -466,13 +479,19 @@ def _launch_phases(xq, weights, wscale, act_scale, bias, alpha, out_dtype, paddi
                           device=xq.device)
         fn = (lib.fsr_int8_conv_phases_bf16 if out_dtype == torch.bfloat16
               else lib.fsr_int8_conv_phases_f32)
-        err = fn(
-            xq.data_ptr(), weights.tiled.data_ptr(), mult.data_ptr(), _ptr(b32), _ptr(a32),
-            out.data_ptr(), b, h, w, cpad, weights.cout, weights.n_tile, left, right,
-            torch.cuda.current_stream(xq.device).cuda_stream,
-        )
-    if err:
-        raise RuntimeError(f"int8_conv_phases launch failed: cudaError {err}")
+        stream = torch.cuda.current_stream(xq.device).cuda_stream
+
+        def launch(start: int, stop: int, out_part: torch.Tensor) -> None:
+            err = fn(
+                rows(xq, start, stop).data_ptr(), weights.tiled.data_ptr(), mult.data_ptr(),
+                _ptr(b32), _ptr(a32), out_part.data_ptr(), stop - start, h, w, cpad,
+                weights.cout, weights.n_tile, left, right, stream,
+            )
+            if err:
+                raise RuntimeError(f"int8_conv_phases launch failed: cudaError {err}")
+
+        # a chunk's four phases are one [4, n, H, W, C] tensor of its own
+        over_chunks(spans, out, launch, dim=1)
     if (left, right) == (1, 1):
         int8_conv_phases.launches += 1
     else:

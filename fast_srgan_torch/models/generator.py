@@ -80,8 +80,9 @@ class UpSamplingBlock(nn.Module):
     """Conv F->4F (k3) -> PixelShuffle(2) -> PReLU: one 2x stage.
 
     Fused: the whole stage is one kernel, where the kernel takes the
-    shapes (``kernel_takes``: 64 input channels, bf16 or fp32); any other
-    stage runs unfused, the same function. Unfused: the conv runs with its
+    shapes (``kernel_takes``: 64 input channels, bf16 or fp32, a size its
+    launch takes); any other stage runs unfused, the same function, in the
+    forward and the backward alike. Unfused: the conv runs with its
     output channels permuted to phase-major order (a gather of weight and
     bias, not of the activation), so the shuffle is a plain copy. The parameters are
     the same either way, in torch channel order. The permutation is a

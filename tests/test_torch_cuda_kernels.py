@@ -28,7 +28,10 @@ Pixel shuffle: bitwise. int8 activation quantize and s8 x s8 -> s32 conv
 fused requantize and the four-phase launch): bitwise, also past 2^31
 elements (the int8 4x head's input at batch 40 of 180x320, the four
 phases' at batch 148: the samples past the 2^31 offset against the plain
-version on those samples alone);
+version on those samples alone) and past 65535 samples (batch chunks);
+the IN family past 65535 samples (every form, masked and split too) and
+past 2^31 elements (a batch's last samples bitwise the same samples
+alone; one 5632x6144 frame) within its bars;
 the int8 engine (fp32 glue) against the CPU port on the same scales: the
 bounded-flip contract (at most 3 uint8 counts, under 2% off by more than 1).
 """
@@ -794,17 +797,237 @@ def test_int8_conv_phases_past_2_31_elements(device):
     _free(device)
 
 
-def test_int8_kernels_still_refuse_past_the_grid(device):
-    """Past gridDim.z = 65535 samples the kernels raise; nothing falls back
-    to the plain version (a shape check, nothing allocated)."""
-    from fast_srgan_torch.kernels.int8_conv import check_size, int8_conv, pack_int8_weight
+#: past gridDim.y / z = 65535 samples: the engine's 4x batch of 70,000 4x4
+#: frames runs its norms and s8 convs at these batch sizes
+_PAST_GRID = 70000
 
-    with pytest.raises(ValueError, match="unsupported size"):
-        check_size((65536, 64, 1, 1), 1)
-    xq = torch.zeros((65536, 1, 1, 16), dtype=torch.int8, device=device).permute(0, 3, 1, 2)
-    weight = pack_int8_weight(torch.zeros((3, 3, 16, 64), dtype=torch.int8), device)
-    with pytest.raises(ValueError, match="unsupported size"):
-        int8_conv(xq, weight, torch.ones(64, device=device), torch.tensor(1.0, device=device))
+
+@pytest.mark.parametrize("b", [65536, _PAST_GRID])
+def test_int8_conv_runs_past_the_grid(device, b):
+    """More samples than the grid's z axis holds: the wrapper launches over
+    batch chunks, one count a call, bitwise the plain version."""
+    from fast_srgan_torch.kernels.int8_conv import int8_conv, int8_conv_reference
+
+    xq, weight, ws, s = _int8_case(device, (b, 64, 4, 4), 3, 256, seed=b)
+    for dtype in (torch.bfloat16, torch.float32):
+        before = int8_conv.launches
+        got = int8_conv(xq, weight, ws, s, out_dtype=dtype)
+        want = int8_conv_reference(xq, weight, ws, s, out_dtype=dtype)
+        torch.cuda.synchronize()
+        assert int8_conv.launches == before + 1
+        assert got.is_contiguous(memory_format=torch.channels_last)
+        assert torch.equal(got, want)
+    q = int8_conv(xq, weight, ws, s, out_scale=torch.tensor(3.1, device=device))
+    assert torch.equal(q, int8_conv_reference(xq, weight, ws, s,
+                                              out_scale=torch.tensor(3.1, device=device)))
+
+
+def test_int8_conv_phases_run_past_the_grid(device):
+    """The four phases at 70,000 samples: the [4, B, H, W, C] output
+    assembled chunk by chunk, bitwise the plain version."""
+    from fast_srgan_torch.kernels.int8_conv import (
+        int8_conv_phases,
+        int8_conv_phases_reference,
+        pack_int8_phases,
+        pack_int8_weight,
+    )
+    from fast_srgan_torch.ops.lr_tail import _phase_kernels_2x
+
+    gen = torch.Generator().manual_seed(65)
+    k = torch.randint(-127, 128, (3, 3, 64, 256), generator=gen).to(torch.int8)
+    phases = pack_int8_phases(
+        [(pq, pack_int8_weight(kp, device)) for pq, kp in _phase_kernels_2x(k).items()])
+    xq = torch.randint(-127, 128, (_PAST_GRID, 4, 4, 256), generator=gen).to(torch.int8)
+    xq = xq.to(device).permute(0, 3, 1, 2)
+    ws = (torch.rand(256, generator=gen) * 1e-2 + 1e-3).to(device)
+    s = torch.tensor(2.3, device=device)
+    before = int8_conv_phases.launches
+    got = int8_conv_phases(xq, phases, ws, s, out_dtype=torch.bfloat16)
+    want = int8_conv_phases_reference(xq, phases, ws, s, out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert int8_conv_phases.launches == before + 1
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, want))
+
+
+def _stratified(device, shape, dtype, seed, valid=None):
+    """Stratified uniform draws: each sample's (valid) pixels of a channel
+    take the evenly spaced values from -1 to 1 in a random order, so its
+    mean is 0 and its normalized values stay below 2, the regime the IN
+    bars hold in (one bf16 ulp of y in [1, 2), one of y + skip in [2, 4)).
+    Plain uniform draws leave it now and then at a few pixels a sample: of
+    millions of (sample, channel) pairs of 64 pixels, some reach |y| >= 2.
+    The padding holds other values in [-0.5, 0.5)."""
+    b, c, h, w = shape
+    gen = torch.Generator(device=device).manual_seed(seed)
+    u = torch.rand((b, c, h * w), device=device, generator=gen)
+    count = torch.full((b, 1, 1), h * w, device=device)
+    inside = None
+    if valid is not None:
+        rows_in = torch.arange(h, device=device).view(1, h, 1) < valid[0].view(-1, 1, 1)
+        cols_in = torch.arange(w, device=device).view(1, 1, w) < valid[1].view(-1, 1, 1)
+        inside = (rows_in & cols_in).view(b, 1, h * w)
+        u = torch.where(inside, u, u + 2)  # the padding ranks last
+        count = (valid[0] * valid[1]).view(b, 1, 1).float()
+    rank = u.argsort(dim=2).argsort(dim=2).float()
+    x = -1 + 2 * rank / (count - 1)
+    if inside is not None:
+        x = torch.where(inside, x, u - 2.5)
+    return x.view(b, c, h, w).to(dtype).contiguous(memory_format=torch.channels_last)
+
+
+def _alone(fn, x, other, residual, valid=None):
+    """fn on each batch chunk of the plan run alone (each below the grid's
+    limit), joined: what the chunked call must equal bitwise."""
+    from fast_srgan_torch.kernels.batching import rows
+    from fast_srgan_torch.kernels.instance_norm import launch_plan
+
+    spans = launch_plan(tuple(x.shape))
+    assert len(spans) == 2
+    return torch.cat([fn(x[s:e], other[s:e] if residual else other, rows(valid, s, e))
+                      for s, e in spans])
+
+
+@pytest.mark.parametrize("b", [65536, _PAST_GRID])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("residual", [False, True])
+def test_in_runs_past_the_grid(device, b, dtype, residual):
+    """IN+PReLU and IN + add at more samples than the two launches' grid
+    holds (8x8: the resident form, each chunk planned as itself): bitwise
+    each chunk run alone, within the kernel bars of the plain version on
+    stratified draws, one count a call."""
+    shape = (b, 64, 8, 8)
+    x = _stratified(device, shape, dtype, seed=b + 1)
+    fn = instance_norm_add if residual else instance_norm_prelu
+    plain = instance_norm_add_reference if residual else instance_norm_prelu_reference
+    other = _skip(device, shape, dtype, seed=b + 2) if residual \
+        else torch.tensor([0.173], device=device)
+    tol = (3e-2 if residual else 2e-2) if dtype == torch.bfloat16 else 2e-5
+    before = fn.launches
+    got = fn(x, other)
+    want = plain(x, other)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got, _alone(fn, x, other, residual))
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("residual", [False, True])
+def test_masked_in_runs_past_the_grid(device, dtype, residual):
+    """The masked forms at 70,000 samples of 8x8 with ragged valid sizes
+    (4 to 8 rows and columns), stratified draws over each valid region:
+    bitwise each chunk run alone, the bars, and 0 (PReLU) or skip (add) in
+    the padding."""
+    from fast_srgan_torch.ops.norm import valid_mask
+
+    shape = (_PAST_GRID, 64, 8, 8)
+    gen = torch.Generator(device=device).manual_seed(70)
+    vh = torch.randint(4, 9, (_PAST_GRID,), device=device, generator=gen, dtype=torch.int32)
+    vw = torch.randint(4, 9, (_PAST_GRID,), device=device, generator=gen, dtype=torch.int32)
+    x = _stratified(device, shape, dtype, seed=71, valid=(vh, vw))
+    fn = instance_norm_add if residual else instance_norm_prelu
+    plain = instance_norm_add_reference if residual else instance_norm_prelu_reference
+    other = _skip(device, shape, dtype, seed=72) if residual \
+        else torch.tensor([0.173], device=device)
+    tol = (3e-2 if residual else 2e-2) if dtype == torch.bfloat16 else 2e-5
+    before = fn.masked_launches
+    got = fn(x, other, (vh, vw))
+    want = plain(x, other, (vh, vw))
+    torch.cuda.synchronize()
+    assert fn.masked_launches == before + 1
+    assert torch.equal(got, _alone(fn, x, other, residual, (vh, vw)))
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    pad = (valid_mask(8, 8, vh, vw)[0] == 0).expand(shape)
+    if residual:
+        assert torch.equal(got[pad], other[pad])
+    else:
+        assert torch.all(got[pad] == 0)
+
+
+@pytest.mark.parametrize("dtype,tol,add_tol", [(torch.bfloat16, 2e-2, 3e-2),
+                                               (torch.float32, 2e-5, 2e-5)])
+def test_split_in_runs_past_the_grid(device, dtype, tol, add_tol):
+    """The split form at 70,000 samples of 4x8 in two width shards: each
+    shard's statistics against the plain sums, each normalize against its
+    plain version on the joined totals."""
+    from fast_srgan_torch.kernels.instance_norm import (
+        instance_norm_add_from_stats,
+        instance_norm_add_from_stats_reference,
+        instance_norm_prelu_from_stats,
+        instance_norm_prelu_from_stats_reference,
+        instance_norm_stats,
+        instance_norm_stats_reference,
+    )
+
+    frame = _activation(device, (_PAST_GRID, 64, 4, 8), dtype, seed=73)
+    skip = _skip(device, (_PAST_GRID, 64, 4, 8), dtype, seed=74)
+    xs, skips = _shards(frame, 2), _shards(skip, 2)
+    alpha = torch.tensor([0.173], device=device)
+    before = instance_norm_stats.launches
+    parts = [instance_norm_stats(x) for x in xs]
+    assert instance_norm_stats.launches == before + 2
+    for p, x in zip(parts, xs):
+        want = instance_norm_stats_reference(x)
+        assert (p - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+    joined = torch.cat(parts, dim=1)
+    for x, s in zip(xs, skips):
+        a = instance_norm_prelu_from_stats(x, alpha, joined, 32)
+        b = instance_norm_add_from_stats(x, s, joined, 32)
+        want_a = instance_norm_prelu_from_stats_reference(x, alpha, joined, 32)
+        want_b = instance_norm_add_from_stats_reference(x, s, joined, 32)
+        torch.cuda.synchronize()
+        assert (a.float() - want_a.float()).abs().max().item() <= tol
+        assert (b.float() - want_b.float()).abs().max().item() <= add_tol
+
+
+#: a batch of 540x960 frames past 2^31 elements (bf16, 4.8 GB): the two
+#: launches, whose statistics do not depend on the batch
+_IN_PAST_2_31 = (72, 64, 540, 960)
+
+
+@pytest.mark.parametrize("residual", [False, True])
+def test_in_past_2_31_elements_is_bitwise_alone(device, residual):
+    """The last samples of a batch past 2^31 elements (the two-launch form)
+    bitwise equal to the same samples run alone, and within the bars of
+    the plain version."""
+    b = _IN_PAST_2_31[0]
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    assert plan(_IN_PAST_2_31, 2, sms) is None and plan((2, *_IN_PAST_2_31[1:]), 2, sms) is None
+    x = _activation(device, _IN_PAST_2_31, torch.bfloat16, seed=31)
+    assert x.numel() >= 2**31 and (b - 2) * x[0].numel() >= 2**31
+    fn = instance_norm_add if residual else instance_norm_prelu
+    plain = instance_norm_add_reference if residual else instance_norm_prelu_reference
+    other = _skip(device, _IN_PAST_2_31, torch.bfloat16, seed=32) if residual \
+        else torch.tensor([0.173], device=device)
+    tail = other[-2:] if residual else other
+    got = fn(x, other)[-2:]
+    alone = fn(x[-2:], tail)
+    want = plain(x[-2:], tail)
+    torch.cuda.synchronize()
+    assert torch.equal(got, alone)
+    assert (got.float() - want.float()).abs().max().item() <= (3e-2 if residual else 2e-2)
+    del x, other, got, alone, want
+    _free(device)
+
+
+def test_in_one_sample_past_2_31_elements(device):
+    """One 5632x6144 frame of 64 channels (2.2e9 elements, bf16): both
+    epilogues within the bars of the plain version."""
+    shape = (1, 64, 5632, 6144)
+    x = _activation(device, shape, torch.bfloat16, seed=33)
+    assert x.numel() >= 2**31
+    alpha = torch.tensor([0.173], device=device)
+    got = instance_norm_prelu(x, alpha)
+    err = (got.float() - instance_norm_prelu_reference(x, alpha).float()).abs().max().item()
+    assert err <= 2e-2
+    del got
+    skip = _skip(device, shape, torch.bfloat16, seed=34)
+    got = instance_norm_add(x, skip)
+    err = (got.float() - instance_norm_add_reference(x, skip).float()).abs().max().item()
+    assert err <= 3e-2
+    del x, skip, got
+    _free(device)
 
 
 @pytest.mark.parametrize("mode", ["tail", "full"])
