@@ -42,6 +42,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import itertools
 from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -54,6 +55,7 @@ from fast_srgan_torch.ops.lr_tail import generator_apply_lr_tail, prepare_lr_tai
 from fast_srgan_torch.ops.norm import valid_mask, zero_outside
 from fast_srgan_torch.ops.precision import fp32_precision
 from fast_srgan_torch.parallel.mesh import Mesh, gather_batch, split_batch
+from fast_srgan_torch.utils.spans import span
 
 #: Batches a stream keeps in flight on the card (the JAX engine's window).
 STREAM_IN_FLIGHT = 2
@@ -316,7 +318,7 @@ class SRInferenceEngine:
         """Device-resident [B, H, W, 3] uint8 -> [B, sH, sW, 3] uint8; one
         generator forward (one a mesh device), enqueued on the current
         stream."""
-        with torch.inference_mode(), self._precision():
+        with span("engine.forward"), torch.inference_mode(), self._precision():
             out = self._data_parallel(
                 lambda rep, x: sr_forward_u8(lambda t: self._apply(t, rep=rep), x), x_u8)
         self.forward_calls += 1
@@ -339,7 +341,7 @@ class SRInferenceEngine:
 
             return sr_forward_u8(apply, x_u8)
 
-        with torch.inference_mode(), self._precision():
+        with span("engine.forward"), torch.inference_mode(), self._precision():
             out = self._data_parallel(run, x_u8, valid_h, valid_w)
         self.forward_calls += 1
         self.batch_shapes.add(tuple(x_u8.shape[:3]))
@@ -522,8 +524,13 @@ class SRInferenceEngine:
                 yield buf
 
         if self.device.type != "cuda":
-            for batch in batches():
-                yield from self.forward_u8(self._to_device(np.stack(batch))).numpy()
+            for t, batch in _gathered(batches()):
+                with span("stream.stage", t):
+                    x = self._to_device(np.stack(batch))
+                with span("stream.enqueue", t):
+                    out = self.forward_u8(x).numpy()
+                with span("stream.caller", t):
+                    yield from out
             return
         yield from self._stream_on_card(batches(), bs, shape)
 
@@ -535,7 +542,10 @@ class SRInferenceEngine:
         A slot comes round again only after its batch was fetched, which
         waits for its download, which follows its forward and its upload,
         so every buffer of the slot is free. The device output is held
-        until its download completes."""
+        until its download completes. Each batch's host steps are spans
+        (``utils/spans.py``): gather, stage, enqueue (the forward's
+        ``engine.forward`` inside), wait, copy, and the caller's time
+        between the batch's first frame and the return after its last."""
         h, w, c = shape
         s = self.SCALE
         dev = self.device
@@ -547,33 +557,50 @@ class SRInferenceEngine:
              torch.empty((bs, s * h, s * w, c), dtype=torch.uint8, pin_memory=True))
             for _ in range(STREAM_IN_FLIGHT + 1)
         ]
-        # (pinned output, frames, device output, download-done event)
+        # (pinned output, frames, device output, download-done event, batch)
         pending: collections.deque = collections.deque()
 
-        def fetch() -> np.ndarray:
-            host_out, n, _, done = pending.popleft()
-            done.synchronize()
-            return host_out[:n].numpy().copy()
+        def hand_over() -> Iterator[np.ndarray]:
+            host_out, n, _, done, t = pending.popleft()
+            with span("stream.wait", t):
+                done.synchronize()
+            with span("stream.copy", t):
+                frames = host_out[:n].numpy().copy()
+            with span("stream.caller", t):
+                yield from frames
 
         try:
-            for t, batch in enumerate(batches):
+            for t, batch in _gathered(batches):
                 host_in, dev_in, host_out = slots[t % len(slots)]
                 n = len(batch)
-                staged = host_in[:n].numpy()
-                for k, frame in enumerate(batch):
-                    staged[k] = frame
-                with torch.cuda.stream(up):
-                    dev_in[:n].copy_(host_in[:n], non_blocking=True)
-                compute.wait_event(up.record_event())
-                out = self.forward_u8(dev_in[:n])
-                down.wait_event(compute.record_event())
-                with torch.cuda.stream(down):
-                    host_out[:n].copy_(out, non_blocking=True)
-                pending.append((host_out, n, out, down.record_event()))
+                with span("stream.stage", t):
+                    staged = host_in[:n].numpy()
+                    for k, frame in enumerate(batch):
+                        staged[k] = frame
+                with span("stream.enqueue", t):
+                    with torch.cuda.stream(up):
+                        dev_in[:n].copy_(host_in[:n], non_blocking=True)
+                    compute.wait_event(up.record_event())
+                    out = self.forward_u8(dev_in[:n])
+                    down.wait_event(compute.record_event())
+                    with torch.cuda.stream(down):
+                        host_out[:n].copy_(out, non_blocking=True)
+                    pending.append((host_out, n, out, down.record_event(), t))
                 while len(pending) > STREAM_IN_FLIGHT:
-                    yield from fetch()
+                    yield from hand_over()
             while pending:
-                yield from fetch()
+                yield from hand_over()
         finally:  # an abandoned stream: nothing in flight may outlive its buffers
             for entry in pending:
                 entry[3].synchronize()
+
+
+def _gathered(batches: Iterator[List[np.ndarray]]) -> Iterator[Tuple[int, List[np.ndarray]]]:
+    """(t, batch t) of ``stream``'s batches, each ``next`` on the caller's
+    frames in a ``stream.gather`` span."""
+    for t in itertools.count():
+        with span("stream.gather", t):
+            batch = next(batches, None)
+        if batch is None:
+            return
+        yield t, batch

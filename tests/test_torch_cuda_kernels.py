@@ -22,7 +22,8 @@ The masked forms (a zero-padded batch, statistics over each sample's
 valid region) are held to the same bars, with the padding exactly 0
 (IN+PReLU) or equal to skip (IN + add), in both forms; the bucketed engine
 and ``stream`` on the card: fp32 bucketed within 1 count of the CPU,
-``stream`` bitwise equal to ``upscale_batch`` on the same batches.
+``stream`` bitwise equal to ``upscale_batch`` on the same batches, and its
+six spans a batch recorded, in order, under a CUDA-only profiler.
 Pixel shuffle: bitwise. int8 activation quantize and s8 x s8 -> s32 conv
 (with its dequantize + bias + PReLU epilogue, bf16 and fp32 glue, the
 fused requantize and the four-phase launch): bitwise, also past 2^31
@@ -1244,6 +1245,38 @@ def test_stream_is_bitwise_upscale_batch(device, pretrained, dtype):
     next(it)
     it.close()
     torch.cuda.synchronize()
+
+
+def test_stream_records_its_spans_under_a_cuda_profiler(device, pretrained):
+    """Under the benchmark's CUDA-only profiler the spans record: each batch
+    of the card's pipeline has its six ``stream.*`` spans, in the order
+    gather, stage, enqueue (``engine.forward`` inside), then wait, copy and
+    caller; the frames are those of an untraced stream."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from fast_srgan_torch.inference import SRInferenceEngine
+    from fast_srgan_torch.utils import spans
+
+    engine = SRInferenceEngine(pretrained, device=device, dtype=torch.bfloat16)
+    frames = list(np.random.default_rng(6).integers(0, 256, (11, 24, 40, 3), dtype=np.uint8))
+    plain = list(engine.stream(iter(frames), batch_size=4))
+    spans.clear()
+    with profile(activities=[ProfilerActivity.CUDA]):
+        assert torch.autograd._profiler_enabled()
+        traced = list(engine.stream(iter(frames), batch_size=4))
+    records = spans.spans()
+    spans.clear()
+    assert all(np.array_equal(a, b) for a, b in zip(plain, traced)) and len(traced) == 11
+    by_id = {r.id: r for r in records}
+    steps = ("stream.gather", "stream.stage", "stream.enqueue", "stream.wait", "stream.copy",
+             "stream.caller")
+    for t in range(3):
+        mine = {r.name: r for r in records if r.batch == t}
+        assert set(mine) == set(steps) | {"engine.forward"}
+        assert by_id[mine["engine.forward"].parent] is mine["stream.enqueue"]
+        assert all(mine[n].parent is None for n in steps)
+        order = [mine[n] for n in steps]
+        assert all(a.t0 <= a.t1 <= b.t0 for a, b in zip(order, order[1:]))
 
 
 # --- the training slice: SSIM's filter, remat through the kernels ----------
