@@ -16,7 +16,8 @@ forward (``Generator(valid_hw=)``, ``quant.sr_quant_forward_masked``) takes
 each sample's norm statistics over its valid region and re-zeroes the
 padding after every bias. :meth:`SRInferenceEngine.stream` pipelines a
 sequence of same-size frames (video) through pinned host buffers and copy
-streams.
+streams; on one card each full batch is a replay of a CUDA graph of the
+whole forward, captured once per batch shape (``graphs_apply``).
 
 ``mesh=`` serves data-parallel across a 1-D mesh of devices
 (``parallel/mesh.py``): one replica of the weights (LR-tail preparation,
@@ -43,7 +44,8 @@ from __future__ import annotations
 import collections
 import dataclasses
 import itertools
-from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
+from typing import (Any, Callable, Dict, Iterable, Iterator, List, NamedTuple, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
@@ -59,6 +61,14 @@ from fast_srgan_torch.utils.spans import span
 
 #: Batches a stream keeps in flight on the card (the JAX engine's window).
 STREAM_IN_FLIGHT = 2
+
+
+def graphs_apply(device: torch.device, mesh: Optional[Mesh]) -> bool:
+    """Whether :meth:`SRInferenceEngine.stream` replays captured forwards:
+    on one card. A stream fixes one batch shape for thousands of batches,
+    so its capture pays; the CPU and a mesh's slices run eagerly, as do the
+    engine's other entry points, whose shapes change from call to call."""
+    return device.type == "cuda" and mesh is None
 
 
 def _round_up(x: int, m: int) -> int:
@@ -107,6 +117,65 @@ class _Replica:
     tail: Optional[Dict[str, Any]] = None
     plan: Optional[quant.PreparedGenerator] = None
     act_scales: Optional[Dict[str, torch.Tensor]] = None
+
+
+class _Captured(NamedTuple):
+    """One slot's captured forward: each replay of ``graph`` reads the
+    slot's device input and writes ``out``, which belongs to the slot."""
+
+    graph: Any
+    out: torch.Tensor
+
+
+@dataclasses.dataclass
+class _Ring:
+    """``stream``'s buffers on one card for one batch shape, one slot a
+    batch in flight plus one: (pinned input, device input, pinned output),
+    and each slot's captured forward of its whole device input. ``held``
+    while a stream runs on it."""
+
+    slots: List[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
+    graphs: List[_Captured]
+    held: bool = False
+
+
+def _slots(bs: int, shape: Tuple[int, ...], scale: int, device: torch.device
+           ) -> List[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
+    """``STREAM_IN_FLIGHT + 1`` slots of (pinned input, device input,
+    pinned output) for batches of ``bs`` HWC frames of ``shape``."""
+    h, w, c = shape
+    return [
+        (torch.empty((bs, h, w, c), dtype=torch.uint8, pin_memory=True),
+         torch.empty((bs, h, w, c), dtype=torch.uint8, device=device),
+         torch.empty((bs, scale * h, scale * w, c), dtype=torch.uint8, pin_memory=True))
+        for _ in range(STREAM_IN_FLIGHT + 1)
+    ]
+
+
+def _capture(forward: Callable[[torch.Tensor], torch.Tensor],
+             inputs: Sequence[torch.Tensor]) -> List[_Captured]:
+    """A CUDA graph of ``forward`` of each input, each in a memory pool of
+    its own. Graphs that shared one pool could not be kept apart: a later
+    capture may place its output in memory an earlier graph's replay uses
+    for its intermediates, which that replay then overwrites while the
+    output's download still reads it. One eager forward on a side stream
+    first makes what a first call chooses (cuDNN's algorithms, the IN
+    kernels' plan); capturing synchronizes the card, so nothing is in
+    flight."""
+    device = inputs[0].device
+    with torch.cuda.device(device):
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            forward(inputs[0])
+        torch.cuda.current_stream(device).wait_stream(side)
+        captured = []
+        for x in inputs:
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                out = forward(x)
+            captured.append(_Captured(graph, out))
+    return captured
 
 
 def load_image(path: str) -> np.ndarray:
@@ -239,12 +308,20 @@ class SRInferenceEngine:
             self._replicas[dev] = rep
         first = self._replicas[self.device]
         self.model, self._tail = first.model, first.tail
-        #: Generator forwards run so far (one per batch).
+        #: Generator forwards run so far (one per batch, eager or replayed).
         self.forward_calls = 0
         #: (batch, height, width) of each input batch shape run so far (the
         #: padded shape when bucketed): the first use of one pays cuDNN's
         #: choice of algorithms and the IN kernels' plan.
         self.batch_shapes: set = set()
+        #: CUDA graphs ``stream`` captured (one a ring slot, once per batch
+        #: shape) and replayed (one a full batch). The kernels' own
+        #: ``.launches`` counters count a capture once and no replay.
+        self.graph_captures = 0
+        self.graph_replays = 0
+        #: ``stream``'s captured rings by (batch, height, width); the
+        #: engine's tier is fixed
+        self._rings: Dict[Tuple[int, int, int], _Ring] = {}
         if self.quantize:
             self._plan = first.plan
             # the fp32 float form, kept for recalibrate()
@@ -271,8 +348,9 @@ class SRInferenceEngine:
         return cls.PIXEL_BUDGETS[scale]
 
     def recalibrate(self, batches: Iterable[Any]) -> None:
-        """Recompute the int8 activation scales from sample inputs and swap
-        them in on the device; nothing else is rebuilt. Clears
+        """Recompute the int8 activation scales from sample inputs and write
+        them into the engine's scale tensors on the device, which the
+        captured forwards read; nothing else is rebuilt. Clears
         ``default_calibration``: the scales are now the caller's choice."""
         if not self.quantize:
             raise ValueError("recalibrate() requires quantize=True")
@@ -280,12 +358,17 @@ class SRInferenceEngine:
         self._set_scales(quant.calibrate_scales(self._calib_plan, batches))
 
     def _set_scales(self, act_scales: Dict[str, Any]) -> None:
-        """The int8 activation scales, copied to every replica's device."""
+        """The int8 activation scales on every replica's device, in tensors
+        of the engine's own: copies made at the first call, written in
+        place at every later one (in stream order), so that a forward
+        ``stream`` captured reads the new values."""
         for rep in self._replicas.values():
-            rep.act_scales = {
-                k: torch.as_tensor(v, dtype=torch.float32).to(rep.device)
-                for k, v in act_scales.items()
-            }
+            new = {k: torch.as_tensor(v, dtype=torch.float32) for k, v in act_scales.items()}
+            if rep.act_scales is None:
+                rep.act_scales = {k: v.to(rep.device, copy=True) for k, v in new.items()}
+            else:
+                for k, v in new.items():
+                    rep.act_scales[k].copy_(v)
         self.act_scales = self._replicas[self.device].act_scales
 
     def _precision(self):
@@ -318,12 +401,20 @@ class SRInferenceEngine:
         """Device-resident [B, H, W, 3] uint8 -> [B, sH, sW, 3] uint8; one
         generator forward (one a mesh device), enqueued on the current
         stream."""
-        with span("engine.forward"), torch.inference_mode(), self._precision():
-            out = self._data_parallel(
+        with span("engine.forward"):
+            out = self._forward_u8(x_u8)
+        self._counted(x_u8)
+        return out
+
+    def _forward_u8(self, x_u8: torch.Tensor) -> torch.Tensor:
+        """:meth:`forward_u8`'s work, uncounted: what ``stream`` captures."""
+        with torch.inference_mode(), self._precision():
+            return self._data_parallel(
                 lambda rep, x: sr_forward_u8(lambda t: self._apply(t, rep=rep), x), x_u8)
+
+    def _counted(self, x_u8: torch.Tensor) -> None:
         self.forward_calls += 1
         self.batch_shapes.add(tuple(x_u8.shape[:3]))
-        return out
 
     def forward_u8_masked(
         self, x_u8: torch.Tensor, valid_h: torch.Tensor, valid_w: torch.Tensor
@@ -343,8 +434,7 @@ class SRInferenceEngine:
 
         with span("engine.forward"), torch.inference_mode(), self._precision():
             out = self._data_parallel(run, x_u8, valid_h, valid_w)
-        self.forward_calls += 1
-        self.batch_shapes.add(tuple(x_u8.shape[:3]))
+        self._counted(x_u8)
         return out
 
     def _to_device(self, array: np.ndarray) -> torch.Tensor:
@@ -498,8 +588,13 @@ class SRInferenceEngine:
         go up through pinned host buffers on an upload stream and come down
         on a download stream, ordered by events, with at most
         ``STREAM_IN_FLIGHT`` batches in flight; the host fills batch t+1
-        while the card runs batch t. Each yielded frame is the caller's own
-        array. Unbucketed: one frame shape needs no padding."""
+        while the card runs batch t. On one card (``graphs_apply``) each
+        full batch is one replay of a CUDA graph of the whole forward: the
+        engine captures one per ring slot at the first stream of a batch
+        shape and keeps the ring for the next; a stream that finds the
+        ring held by another live one, and every partial batch, run the
+        eager forward. Each yielded frame is the caller's own array.
+        Unbucketed: one frame shape needs no padding."""
         it = iter(frames)
         first = next(it, None)
         if first is None:
@@ -534,29 +629,58 @@ class SRInferenceEngine:
             return
         yield from self._stream_on_card(batches(), bs, shape)
 
+    def _hold_ring(self, bs: int, shape: Tuple[int, ...]) -> Optional[_Ring]:
+        """The captured ring for batches of ``bs`` frames of ``shape``,
+        captured at its first use, now held for one stream; None where
+        graphs do not apply (``graphs_apply``) or another live stream holds
+        it."""
+        if not graphs_apply(self.device, self.mesh):
+            return None
+        key = (bs,) + tuple(shape[:2])
+        ring = self._rings.get(key)
+        if ring is None:
+            slots = _slots(bs, shape, self.SCALE, self.device)
+            ring = _Ring(slots, _capture(self._forward_u8, [x for _, x, _ in slots]))
+            self._rings[key] = ring
+            self.graph_captures += len(slots)
+        elif ring.held:
+            return None
+        ring.held = True
+        return ring
+
+    def _forward_slot(self, graphs: Sequence[_Captured], k: int, x_u8: torch.Tensor,
+                      n: int) -> torch.Tensor:
+        """The forward of slot k's first n frames ``x_u8[:n]``: a replay of
+        the slot's graph where it has one and the batch is full, else the
+        eager forward. A replay counts as a forward."""
+        if not graphs or n < x_u8.shape[0]:
+            return self.forward_u8(x_u8[:n])
+        with span("engine.forward"), span("engine.replay"):
+            graphs[k].graph.replay()
+        self._counted(x_u8)
+        self.graph_replays += 1
+        return graphs[k].out
+
     def _stream_on_card(
         self, batches: Iterator[List[np.ndarray]], bs: int, shape: Tuple[int, ...]
     ) -> Iterator[np.ndarray]:
         """:meth:`stream`'s pipeline. Batch t uses slot t mod
-        (STREAM_IN_FLIGHT + 1): pinned input, device input, pinned output.
-        A slot comes round again only after its batch was fetched, which
-        waits for its download, which follows its forward and its upload,
-        so every buffer of the slot is free. The device output is held
-        until its download completes. Each batch's host steps are spans
-        (``utils/spans.py``): gather, stage, enqueue (the forward's
-        ``engine.forward`` inside), wait, copy, and the caller's time
-        between the batch's first frame and the return after its last."""
-        h, w, c = shape
-        s = self.SCALE
+        (STREAM_IN_FLIGHT + 1): pinned input, device input, pinned output,
+        and on the graphed path the slot's captured forward. A slot comes
+        round again only after its batch was fetched, which waits for its
+        download, which follows its forward and its upload, so every buffer
+        of the slot, the graph's output too, is free. The device output is
+        held until its download completes. Each batch's host steps are
+        spans (``utils/spans.py``): gather, stage, enqueue (the forward's
+        ``engine.forward`` inside, and ``engine.replay`` inside that on the
+        graphed path), wait, copy, and the caller's time between the
+        batch's first frame and the return after its last."""
         dev = self.device
+        ring = self._hold_ring(bs, shape)
+        slots = ring.slots if ring is not None else _slots(bs, shape, self.SCALE, dev)
+        graphs = ring.graphs if ring is not None else ()
         compute = torch.cuda.current_stream(dev)
         up, down = torch.cuda.Stream(dev), torch.cuda.Stream(dev)
-        slots = [
-            (torch.empty((bs, h, w, c), dtype=torch.uint8, pin_memory=True),
-             torch.empty((bs, h, w, c), dtype=torch.uint8, device=dev),
-             torch.empty((bs, s * h, s * w, c), dtype=torch.uint8, pin_memory=True))
-            for _ in range(STREAM_IN_FLIGHT + 1)
-        ]
         # (pinned output, frames, device output, download-done event, batch)
         pending: collections.deque = collections.deque()
 
@@ -581,7 +705,7 @@ class SRInferenceEngine:
                     with torch.cuda.stream(up):
                         dev_in[:n].copy_(host_in[:n], non_blocking=True)
                     compute.wait_event(up.record_event())
-                    out = self.forward_u8(dev_in[:n])
+                    out = self._forward_slot(graphs, t % len(slots), dev_in, n)
                     down.wait_event(compute.record_event())
                     with torch.cuda.stream(down):
                         host_out[:n].copy_(out, non_blocking=True)
@@ -593,6 +717,8 @@ class SRInferenceEngine:
         finally:  # an abandoned stream: nothing in flight may outlive its buffers
             for entry in pending:
                 entry[3].synchronize()
+            if ring is not None:
+                ring.held = False
 
 
 def _gathered(batches: Iterator[List[np.ndarray]]) -> Iterator[Tuple[int, List[np.ndarray]]]:

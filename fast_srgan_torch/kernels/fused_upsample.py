@@ -287,7 +287,8 @@ def fused_upsample(
 
     ``fused_upsample.launches`` counts the forwards that launched the
     kernel, ``fused_upsample.backward_launches`` the backwards' launches of
-    its pre-activation form."""
+    its pre-activation form (a CUDA graph's capture counts once, its
+    replays not)."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_upsample runs on cpu or cuda, not {x.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, weight, bias, alpha)):

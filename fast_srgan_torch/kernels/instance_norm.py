@@ -455,7 +455,8 @@ def instance_norm_prelu(
 
     ``instance_norm_prelu.launches`` counts the unmasked calls that launched
     the CUDA kernel family, ``masked_launches`` the masked ones (one a
-    call, whichever form it took). Without a gradient to record, the op is
+    call, whichever form it took; a CUDA graph's capture counts once, its
+    replays not). Without a gradient to record, the op is
     called directly: an ``autograd.Function`` adds host time to each call."""
     _check_device(x, "instance_norm_prelu")
     if torch.is_grad_enabled() and (x.requires_grad or alpha.requires_grad):
@@ -472,7 +473,8 @@ def instance_norm_add(
 
     ``instance_norm_add.launches`` counts the unmasked calls that launched
     the CUDA kernel family, ``masked_launches`` the masked ones (one a
-    call, whichever form it took). Without a gradient to record, the op is
+    call, whichever form it took; a CUDA graph's capture counts once, its
+    replays not). Without a gradient to record, the op is
     called directly."""
     _check_device(x, "instance_norm_add")
     if torch.is_grad_enabled() and (x.requires_grad or skip.requires_grad):
@@ -646,7 +648,8 @@ def instance_norm_stats(x: torch.Tensor) -> torch.Tensor:
     channels_last, the same C as the fused forms take): each sample's fp32
     sums and sums of squares, [B, 1, 2C] (one shard's term of a frame's
     statistics). Inference only (no gradient). ``instance_norm_stats.launches``
-    counts the kernel's launches."""
+    counts the kernel's launches (a CUDA graph's capture once, its replays
+    not)."""
     _check_device(x, "instance_norm_stats")
     return _STATS_OP(x)
 
@@ -657,7 +660,7 @@ def instance_norm_prelu_from_stats(
     """IN + PReLU of x with the statistics that ``partials`` ([B, n, 2C]
     fp32: n shards' :func:`instance_norm_stats` joined along dim 1, added in
     row order) sum over ``count`` pixels. ``.launches`` counts the kernel's
-    launches."""
+    launches (a CUDA graph's capture once, its replays not)."""
     _check_device(x, "instance_norm_prelu_from_stats")
     return _PRELU_FROM_STATS_OP(x, alpha, partials, int(count))
 
@@ -667,7 +670,8 @@ def instance_norm_add_from_stats(
 ) -> torch.Tensor:
     """``instance_norm(x) + skip`` with the statistics of ``partials`` over
     ``count`` pixels (as :func:`instance_norm_prelu_from_stats`).
-    ``.launches`` counts the kernel's launches."""
+    ``.launches`` counts the kernel's launches (a CUDA graph's capture once,
+    its replays not)."""
     _check_device(x, "instance_norm_add_from_stats")
     return _ADD_FROM_STATS_OP(x, skip, partials, int(count))
 

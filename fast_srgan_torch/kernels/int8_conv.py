@@ -446,7 +446,8 @@ def int8_conv(
     left and right 0: W - 2 for a 3x3 kernel).
 
     ``int8_conv.launches`` counts the calls that launched the kernel in a
-    "same"-sized form, ``halo_launches`` those in a narrower one."""
+    "same"-sized form, ``halo_launches`` those in a narrower one (a CUDA
+    graph's capture counts once, its replays not)."""
     if xq.device.type not in ("cpu", "cuda"):
         raise ValueError(f"int8_conv runs on cpu or cuda, not {xq.device}")
     return _CONV_OP(xq, weight.packed, weight.tiled, weight.cout, weight.cin, weight.n_tile,
@@ -520,7 +521,8 @@ def int8_conv_phases(
     neighbours' columns and whose outputs are W - 2 wide.
 
     ``int8_conv_phases.launches`` counts the calls that launched the kernel
-    "same"-sized, ``halo_launches`` the others."""
+    "same"-sized, ``halo_launches`` the others (a CUDA graph's capture
+    counts once, its replays not)."""
     if xq.device.type not in ("cpu", "cuda"):
         raise ValueError(f"int8_conv_phases runs on cpu or cuda, not {xq.device}")
     out = _PHASES_OP(xq, [w.packed for w in weights.phases], weights.tiled, weights.cout,

@@ -128,7 +128,8 @@ def pixel_shuffle_phase_major(x: torch.Tensor) -> torch.Tensor:
     """PixelShuffle(2) of [B, 4C, H, W] phase-major x -> [B, C, 2H, 2W].
 
     ``pixel_shuffle_phase_major.launches`` counts the calls that launched
-    the CUDA kernel."""
+    the CUDA kernel (a CUDA graph's capture counts once, its replays
+    not)."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"pixel_shuffle_phase_major runs on cpu or cuda, not {x.device}")
     if torch.is_grad_enabled() and x.requires_grad:

@@ -102,7 +102,8 @@ _OP = torch.ops.fast_srgan.quantize_act.default
 def quantize_act(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """int8 of ``x`` at the per-tensor scale ``scale`` (a one-value tensor).
 
-    ``quantize_act.launches`` counts the calls that launched the kernel."""
+    ``quantize_act.launches`` counts the calls that launched the kernel (a
+    CUDA graph's capture counts once, its replays not)."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"quantize_act runs on cpu or cuda, not {x.device}")
     return _OP(x, scale)

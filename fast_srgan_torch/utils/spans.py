@@ -18,8 +18,9 @@ span given no batch takes its parent's. ``spans()`` returns the records in
 the order they ended, at most ``LIMIT``; later ones are counted in
 ``dropped()``. ``clear()`` empties both. Names are ``<layer>.<step>``:
 ``engine.forward`` (``SRInferenceEngine.forward_u8`` and
-``forward_u8_masked``: the host's enqueue of one generator forward) and
-``stream.gather``, ``stream.stage``, ``stream.enqueue``, ``stream.wait``,
+``forward_u8_masked``: the host's enqueue of one generator forward),
+``engine.replay`` (inside ``engine.forward`` where ``stream`` replays the
+forward's CUDA graph) and ``stream.gather``, ``stream.stage``, ``stream.enqueue``, ``stream.wait``,
 ``stream.copy`` and ``stream.caller`` (``SRInferenceEngine.stream``, one
 each a batch; the CPU path has no wait and no copy).
 """

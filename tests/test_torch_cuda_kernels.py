@@ -23,7 +23,12 @@ valid region) are held to the same bars, with the padding exactly 0
 (IN+PReLU) or equal to skip (IN + add), in both forms; the bucketed engine
 and ``stream`` on the card: fp32 bucketed within 1 count of the CPU,
 ``stream`` bitwise equal to ``upscale_batch`` on the same batches, and its
-six spans a batch recorded, in order, under a CUDA-only profiler.
+six spans a batch recorded, in order, under a CUDA-only profiler; its CUDA
+graphs (both tiers): every full batch a replay (``engine.replay`` inside
+``engine.forward``), bitwise equal to the eager forward, one capture a slot
+once per batch shape, no graph's replay writing another slot's output, two
+interleaved streams and a ``recalibrate`` between streams bitwise equal to
+eager and to a fresh engine.
 Pixel shuffle: bitwise. int8 activation quantize and s8 x s8 -> s32 conv
 (with its dequantize + bias + PReLU epilogue, bf16 and fp32 glue, the
 fused requantize and the four-phase launch): bitwise, also past 2^31
@@ -1250,8 +1255,9 @@ def test_stream_is_bitwise_upscale_batch(device, pretrained, dtype):
 def test_stream_records_its_spans_under_a_cuda_profiler(device, pretrained):
     """Under the benchmark's CUDA-only profiler the spans record: each batch
     of the card's pipeline has its six ``stream.*`` spans, in the order
-    gather, stage, enqueue (``engine.forward`` inside), then wait, copy and
-    caller; the frames are those of an untraced stream."""
+    gather, stage, enqueue (``engine.forward`` inside, and ``engine.replay``
+    inside that on every full batch), then wait, copy and caller; the
+    frames are those of an untraced stream."""
     from torch.profiler import ProfilerActivity, profile
 
     from fast_srgan_torch.inference import SRInferenceEngine
@@ -1272,11 +1278,108 @@ def test_stream_records_its_spans_under_a_cuda_profiler(device, pretrained):
              "stream.caller")
     for t in range(3):
         mine = {r.name: r for r in records if r.batch == t}
-        assert set(mine) == set(steps) | {"engine.forward"}
+        full = t < 2  # batches 0 and 1 replay the graph, the trailing 3 frames run eagerly
+        assert set(mine) == set(steps) | {"engine.forward"} | ({"engine.replay"} if full else set())
         assert by_id[mine["engine.forward"].parent] is mine["stream.enqueue"]
+        if full:
+            assert by_id[mine["engine.replay"].parent] is mine["engine.forward"]
         assert all(mine[n].parent is None for n in steps)
         order = [mine[n] for n in steps]
         assert all(a.t0 <= a.t1 <= b.t0 for a, b in zip(order, order[1:]))
+
+
+def _graph_engine(params, device, quantize, frames):
+    from fast_srgan_torch.inference import SRInferenceEngine
+
+    if quantize:
+        return SRInferenceEngine(params, device=device, quantize=True, calib_batches=[frames[:8]])
+    return SRInferenceEngine(params, device=device, dtype=torch.bfloat16)
+
+
+def _eager(engine, frames, bs):
+    return np.concatenate([engine.upscale_batch(np.stack(frames[i:i + bs]))
+                           for i in range(0, len(frames), bs)])
+
+
+@pytest.mark.parametrize("quantize", [False, True], ids=["bf16", "int8ups"])
+@pytest.mark.parametrize("n,hw,bs", [(39, (24, 40), 4), (48, (180, 320), 8)])
+def test_stream_graphs_are_bitwise_eager(device, pretrained, quantize, n, hw, bs):
+    """Every frame of a stream of distinct frames (3 rounds of the ring and
+    a trailing partial batch at 24x40; 6 batches of 8 at 180x320) bitwise
+    equal to eager ``upscale_batch`` of the same batches; one capture a
+    slot, once per batch shape across two streams; a replay a full batch;
+    no slot's output written by another slot's replay."""
+    from fast_srgan_torch.inference import STREAM_IN_FLIGHT
+
+    frames = list(np.random.default_rng(n).integers(0, 256, (n,) + hw + (3,), dtype=np.uint8))
+    engine = _graph_engine(pretrained, device, quantize, frames)
+    full = n // bs
+    want = _eager(engine, frames, bs)
+    got = list(engine.stream(iter(frames), batch_size=bs))
+    assert len(got) == n and all(np.array_equal(g, w) for g, w in zip(got, want))
+    slots = STREAM_IN_FLIGHT + 1
+    assert (engine.graph_captures, engine.graph_replays) == (slots, full)
+    again = list(engine.stream(iter(frames[::-1]), batch_size=bs))
+    want = _eager(engine, frames[::-1], bs)
+    assert all(np.array_equal(g, w) for g, w in zip(again, want))
+    assert (engine.graph_captures, engine.graph_replays) == (slots, 2 * full)
+    # each slot's output is left alone by the other slots' replays (in any
+    # order), each of which writes its own; graphs sharing one memory pool
+    # fail here
+    (ring,) = engine._rings.values()
+    head = engine.upscale_batch(np.stack(frames[:bs]))
+    for k in range(slots):
+        kept = ring.graphs[k].out.clone()
+        for j in range(slots):
+            if j != k:
+                ring.slots[j][1].copy_(torch.from_numpy(np.stack(frames[(j + k) * bs:][:bs])))
+                ring.graphs[j].graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(ring.graphs[k].out, kept)
+        ring.slots[k][1].copy_(torch.from_numpy(np.stack(frames[:bs])))
+        ring.graphs[k].graph.replay()
+        assert np.array_equal(ring.graphs[k].out.cpu().numpy(), head)
+
+
+@pytest.mark.parametrize("quantize", [False, True], ids=["bf16", "int8ups"])
+def test_two_interleaved_streams_are_bitwise_eager(device, pretrained, quantize):
+    """Two live streams on one engine, consumed in turns: the first holds
+    the captured ring, the second runs eagerly; each bitwise equal to eager."""
+    rng = np.random.default_rng(8)
+    a = list(rng.integers(0, 256, (26, 24, 40, 3), dtype=np.uint8))
+    b = list(rng.integers(0, 256, (26, 24, 40, 3), dtype=np.uint8))
+    engine = _graph_engine(pretrained, device, quantize, a)
+    want_a, want_b = _eager(engine, a, 4), _eager(engine, b, 4)
+    first, second = engine.stream(iter(a), batch_size=4), engine.stream(iter(b), batch_size=4)
+    got_a, got_b = [], []
+    for x, y in zip(first, second):
+        got_a.append(x)
+        got_b.append(y)
+    assert len(got_a) == len(got_b) == 26
+    assert all(np.array_equal(g, w) for g, w in zip(got_a, want_a))
+    assert all(np.array_equal(g, w) for g, w in zip(got_b, want_b))
+    assert engine.graph_replays == 6 and len(engine._rings) == 1
+    assert not next(iter(engine._rings.values())).held
+
+
+def test_recalibrate_between_streams_is_a_fresh_engine(device, pretrained):
+    """The int8 engine's cached graphs read the scales ``recalibrate`` writes:
+    the stream after it bitwise equal to a fresh engine calibrated there."""
+    from fast_srgan_torch.inference import SRInferenceEngine
+
+    rng = np.random.default_rng(9)
+    frames = list(rng.integers(0, 256, (20, 24, 40, 3), dtype=np.uint8))
+    calib = rng.integers(0, 256, (4, 48, 64, 3), dtype=np.uint8) // 2
+    engine = _graph_engine(pretrained, device, True, frames)
+    before = list(engine.stream(iter(frames), batch_size=4))
+    captures = engine.graph_captures
+    engine.recalibrate([calib])
+    after = list(engine.stream(iter(frames), batch_size=4))
+    fresh = SRInferenceEngine(pretrained, device=device, quantize=True, calib_batches=[calib])
+    want = _eager(fresh, frames, 4)
+    assert engine.graph_captures == captures and engine.graph_replays == 10
+    assert all(np.array_equal(g, w) for g, w in zip(after, want))
+    assert not all(np.array_equal(g, w) for g, w in zip(before, after))
 
 
 # --- the training slice: SSIM's filter, remat through the kernels ----------
