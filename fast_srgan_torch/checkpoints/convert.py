@@ -127,8 +127,11 @@ def params_from_state_dict(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
 def load_generator_params(path: str) -> Dict[str, Any]:
     """Generator params (numpy, ``{'params': ...}``) from a native ``.npz``
     or a ``.pt`` generator state_dict (the reference's, ``_orig_mod.``
-    prefixes stripped, or the port trainer's ``generator_epoch_N.pt``).
-    Raises FileNotFoundError for a missing file."""
+    prefixes stripped, or the port trainer's ``generator_epoch_N.pt``); from
+    a SwinIR ``.pth`` (bare, or under ``params_ema`` or ``params``), its
+    state_dict as ``models.swinir.swinir_state_dict`` gives it, which the
+    engine takes as it takes a generator tree. Raises FileNotFoundError for
+    a missing file."""
     if not os.path.exists(path):
         raise FileNotFoundError(
             f"checkpoint not found: {path!r} (expected a native .npz or a .pt generator"
@@ -138,7 +141,12 @@ def load_generator_params(path: str) -> Dict[str, Any]:
         from fast_srgan_torch.checkpoints.npz_io import load_npz_params
 
         return load_npz_params(path)
-    return params_from_state_dict(torch.load(path, map_location="cpu", weights_only=True))
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    from fast_srgan_torch.models.swinir import swinir_state_dict, unwrap_state_dict
+
+    if unwrap_state_dict(obj) is not None:
+        return swinir_state_dict(obj)
+    return params_from_state_dict(obj)
 
 
 def discriminator_state_dict_from_jax_params(

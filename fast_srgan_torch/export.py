@@ -136,6 +136,9 @@ class SRForwardU8(nn.Module):
                  quantize: bool, calib_batches: Optional[Sequence[Any]], device: torch.device):
         super().__init__()
         self.arch = arch_from_params(params)
+        if self.arch.get("family") == "swinir":
+            raise ValueError("export takes the Fast-SRGAN generator; SwinIR is served by"
+                             " SRInferenceEngine")
         self.dtype = dtype
         self.device = device
         self.form = "int8" if quantize else ("lr_tail" if lr_tail else "canonical")

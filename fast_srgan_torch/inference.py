@@ -52,6 +52,7 @@ import torch
 
 from fast_srgan_torch import quant
 from fast_srgan_torch.checkpoints.convert import state_dict_from_jax_params
+from fast_srgan_torch.models import swinir
 from fast_srgan_torch.models.generator import Generator
 from fast_srgan_torch.ops.lr_tail import generator_apply_lr_tail, prepare_lr_tail
 from fast_srgan_torch.ops.norm import valid_mask, zero_outside
@@ -90,10 +91,15 @@ def sr_forward_u8(
     return out.permute(0, 2, 3, 1)
 
 
-def arch_from_params(params: Dict[str, Any]) -> Dict[str, int]:
+def arch_from_params(params: Dict[str, Any]) -> Dict[str, Any]:
     """Read n_filters, n_layers and scale_factor off a generator param tree
     (the neck conv's output features, the ``stem_i`` count, and 2 to the
-    number of ``upsampling_i`` stages)."""
+    number of ``upsampling_i`` stages). A SwinIR state_dict (bare, or under
+    ``params_ema`` or ``params``) is told apart by its keys and gives
+    ``swinir.arch_from_state_dict``'s dict, whose ``family`` is
+    ``"swinir"``."""
+    if swinir.unwrap_state_dict(params) is not None:
+        return swinir.arch_from_state_dict(params)
     p = params["params"] if "params" in params else params
     if "neck_conv" not in p:
         raise ValueError(
@@ -113,7 +119,7 @@ class _Replica:
     """The engine's weights on one device."""
 
     device: torch.device
-    model: Generator
+    model: Generator | swinir.SwinIR
     tail: Optional[Dict[str, Any]] = None
     plan: Optional[quant.PreparedGenerator] = None
     act_scales: Optional[Dict[str, torch.Tensor]] = None
@@ -190,7 +196,11 @@ class SRInferenceEngine:
     """Eager SR engine (scale 2/4/8) over a fixed parameter set.
 
     Args:
-      params: generator param tree with numpy leaves (``load_npz_params``).
+      params: generator param tree with numpy leaves (``load_npz_params``),
+        or a SwinIR state_dict (``models/swinir.py``; the architecture is
+        read off its keys). SwinIR runs every entry point but ``bucket``
+        and ``quantize``, which raise ValueError: zero padding would enter
+        its attention windows, and it has no calibrated int8 tier.
       dtype: compute dtype, ``torch.bfloat16`` or ``torch.float32``.
       scale_factor: the expected upscale; None takes it from ``params``.
       device: where the model runs. ``"cuda"`` without CUDA raises: the
@@ -278,6 +288,10 @@ class SRInferenceEngine:
             )
         self.SCALE = arch["scale_factor"]
         self.dtype = dtype
+        #: "swinir" or "fsrgan"
+        self.family = arch.get("family", "fsrgan")
+        if self.family == "swinir":
+            _refuse_for_swinir(bucket, quantize)
         mode = "ups" if quantize is True else (quantize or None)
         if mode is not None and mode not in quant.MODES:
             raise ValueError(f"quantize must be True/'tail'/'ups'/'full'/'trunk': {mode!r}")
@@ -298,10 +312,14 @@ class SRInferenceEngine:
         for dev in self.devices:
             if dev in self._replicas:
                 continue
-            model = Generator(**arch)
-            model.load_state_dict(state_dict_from_jax_params(params))
-            rep = _Replica(dev, model)
-            rep.tail = prepare_lr_tail(model, dtype, dev) if use_lr_tail else None
+            if self.family == "swinir":
+                model = swinir.load_swinir(params)
+                tail = model.prepare_lr_tail(dtype, dev) if use_lr_tail else None
+            else:
+                model = Generator(**arch)
+                model.load_state_dict(state_dict_from_jax_params(params))
+                tail = prepare_lr_tail(model, dtype, dev) if use_lr_tail else None
+            rep = _Replica(dev, model, tail)
             rep.model = model.to(device=dev, dtype=dtype, memory_format=torch.channels_last).eval()
             if self.quantize:
                 rep.plan = quant.prepare_generator(params, mode, dtype, dev, model=rep.model)
@@ -382,6 +400,8 @@ class SRInferenceEngine:
             if valid_hw is None:
                 return quant.sr_quant_forward(rep.plan, rep.act_scales, x)
             return quant.sr_quant_forward_masked(rep.plan, rep.act_scales, x, valid_hw)
+        if self.family == "swinir":
+            return rep.model(x, rep.tail)
         if rep.tail is None:
             return rep.model(x, valid_hw=valid_hw)
         return generator_apply_lr_tail(rep.model, rep.tail, x, valid_hw)
@@ -719,6 +739,17 @@ class SRInferenceEngine:
                 entry[3].synchronize()
             if ring is not None:
                 ring.held = False
+
+
+def _refuse_for_swinir(bucket: int, quantize) -> None:
+    """The engine's paths SwinIR cannot run exactly, refused by name."""
+    if bucket:
+        raise ValueError(
+            "bucket= does not serve SwinIR: the zero padding of a bucketed batch would enter"
+            " its attention windows and LayerNorms, so the padded forward is not the"
+            " image's. Use bucket=0.")
+    if quantize:
+        raise ValueError("quantize= does not serve SwinIR: it has no calibrated int8 tier")
 
 
 def _gathered(batches: Iterator[List[np.ndarray]]) -> Iterator[Tuple[int, List[np.ndarray]]]:

@@ -279,19 +279,28 @@ class FusedUpsampleFunction(torch.autograd.Function):
 
 
 def fused_upsample(
-    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, alpha: torch.Tensor
+    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, alpha: torch.Tensor,
+    prelu: bool = True,
 ) -> torch.Tensor:
     """One upsample stage of [B, 64, H, W] x -> [B, C, 2H, 2W], computed in
     x's dtype with fp32 accumulation. weight [4C, 64, 3, 3] torch channel
     order, bias [4C], alpha (1,): ``UpSamplingBlock``'s own parameters.
+    ``prelu=False`` returns the pre-activation, the whole stage of a model
+    with no activation there (SwinIR's upsampler; ``alpha`` is not read),
+    through the plain composition where a gradient is recorded.
 
     ``fused_upsample.launches`` counts the forwards that launched the
-    kernel, ``fused_upsample.backward_launches`` the backwards' launches of
-    its pre-activation form (a CUDA graph's capture counts once, its
-    replays not)."""
+    kernel, ``fused_upsample.backward_launches`` the launches of its
+    pre-activation form, the backwards' and the ``prelu=False`` calls' (a
+    CUDA graph's capture counts once, its replays not)."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_upsample runs on cpu or cuda, not {x.device}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, weight, bias, alpha)):
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in (x, weight, bias, alpha))
+    if not prelu:
+        if grad:
+            return upsample_preact_reference(x, weight, bias)
+        return _OP(x, weight, bias, alpha, False)
+    if grad:
         return FusedUpsampleFunction.apply(x, weight, bias, alpha)
     return _OP(x, weight, bias, alpha)
 

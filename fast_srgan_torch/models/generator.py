@@ -34,6 +34,8 @@ garbage; the caller crops it.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -102,16 +104,37 @@ class UpSamplingBlock(nn.Module):
         """``mask`` ([B, 1, H, W], x's resolution) re-zeroes the padding that
         the conv's bias fills in, before the shuffle (which carries the
         zeros to the 2x grid; channel order does not matter to it)."""
-        if self.fused:
-            if mask is not None:
-                raise ValueError("fused upsample does not support masking")
-            if kernel_takes(x, self.conv.weight):
-                return fused_upsample(x, self.conv.weight, self.conv.bias, self.relu.weight)
-        y = F.conv2d(x, self.conv.weight[self.perm], self.conv.bias[self.perm], padding=1)
+        return upsample_stage(x, self.conv.weight, self.conv.bias, self.relu.weight,
+                              self.fused, self.perm, mask)
+
+
+def upsample_stage(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                   alpha: Optional[torch.Tensor], fused: bool,
+                   perm: Optional[torch.Tensor] = None, mask=None) -> torch.Tensor:
+    """One 2x stage, conv -> PixelShuffle(2) -> PReLU(``alpha``), or no
+    activation where ``alpha`` is None (SwinIR's upsampler): the fused
+    kernel where ``fused`` and it takes the shapes (with ``prelu=False``
+    without a slope), else the conv with its output channels in
+    phase-major order (``perm``) and the copy shuffle, or, given no
+    ``perm``, the conv and ``F.pixel_shuffle``."""
+    if fused:
+        if mask is not None:
+            raise ValueError("fused upsample does not support masking")
+        if kernel_takes(x, weight):
+            if alpha is None:
+                return fused_upsample(x, weight, bias, bias[:1], prelu=False)
+            return fused_upsample(x, weight, bias, alpha)
+    if perm is None:
+        y = F.conv2d(x, weight, bias, padding=1)
+        if mask is not None:
+            y = zero_outside(y, mask)
+        y = F.pixel_shuffle(y, 2)
+    else:
+        y = F.conv2d(x, weight[perm], bias[perm], padding=1)
         if mask is not None:
             y = zero_outside(y, mask)
         y = pixel_shuffle_phase_major(y.contiguous(memory_format=torch.channels_last))
-        return prelu(y, self.relu.weight)
+    return y if alpha is None else prelu(y, alpha)
 
 
 class Generator(nn.Module):

@@ -1,0 +1,474 @@
+"""SwinIR for classical super-resolution as an ``nn.Module`` (the
+``pixelshuffle`` upsampler), served by the port's engine beside the
+Fast-SRGAN generator.
+
+Liang et al., "SwinIR: Image Restoration Using Swin Transformer" (ICCV
+Workshops 2021, arXiv:2108.10257); github.com/JingyunLiang/SwinIR,
+``models/network_swinir.py``. SwinIR-M x4 is ``embed_dim`` 180, six RSTBs
+of six Swin layers, six heads of 30, window 8 (shift 4 in the odd layers),
+``mlp_ratio`` 2, ``resi_connection`` '1conv', ``num_feat`` 64: 11,900,199
+parameters. Module names are the published ones (``conv_first``,
+``patch_embed.norm``, ``layers.{i}.residual_group.blocks.{j}.attn.qkv``,
+``layers.{i}.conv``, ``norm``, ``conv_after_body``,
+``conv_before_upsample.0``, ``upsample.{0,2}``, ``conv_last``), so a
+published state_dict loads as it is once its two buffers are dropped
+(:func:`swinir_state_dict`): the port recomputes ``attn_mask`` and
+``relative_position_index`` for the input's own size.
+
+Tokens are held as [B, H, W, C], which is the memory of an NCHW
+channels_last tensor, so the convs between the RSTBs read and write them
+without a copy. Each Swin layer is, with s the shift (0 or window / 2):
+
+    x += roll(proj(WindowAttn(roll(LN1(x), -s))), +s)
+    x += fc2(GELU(fc1(LN2(x))))
+    WindowAttn = softmax(q k^T * head^-0.5 + B[rel_index] + M_shift) v  (each window)
+
+The attention runs through ``F.scaled_dot_product_attention`` with the
+relative-position bias and the shift mask as its float mask, windows
+folded into SDPA's batch. A shifted layer's mask takes one of four forms,
+by where the window lies: the interior (the bias alone), the last column,
+the last row and the last corner (:func:`window_regions`); so its windows
+are partitioned region by region and each region's run of windows shares
+one [1, heads, N, N] mask, broadcast over them. The masks are built once
+per (dtype, device) and cached on the model (:meth:`SwinIR.masks`, in a
+``swinir.masks`` span; ``mask_builds`` counts the sets built): 18 + 4 x 18
+of [heads, N, N] for SwinIR-M, 4.4 MB in bf16 whatever the input's size,
+which a CUDA graph captured over the forward reads as static tensors.
+The head size is zero-padded to a multiple of 8 (30 -> 32) with the scale
+of the true size, so a fused attention kernel takes it (at 30 SDPA falls
+back to its unfused math); the padded columns are zeros in and out, which
+is exact.
+
+The compute dtype is the parameters' (``.to(torch.bfloat16)``); LayerNorm
+statistics and the softmax run in fp32 inside torch's kernels, as they do
+for the published model under autocast. The forward takes the engine's
+[-1, 1] input, normalizes it as SwinIR does (x01 - mean; ``img_range`` is
+1 in every published classical-SR model and is not an option here),
+reflect-pads the bottom and right to a multiple of the window
+(``check_image_size``), and returns [-1, 1] fp32 cropped to the input's
+size times the scale. The one departure from the published test script
+(``main_test_swinir.py``) is at the uint8 edge: the engine truncates
+(y + 1) * 127.5 where the script rounds x01 * 255; the script also pads by
+flipping (the edge row repeated) where the network's own
+``check_image_size`` reflects, which is what runs here.
+
+``tail=`` takes the LR-domain tail (``SwinIR.prepare_lr_tail``, the same
+``ops/lr_tail.py`` path the Fast-SRGAN generator serves with, without its
+PReLU and tanh); without it the canonical upsampler runs through
+``UpSamplingBlock``'s kernels (``upsample_stage``).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from fast_srgan_torch.models.generator import upsample_stage
+from fast_srgan_torch.ops import lr_tail as _lr_tail
+from fast_srgan_torch.utils.spans import span
+
+#: SwinIR's RGB mean (DIV2K), subtracted before the network and added after.
+RGB_MEAN = (0.4488, 0.4371, 0.4040)
+#: what the shift mask adds between tokens of different shifted regions
+MASK_VALUE = -100.0
+NOT_SWINIR = "not a SwinIR state_dict (no 'conv_first.weight' and 'layers.0.conv.weight')"
+#: the published model's buffers, recomputed here for the input's own size
+BUFFERS = ("attn_mask", "relative_position_index")
+_STAGES = {2: 1, 4: 2, 8: 3}
+
+
+def relative_position_index(window: int) -> torch.Tensor:
+    """[N, N] int64 (N = window^2): row i, column j index the bias table
+    row of the offset from token j to token i, as ``WindowAttention``'s
+    buffer."""
+    coords = torch.stack(torch.meshgrid(torch.arange(window), torch.arange(window),
+                                        indexing="ij")).flatten(1)
+    rel = (coords[:, :, None] - coords[:, None, :]).permute(1, 2, 0) + (window - 1)
+    return rel[:, :, 0] * (2 * window - 1) + rel[:, :, 1]
+
+
+def relative_position_bias(table: torch.Tensor, window: int) -> torch.Tensor:
+    """[heads, N, N]: the bias table [(2w-1)^2, heads] gathered by
+    :func:`relative_position_index`."""
+    n = window * window
+    idx = relative_position_index(window).to(table.device)
+    return table[idx.view(-1)].view(n, n, -1).permute(2, 0, 1)
+
+
+def shift_mask(h: int, w: int, window: int, shift: int, device=None) -> torch.Tensor:
+    """[nW, N, N] float32: 0 between tokens of one region of the cyclically
+    shifted (h, w) map, MASK_VALUE between tokens of different regions
+    (``SwinTransformerBlock.calculate_mask``), windows in row-major order."""
+    img = torch.zeros((h, w), device=device)
+    cnt = 0
+    for hs in (slice(0, -window), slice(-window, -shift), slice(-shift, None)):
+        for ws in (slice(0, -window), slice(-window, -shift), slice(-shift, None)):
+            img[hs, ws] = cnt
+            cnt += 1
+    win = img.view(h // window, window, w // window, window).permute(0, 2, 1, 3)
+    win = win.reshape(-1, window * window)
+    diff = win[:, None, :] - win[:, :, None]
+    return torch.where(diff != 0, MASK_VALUE, 0.0)
+
+
+def window_regions(h: int, w: int, window: int, shifted: bool
+                   ) -> List[Tuple[slice, slice, int, int, int]]:
+    """(rows, columns, windows down, windows across, mask class) of each
+    part of an (h, w) map whose windows share one mask, in the order
+    :func:`partition` lays them out: unshifted, the whole map (class 0);
+    shifted, the interior, the last column, the last row and the corner
+    (classes 0 to 3, the windows of ``shift_mask(2w, 2w, ...)``), each
+    where it holds a window."""
+    if not shifted:
+        return [(slice(0, h), slice(0, w), h // window, w // window, 0)]
+    rows = ((slice(0, h - window), h // window - 1), (slice(h - window, h), 1))
+    cols = ((slice(0, w - window), w // window - 1), (slice(w - window, w), 1))
+    return [(rs, cs, nh, nw, 2 * i + j) for i, (rs, nh) in enumerate(rows)
+            for j, (cs, nw) in enumerate(cols) if nh and nw]
+
+
+def partition(t: torch.Tensor, window: int, regions) -> torch.Tensor:
+    """[B, H, W, C] -> [M, N, C] windows: each region's in turn, batch-major
+    and row-major within it; one copy a region."""
+    b, c = t.shape[0], t.shape[-1]
+    out = t.new_empty(b * sum(r[2] * r[3] for r in regions), window * window, c)
+    at = 0
+    for rs, cs, nh, nw, _ in regions:
+        n = b * nh * nw
+        out[at:at + n].view(b, nh, nw, window, window, c).copy_(
+            t[:, rs, cs].view(b, nh, window, nw, window, c).permute(0, 1, 3, 2, 4, 5))
+        at += n
+    return out
+
+
+def reverse(o: torch.Tensor, window: int, regions, h: int, w: int) -> torch.Tensor:
+    """:func:`partition`'s inverse: [M, N, C] windows -> [B, H, W, C]."""
+    c = o.shape[-1]
+    b = o.shape[0] // sum(r[2] * r[3] for r in regions)
+    out = o.new_empty(b, h, w, c)
+    at = 0
+    for rs, cs, nh, nw, _ in regions:
+        n = b * nh * nw
+        out[:, rs, cs].view(b, nh, window, nw, window, c).copy_(
+            o[at:at + n].view(b, nh, nw, window, window, c).permute(0, 1, 3, 2, 4, 5))
+        at += n
+    return out
+
+
+def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     mask: torch.Tensor, scale: float) -> torch.Tensor:
+    """``F.scaled_dot_product_attention`` of [B', heads, N, D] q, k, v under
+    the float ``mask`` [1, heads, N, N], broadcast over B'. With D a
+    multiple of 8 the card runs cuDNN's fused flash kernel
+    (``cudnn_generated_fort_native_sdpa_sm90_flash_fprop_*``), which takes
+    B' past 65535; at head 30 SDPA falls back to separate fp32 matmuls and
+    a softmax (NVIDIA H100, torch 2.11). ``window_attention.calls`` counts
+    the calls (one a layer, four a shifted layer with windows in every
+    region), a CUDA graph's capture once and no replay."""
+    window_attention.calls += 1
+    return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale)
+
+
+window_attention.calls = 0
+
+
+class WindowAttention(nn.Module):
+    """qkv, the relative-position bias table and proj of one Swin layer;
+    :meth:`forward` runs it on [M, N, C] window tokens."""
+
+    def __init__(self, dim: int, window: int, heads: int):
+        super().__init__()
+        self.heads, self.window = heads, window
+        self.head_dim = dim // heads
+        self.relative_position_bias_table = nn.Parameter(
+            torch.zeros((2 * window - 1) ** 2, heads))
+        self.qkv = nn.Linear(dim, 3 * dim)
+        self.proj = nn.Linear(dim, dim)
+
+    def forward(self, x: torch.Tensor, parts: Sequence[Tuple[int, torch.Tensor]]
+                ) -> torch.Tensor:
+        """``parts``: (windows, mask) of each run of ``x``'s windows, in
+        order, whose windows share the [1, heads, N, N] mask."""
+        m, n, c = x.shape
+        hd, heads = self.head_dim, self.heads
+        hp = -(-hd // 8) * 8
+        # [3, M, heads, N, hd], zero-padded to hp: one copy
+        qkv = self.qkv(x).view(m, n, 3, heads, hd).permute(2, 0, 3, 1, 4)
+        q, k, v = F.pad(qkv, (0, hp - hd)) if hp != hd else qkv.contiguous()
+        out = x.new_empty(m, n, heads, hd)
+        at = 0
+        for count, mask in parts:
+            o = window_attention(q[at:at + count], k[at:at + count], v[at:at + count],
+                                 mask, hd ** -0.5)
+            out[at:at + count] = o.transpose(1, 2)[..., :hd]
+            at += count
+        return self.proj(out.view(m, n, c))
+
+
+class Mlp(nn.Module):
+    def __init__(self, dim: int, hidden: int):
+        super().__init__()
+        self.fc1 = nn.Linear(dim, hidden)
+        self.fc2 = nn.Linear(hidden, dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(F.gelu(self.fc1(x)))
+
+
+class SwinLayer(nn.Module):
+    """One Swin layer (``SwinTransformerBlock``) on [B, H, W, C] tokens."""
+
+    def __init__(self, dim: int, heads: int, window: int, shift: int, mlp_ratio: float):
+        super().__init__()
+        self.window, self.shift = window, shift
+        self.norm1 = nn.LayerNorm(dim)
+        self.attn = WindowAttention(dim, window, heads)
+        self.norm2 = nn.LayerNorm(dim)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+
+    def forward(self, x: torch.Tensor, masks: Sequence[torch.Tensor]) -> torch.Tensor:
+        """``masks``: the layer's masks by class (:meth:`SwinIR.masks`)."""
+        b, h, w, c = x.shape
+        ws, s = self.window, self.shift
+        regions = window_regions(h, w, ws, bool(s))
+        t = self.norm1(x)
+        if s:
+            t = torch.roll(t, (-s, -s), (1, 2))
+        t = self.attn(partition(t, ws, regions),
+                      [(b * nh * nw, masks[k]) for _, _, nh, nw, k in regions])
+        t = reverse(t, ws, regions, h, w)
+        if s:
+            t = torch.roll(t, (s, s), (1, 2))
+        x = x + t
+        return x + self.mlp(self.norm2(x))
+
+
+class BasicLayer(nn.Module):
+    def __init__(self, dim: int, depth: int, heads: int, window: int, mlp_ratio: float):
+        super().__init__()
+        self.blocks = nn.ModuleList(
+            SwinLayer(dim, heads, window, 0 if j % 2 == 0 else window // 2, mlp_ratio)
+            for j in range(depth))
+
+
+class RSTB(nn.Module):
+    """A residual Swin Transformer block: its Swin layers, a 3x3 conv, and
+    the block's input added ('1conv')."""
+
+    def __init__(self, dim: int, depth: int, heads: int, window: int, mlp_ratio: float):
+        super().__init__()
+        self.residual_group = BasicLayer(dim, depth, heads, window, mlp_ratio)
+        self.conv = nn.Conv2d(dim, dim, 3, 1, 1)
+
+    def forward(self, x: torch.Tensor, masks: Sequence[Sequence[torch.Tensor]]) -> torch.Tensor:
+        y = x
+        for block, mask in zip(self.residual_group.blocks, masks):
+            y = block(y, mask)
+        return self.conv(y.permute(0, 3, 1, 2)).permute(0, 2, 3, 1) + x
+
+
+class PatchEmbed(nn.Module):
+    """Only the norm of SwinIR's ``PatchEmbed`` (patch size 1): the
+    flatten is the [B, H, W, C] view."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.norm = nn.LayerNorm(dim)
+
+
+class SwinIR(nn.Module):
+    """SwinIR classical SR ([B, 3, H, W] in [-1, 1] -> [B, 3, sH, sW] fp32 in
+    [-1, 1]), s = upscale (2, 4 or 8); the defaults are SwinIR-M x4."""
+
+    def __init__(self, embed_dim: int = 180, depths: Sequence[int] = (6,) * 6,
+                 num_heads: Sequence[int] = (6,) * 6, window_size: int = 8,
+                 mlp_ratio: float = 2.0, upscale: int = 4, num_feat: int = 64):
+        super().__init__()
+        if upscale not in _STAGES:
+            raise ValueError(f"upscale must be 2, 4 or 8 (the pixelshuffle upsampler), not {upscale}")
+        if len(depths) != len(num_heads):
+            raise ValueError(f"depths {depths} and num_heads {num_heads} differ in length")
+        self.window_size, self.scale_factor = window_size, upscale
+        self.conv_first = nn.Conv2d(3, embed_dim, 3, 1, 1)
+        self.patch_embed = PatchEmbed(embed_dim)
+        self.layers = nn.ModuleList(RSTB(embed_dim, d, h, window_size, mlp_ratio)
+                                    for d, h in zip(depths, num_heads))
+        self.norm = nn.LayerNorm(embed_dim)
+        self.conv_after_body = nn.Conv2d(embed_dim, embed_dim, 3, 1, 1)
+        self.conv_before_upsample = nn.Sequential(nn.Conv2d(embed_dim, num_feat, 3, 1, 1),
+                                                  nn.LeakyReLU(inplace=True))
+        ups: List[nn.Module] = []
+        for _ in range(_STAGES[upscale]):
+            ups += [nn.Conv2d(num_feat, 4 * num_feat, 3, 1, 1), nn.PixelShuffle(2)]
+        self.upsample = nn.Sequential(*ups)
+        self.conv_last = nn.Conv2d(num_feat, 3, 3, 1, 1)
+        #: the fp32 RGB mean on each device the model ran on (no buffer: a
+        #: cast of the module to bf16 would round it)
+        self._means: Dict[torch.device, torch.Tensor] = {}
+        #: each Swin layer's masks by class, by (dtype, device)
+        self._masks: Dict[Tuple[torch.dtype, torch.device], List[List[torch.Tensor]]] = {}
+        #: mask sets built (one a key of ``_masks``; new weights build anew)
+        self.mask_builds = 0
+
+    @classmethod
+    def from_arch(cls, arch: Mapping[str, Any]) -> "SwinIR":
+        """The model :func:`arch_from_state_dict` describes."""
+        keys = ("embed_dim", "depths", "num_heads", "window_size", "mlp_ratio", "num_feat")
+        return cls(upscale=arch["scale_factor"], **{k: arch[k] for k in keys})
+
+    def mean(self, device: torch.device) -> torch.Tensor:
+        """[1, 3, 1, 1] fp32 RGB_MEAN on ``device``, made at the first
+        (eager) forward there, so a captured forward copies nothing."""
+        if device not in self._means:
+            self._means[device] = torch.tensor(RGB_MEAN, device=device).view(1, 3, 1, 1)
+        return self._means[device]
+
+    def swin_layers(self) -> List[SwinLayer]:
+        return [b for layer in self.layers for b in layer.residual_group.blocks]
+
+    def masks(self) -> List[List[torch.Tensor]]:
+        """Each Swin layer's attention masks by class, [1, heads, N, N] in
+        the compute dtype on the model's device, built at the first call:
+        an unshifted layer's bias; a shifted layer's bias plus the shift
+        mask of each of :func:`window_regions`' four classes."""
+        table = self.layers[0].residual_group.blocks[0].attn.relative_position_bias_table
+        key = (table.dtype, table.device)
+        if key not in self._masks:
+            with span("swinir.masks"), torch.no_grad():
+                self._masks[key] = [self._layer_masks(blk) for blk in self.swin_layers()]
+            self.mask_builds += 1
+        return self._masks[key]
+
+    @staticmethod
+    def _layer_masks(blk: SwinLayer) -> List[torch.Tensor]:
+        # contiguous: a fused SDPA kernel takes no mask whose rows are strided
+        table = blk.attn.relative_position_bias_table
+        bias = relative_position_bias(table.float(), blk.window)[None]  # [1, heads, N, N]
+        if not blk.shift:
+            return [bias.to(table.dtype).contiguous()]
+        ws = blk.window
+        classes = shift_mask(2 * ws, 2 * ws, ws, blk.shift, table.device)  # [4, N, N]
+        return [(bias + m).to(table.dtype).contiguous() for m in classes]
+
+    def load_state_dict(self, *args, **kwargs):
+        self._masks.clear()
+        return super().load_state_dict(*args, **kwargs)
+
+    def forward_features(self, x: torch.Tensor) -> torch.Tensor:
+        """[B, C, H, W] channels_last (H, W multiples of the window) ->
+        the body's output, same layout."""
+        masks = self.masks()
+        t = self.patch_embed.norm(x.permute(0, 2, 3, 1))
+        at = 0
+        for layer in self.layers:
+            n = len(layer.residual_group.blocks)
+            t = layer(t, masks[at:at + n])
+            at += n
+        return self.norm(t).permute(0, 3, 1, 2)
+
+    def trunk(self, x: torch.Tensor) -> torch.Tensor:
+        """[B, 3, H, W] in [-1, 1] (H, W multiples of the window) -> the
+        upsampler's input [B, num_feat, H, W] in the compute dtype."""
+        dtype = self.conv_first.weight.dtype
+        x = ((x.float() + 1.0) * 0.5 - self.mean(x.device)).to(dtype)
+        f = self.conv_first(x.contiguous(memory_format=torch.channels_last))
+        f = self.conv_after_body(self.forward_features(f)) + f
+        return F.leaky_relu(self.conv_before_upsample[0](f), 0.01)
+
+    def canonical_tail(self, y: torch.Tensor) -> torch.Tensor:
+        """The published upsampler and ``conv_last``, each stage through
+        ``UpSamplingBlock``'s kernels without its PReLU; fp32 out."""
+        convs = [m for m in self.upsample if isinstance(m, nn.Conv2d)]
+        for conv in convs:
+            y = upsample_stage(y, conv.weight, conv.bias, None, fused=True)
+        return self.conv_last(y).float()
+
+    def prepare_lr_tail(self, dtype: Optional[torch.dtype] = None, device=None) -> Dict[str, Any]:
+        """The upsampler and ``conv_last`` rearranged for the LR-domain tail
+        (``ops/lr_tail.py``), with no activation and no output function."""
+        convs = [m for m in self.upsample if isinstance(m, nn.Conv2d)]
+        return _lr_tail.prepare_tail([(c.weight, c.bias, None) for c in convs],
+                                     self.conv_last.weight, self.conv_last.bias,
+                                     dtype=dtype, device=device, tanh=False)
+
+    def forward(self, x: torch.Tensor, tail: Optional[Dict[str, Any]] = None) -> torch.Tensor:
+        h, w = x.shape[2], x.shape[3]
+        ws = self.window_size
+        ph, pw = (ws - h % ws) % ws, (ws - w % ws) % ws
+        if ph or pw:
+            x = F.pad(x, (0, pw, 0, ph), mode="reflect")
+        y = self.trunk(x)
+        y = self.canonical_tail(y) if tail is None else _lr_tail.apply_tail(y, tail)
+        y = (y + self.mean(y.device)) * 2.0 - 1.0
+        s = self.scale_factor
+        return y[:, :, :h * s, :w * s]
+
+
+def unwrap_state_dict(obj: Any) -> Optional[Dict[str, Any]]:
+    """A SwinIR state_dict from ``obj``: the dict itself, or the one under
+    ``params_ema`` or ``params`` (the published files), ``_orig_mod.`` and
+    ``module.`` prefixes stripped; None where it holds no SwinIR."""
+    if not isinstance(obj, Mapping):
+        return None
+    for key in ("params_ema", "params"):
+        if isinstance(obj.get(key), Mapping):
+            obj = obj[key]
+            break
+    sd = {str(k).replace("_orig_mod.", "").removeprefix("module."): v for k, v in obj.items()}
+    return sd if "conv_first.weight" in sd and "layers.0.conv.weight" in sd else None
+
+
+def swinir_state_dict(obj: Any) -> Dict[str, torch.Tensor]:
+    """:func:`unwrap_state_dict` as fp32 CPU tensors, without the buffers
+    the port recomputes (``BUFFERS``); ValueError where it is no SwinIR's."""
+    sd = unwrap_state_dict(obj)
+    if sd is None:
+        raise ValueError(NOT_SWINIR)
+    return {k: torch.as_tensor(v).detach().to("cpu", torch.float32)
+            for k, v in sd.items() if k.rsplit(".", 1)[-1] not in BUFFERS}
+
+
+def arch_from_state_dict(obj: Any) -> Dict[str, Any]:
+    """SwinIR's architecture read off its state_dict: ``embed_dim`` (the
+    first conv's outputs), ``depths`` (Swin layers of each RSTB),
+    ``num_heads`` (the bias tables' columns), ``window_size`` ((2w - 1)^2
+    table rows), ``mlp_ratio`` (fc1's outputs over embed_dim), ``num_feat``
+    and ``scale_factor`` (2 to the number of ``upsample`` convs)."""
+    sd = unwrap_state_dict(obj)
+    if sd is None:
+        raise ValueError(NOT_SWINIR)
+    embed = sd["conv_first.weight"].shape[0]
+    depths, heads = [], []
+    i = 0
+    while f"layers.{i}.conv.weight" in sd:
+        j = 0
+        while f"layers.{i}.residual_group.blocks.{j}.norm1.weight" in sd:
+            j += 1
+        depths.append(j)
+        heads.append(sd[f"layers.{i}.residual_group.blocks.0.attn.relative_position_bias_table"]
+                     .shape[1])
+        i += 1
+    prefix = "layers.0.residual_group.blocks.0."
+    rows = sd[prefix + "attn.relative_position_bias_table"].shape[0]
+    window = (round(rows ** 0.5) + 1) // 2
+    n_up = sum(1 for k in sd if k.startswith("upsample.") and k.endswith(".weight"))
+    return {
+        "family": "swinir",
+        "embed_dim": embed,
+        "depths": depths,
+        "num_heads": heads,
+        "window_size": window,
+        "mlp_ratio": sd[prefix + "mlp.fc1.weight"].shape[0] / embed,
+        "num_feat": sd["conv_before_upsample.0.weight"].shape[0],
+        "scale_factor": 2 ** n_up,
+    }
+
+
+def load_swinir(obj: Any) -> SwinIR:
+    """A fp32 CPU :class:`SwinIR` with the state_dict's weights."""
+    model = SwinIR.from_arch(arch_from_state_dict(obj))
+    model.load_state_dict(swinir_state_dict(obj))
+    return model

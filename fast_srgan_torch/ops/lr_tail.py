@@ -13,7 +13,10 @@ four per-phase 2x2 convs at LR over the 4F-channel tensor; the head as one
 dense 3x3 conv at LR over the 16F phase-packed channels emitting
 48 = 3*16 channels; one PixelShuffle(4). No 2x- or 4x-resolution tensor
 exists except the output. 2x is the one-stage analogue; 8x runs stage 0
-canonically and the 4x transform at 2x resolution.
+canonically and the 4x transform at 2x resolution. The same transform
+serves a tail with no activation and no output function (SwinIR's
+upsampler and ``conv_last``, :func:`prepare_tail` with slopes None and
+``tanh=False``): those passes are left out, not run as identities.
 
 With a mask (the bucketed forward, ``generator_apply_lr_tail(valid_hw=)``)
 the padding is re-zeroed after stage 1 and after each phase: the whole tail
@@ -30,7 +33,7 @@ package's HWIO layout so tests compare them with it bitwise.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -119,64 +122,85 @@ def _prepared(w_hwio: torch.Tensor, dtype, device) -> torch.Tensor:
     return w.contiguous(memory_format=torch.channels_last)
 
 
-def _stage(stage, dtype, device) -> Dict[str, torch.Tensor]:
-    """A canonical upsample stage's conv weight, bias and PReLU slope."""
-    return {
-        "w": _prepared(_hwio(stage.conv.weight), dtype, device),
-        "b": stage.conv.bias.detach().to(device=device, dtype=dtype),
-        "a": stage.relu.weight.detach().to(device=device, dtype=dtype),
-    }
+#: a canonical stage's (conv weight [4F, F, 3, 3], bias [4F], PReLU slope
+#: or None for no activation)
+Stage = Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]
 
 
-def _prepare_4x(up0, up1, head, dtype, device) -> Dict[str, Any]:
-    kd = _head_kernel_4x(_hwio(head.weight))
+def _cast(t: Optional[torch.Tensor], dtype, device) -> Optional[torch.Tensor]:
+    return None if t is None else t.detach().to(device=device, dtype=dtype)
+
+
+def _stage(stage: Stage, dtype, device) -> Dict[str, Any]:
+    """A canonical upsample stage's conv weight, bias and PReLU slope (None:
+    no activation)."""
+    w, b, a = stage
+    return {"w": _prepared(_hwio(w), dtype, device), "b": _cast(b, dtype, device),
+            "a": _cast(a, dtype, device)}
+
+
+def _prepare_4x(up0: Stage, up1: Stage, head_w, head_b, dtype, device,
+                tanh: bool) -> Dict[str, Any]:
+    kd = _head_kernel_4x(_hwio(head_w))
     f4 = kd.shape[2] // 4
     return {
         "up0": _stage(up0, dtype, device),
         "phases": [
             (pq, _prepared(kp, dtype, device))
-            for pq, kp in _phase_kernels_2x(_hwio(up1.conv.weight)).items()
+            for pq, kp in _phase_kernels_2x(_hwio(up1[0])).items()
         ],
-        "up1_b": up1.conv.bias.detach().to(device=device, dtype=dtype),
-        "up1_a": up1.relu.weight.detach().to(device=device, dtype=dtype),
+        "up1_b": _cast(up1[1], dtype, device),
+        "up1_a": _cast(up1[2], dtype, device),
         "head_w": _prepared(kd, dtype, device),
         "head_parts": [
             _prepared(kd[:, :, i * f4:(i + 1) * f4, :], dtype, device)
             for i in range(4)
         ],
-        "head_b": head.bias.detach().float().repeat_interleave(16).to(device),
+        "head_b": head_b.detach().float().repeat_interleave(16).to(device),
+        "tanh": tanh,
     }
+
+
+def prepare_tail(
+    stages: Sequence[Stage], head_w: torch.Tensor, head_b: torch.Tensor,
+    dtype: Optional[torch.dtype] = None, device=None, tanh: bool = True,
+) -> Dict[str, Any]:
+    """Rearrange a canonical tail, 1, 2 or 3 stages (2x, 4x, 8x) and the
+    3x3 head conv, for the LR-domain tail, in ``dtype`` (default: the
+    head's) on ``device`` (default: the head's). A stage whose slope is
+    None has no activation; ``tanh=False`` leaves the head's output as it
+    is (SwinIR's upsampler and ``conv_last``).
+
+    The rearrangement runs in fp32 and is a pure copy, so casting after it
+    gives the same values as the JAX package's cast of its rearranged
+    kernels."""
+    dtype = head_w.dtype if dtype is None else dtype
+    device = head_w.device if device is None else device
+    if len(stages) == 2:
+        return _prepare_4x(stages[0], stages[1], head_w, head_b, dtype, device, tanh)
+    if len(stages) == 1:
+        return {
+            "up0": _stage(stages[0], dtype, device),
+            "head_w": _prepared(_head_kernel_2x(_hwio(head_w)), dtype, device),
+            "head_b": head_b.detach().repeat_interleave(4).to(device=device, dtype=dtype),
+            "tanh": tanh,
+        }
+    if len(stages) == 3:
+        return {
+            "up0": _stage(stages[0], dtype, device),
+            "sub": _prepare_4x(stages[1], stages[2], head_w, head_b, dtype, device, tanh),
+        }
+    raise ValueError(f"the LR tail takes 1, 2 or 3 stages (2x, 4x, 8x); got {len(stages)}")
 
 
 def prepare_lr_tail(
     model, dtype: Optional[torch.dtype] = None, device=None
 ) -> Dict[str, Any]:
-    """Rearrange a :class:`Generator`'s tail weights for the LR-domain tail,
-    in ``dtype`` (default: the model's) on ``device`` (default: the model's).
-
-    The rearrangement runs in fp32 and is a pure copy, so casting after it
-    gives the same values as the JAX package's cast of its rearranged
-    kernels."""
-    w0 = model.head[0].weight
-    dtype = w0.dtype if dtype is None else dtype
-    device = w0.device if device is None else device
-    ups, head = model.upsampling, model.head[0]
-    if model.scale_factor == 4:
-        return _prepare_4x(ups[0], ups[1], head, dtype, device)
-    if model.scale_factor == 2:
-        return {
-            "up0": _stage(ups[0], dtype, device),
-            "head_w": _prepared(_head_kernel_2x(_hwio(head.weight)), dtype, device),
-            "head_b": head.bias.detach().repeat_interleave(4).to(
-                device=device, dtype=dtype
-            ),
-        }
-    if model.scale_factor == 8:
-        return {
-            "up0": _stage(ups[0], dtype, device),
-            "sub": _prepare_4x(ups[1], ups[2], head, dtype, device),
-        }
-    raise ValueError(f"scale_factor must be 2, 4, or 8; got {model.scale_factor}")
+    """:func:`prepare_tail` of a :class:`Generator`'s tail: its PReLU
+    stages and its head, tanh after it."""
+    head = model.head[0]
+    stages = [(st.conv.weight, st.conv.bias, st.relu.weight) for st in model.upsampling]
+    return prepare_tail(stages, head.weight, head.bias, dtype, device, tanh=True)
 
 
 # --- the tails ---------------------------------------------------------------
@@ -205,15 +229,25 @@ def head_form_4x(batch: int, lr_pixels: int) -> str:
     return "summed"
 
 
-def _conv_prelu(y: torch.Tensor, st: Dict[str, torch.Tensor]) -> torch.Tensor:
-    return F.prelu(F.conv2d(y, st["w"], st["b"], padding=1), st["a"])
+def _conv_prelu(y: torch.Tensor, st: Dict[str, Any]) -> torch.Tensor:
+    z = F.conv2d(y, st["w"], st["b"], padding=1)
+    return z if st["a"] is None else F.prelu(z, st["a"])
+
+
+def _prelu(x: torch.Tensor, alpha: Optional[torch.Tensor]) -> torch.Tensor:
+    return x if alpha is None else F.prelu(x, alpha)
+
+
+def _out(z: torch.Tensor, w: Dict[str, Any]) -> torch.Tensor:
+    return torch.tanh(z) if w["tanh"] else z
 
 
 def _phase_outputs(
-    a1: torch.Tensor, phases, bias: torch.Tensor, alpha: torch.Tensor
+    a1: torch.Tensor, phases, bias: torch.Tensor, alpha: Optional[torch.Tensor]
 ) -> List[torch.Tensor]:
-    """The four stage-2 phases, PReLU applied, each [B, 4F, H, W];
-    ``phases`` is the ``[((p, q), kernel)]`` list of :func:`prepare_lr_tail`.
+    """The four stage-2 phases, PReLU applied (none where ``alpha`` is
+    None), each [B, 4F, H, W]; ``phases`` is the ``[((p, q), kernel)]``
+    list of :func:`prepare_lr_tail`.
 
     One zero pad of 1 on every side serves all four: a valid 2x2 conv over
     it gives (H+1)x(W+1) outputs, and phase (p, q) (padding ((1-p, p),
@@ -223,7 +257,7 @@ def _phase_outputs(
     out = []
     for (p, q), kp in phases:
         full = F.conv2d(a1p, kp, bias)
-        out.append(F.prelu(full[:, :, p:p + h, q:q + wd], alpha))
+        out.append(_prelu(full[:, :, p:p + h, q:q + wd], alpha))
     return out
 
 
@@ -268,7 +302,7 @@ def lr_tail(
         z = F.conv2d(a2, w["head_w"], padding=1).float() + w["head_b"].view(1, -1, 1, 1)
     else:
         z = _summed_head(phases, w["head_parts"], w["head_b"])
-    return F.pixel_shuffle(torch.tanh(z), 4)
+    return F.pixel_shuffle(_out(z, w), 4)
 
 
 def lr_tail_2x(
@@ -278,7 +312,7 @@ def lr_tail_2x(
     4 sub-pixel phases, one PixelShuffle(2)."""
     a1 = _masked(_conv_prelu(y.to(w["head_w"].dtype), w["up0"]), mask)  # [B, 4F, H, W]
     z = F.conv2d(a1, w["head_w"], w["head_b"], padding=1)
-    return F.pixel_shuffle(torch.tanh(z.float()), 2)
+    return F.pixel_shuffle(_out(z.float(), w), 2)
 
 
 def mask_2x(mask: torch.Tensor) -> torch.Tensor:
@@ -296,8 +330,19 @@ def lr_tail_8x(
     st = w["up0"]
     y = y.to(st["w"].dtype)
     a0 = _masked(F.conv2d(y, st["w"], st["b"], padding=1), mask)
-    y2 = F.prelu(F.pixel_shuffle(a0, 2), st["a"])
+    y2 = _prelu(F.pixel_shuffle(a0, 2), st["a"])
     return lr_tail(y2, w["sub"], head="summed", mask=None if mask is None else mask_2x(mask))
+
+
+def apply_tail(y: torch.Tensor, w: Dict[str, Any],
+               mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The LR tail of :func:`prepare_tail`'s ``w`` (2x, 4x or 8x, read off
+    its keys) on a trunk output [B, F, H, W]; fp32 out."""
+    if "sub" in w:
+        return lr_tail_8x(y, w, mask)
+    if "phases" in w:
+        return lr_tail(y, w, mask=mask)
+    return lr_tail_2x(y, w, mask)
 
 
 def generator_apply_lr_tail(
