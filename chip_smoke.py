@@ -41,6 +41,13 @@ own line; any failure exits non-zero and prints no result:
      F.pixel_shuffle + PReLU in torch channel order, and the fused block,
      forward and forward+backward, at the training stages and serving
      stage 1;
+ 8b. kernel: the LR tail's bias + PReLU + window pass, bitwise against
+     its plain version on the four phases of a bf16 [8,256,181,321] conv
+     output and stage 1's padded form from [8,256,180,320], with the
+     slope and without, in bf16 and fp32; timed (a phase, stage 1) beside
+     the plain version and the stock pair it replaces (``add_`` of the
+     bias over the conv output, then ``F.prelu`` of the window; stage 1:
+     ``add_``, ``F.prelu``, ``F.pad``) as the yardstick;
   9. training: the reference configuration (64/8 4x generator, 64-filter
      discriminator, VGG19 with fixed-seed weights, batch 24 of 96x96 crops,
      bf16 autocast): 20 pretrain steps (the loss must fall) and 10 GAN steps
@@ -273,6 +280,11 @@ INT8_CONV_SOURCE = "fast_srgan_torch/csrc/int8_conv.cu"
 INT8_CONV_REPLACES = "fast_srgan_tpu/quant.py:216"
 QUANTIZE_SOURCE = "fast_srgan_torch/csrc/quantize.cu"
 QUANTIZE_REPLACES = "fast_srgan_tpu/quant.py:184"
+TAIL_SOURCE = "fast_srgan_torch/csrc/tail_epilogue.cu"
+# none: XLA fused the bias, PReLU and window of fast_srgan_tpu/ops/lr_tail.py
+TAIL_REPLACES = None
+#: epilogue launches a float 4x LR-tail forward: stage 1 and the four phases
+TAIL_PASSES = 5
 
 FP32_TOL = 2e-5
 BF16_TOL = 2e-2
@@ -624,6 +636,7 @@ def phase_widest_channels() -> dict:
 def phase_serving(params, frames) -> tuple:
     from fast_srgan_torch.inference import SRInferenceEngine
     from fast_srgan_torch.kernels.instance_norm import instance_norm_add, instance_norm_prelu
+    from fast_srgan_torch.kernels.tail_epilogue import tail_epilogue
     from fast_srgan_torch.serving import MicroBatcher
 
     engine = SRInferenceEngine(params, device="cuda", dtype=torch.bfloat16)
@@ -638,7 +651,7 @@ def phase_serving(params, frames) -> tuple:
             errors.append(repr(e))
 
     batcher = MicroBatcher(engine, max_batch=8, max_wait_ms=20)
-    instance_norm_prelu.launches = instance_norm_add.launches = 0
+    instance_norm_prelu.launches = instance_norm_add.launches = tail_epilogue.launches = 0
     engine.forward_calls = 0
     t0 = time.perf_counter()
     threads = [threading.Thread(target=client, args=(k,)) for k in range(4)]
@@ -647,7 +660,7 @@ def phase_serving(params, frames) -> tuple:
     for t in threads:
         t.join(timeout=900)
     seconds = time.perf_counter() - t0
-    launches = [instance_norm_prelu.launches, instance_norm_add.launches]
+    launches = [instance_norm_prelu.launches, instance_norm_add.launches, tail_epilogue.launches]
     forwards = engine.forward_calls
     batcher.close()
     check(not any(t.is_alive() for t in threads), "a client thread hung")
@@ -661,13 +674,14 @@ def phase_serving(params, frames) -> tuple:
         )
     n_layers = engine.model.n_layers
     # n_layers norms feed a PReLU; the stem's other n_layers and the
-    # bottleneck's are followed by a residual add
-    want = [n_layers * forwards, (n_layers + 1) * forwards]
+    # bottleneck's are followed by a residual add; the LR tail's five
+    # upsampling outputs each take one epilogue pass
+    want = [n_layers * forwards, (n_layers + 1) * forwards, TAIL_PASSES * forwards]
     print(
         f"[4 serving] {len(frames)} requests in {batcher.stats['batches']} batches"
         f" ({seconds:.2f} s incl. first-call setup); {forwards} generator forwards;"
-        f" launches instance_norm_prelu {launches[0]}, instance_norm_add {launches[1]}"
-        f" (want {want})",
+        f" launches instance_norm_prelu {launches[0]}, instance_norm_add {launches[1]},"
+        f" tail_epilogue {launches[2]} (want {want})",
         flush=True,
     )
     check(forwards > 0 and launches == want, "launch count mismatch")
@@ -933,12 +947,13 @@ def phase_int8_engine(params, frames) -> list:
     from fast_srgan_torch.kernels.instance_norm import instance_norm_add, instance_norm_prelu
     from fast_srgan_torch.kernels.int8_conv import int8_conv, int8_conv_phases
     from fast_srgan_torch.kernels.quantize import quantize_act
+    from fast_srgan_torch.kernels.tail_epilogue import tail_epilogue
 
     calib = np.stack([f for f in frames if f.shape[:2] == (180, 320)])
     engine = SRInferenceEngine(params, device="cuda", dtype=torch.bfloat16,
                                quantize=True, calib_batches=[calib])
     counters = (int8_conv, int8_conv_phases, quantize_act, instance_norm_prelu,
-                instance_norm_add)
+                instance_norm_add, tail_epilogue)
     for f in counters:
         f.launches = 0
     engine.forward_calls = 0
@@ -946,14 +961,15 @@ def phase_int8_engine(params, frames) -> list:
     launches = [f.launches for f in counters]
     forwards = engine.forward_calls
     # a 4x forward: stage 1 (quantizing stage 2's input in its epilogue) and
-    # the four phases in one launch, so 2 s8 launches, and 1 quantize
+    # the four phases in one launch, so 2 s8 launches, and 1 quantize; their
+    # epilogues take the bias and PReLU, so no tail epilogue pass
     n_layers = engine.model.n_layers
-    want = [forwards, forwards, forwards, n_layers * forwards, (n_layers + 1) * forwards]
+    want = [forwards, forwards, forwards, n_layers * forwards, (n_layers + 1) * forwards, 0]
     print(
         f"[10 int8] ups bf16 engine: {len(frames)} frames in {forwards} forwards; launches"
         f" s8 conv {launches[0] + launches[1]} (stage 1 {launches[0]}, four phases"
         f" {launches[1]}), quantize {launches[2]}, IN+PReLU {launches[3]}, IN+add"
-        f" {launches[4]} (want {want})",
+        f" {launches[4]}, tail epilogue {launches[5]} (want {want})",
         flush=True,
     )
     check(forwards > 0 and launches == want, "int8 launch count mismatch")
@@ -1200,6 +1216,60 @@ def phase_shuffle_kernel() -> tuple:
         )
         check(equal, f"pixel shuffle {list(shape)} differs from its plain version")
     return row, _unfused_stage_forms()
+
+
+def phase_tail_epilogue() -> dict:
+    """The LR tail's epilogue at the video path's shapes: bitwise its plain
+    version, timed beside it and beside the stock passes it replaces.
+    Returns the kernels line's row (a phase's launch; stage1_* the padded
+    form's)."""
+    import torch.nn.functional as F
+
+    from fast_srgan_torch.kernels.tail_epilogue import tail_epilogue, tail_epilogue_reference
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    b, c, h, w = 8, 256, 180, 320
+    row = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        full = (torch.randn((b, c, h + 1, w + 1), device=dev, generator=gen) * 2).to(dtype)
+        full = full.contiguous(memory_format=torch.channels_last)
+        stage1 = full[:, :, :h, :w].contiguous(memory_format=torch.channels_last)
+        bias = torch.randn(c, device=dev, generator=gen).to(dtype)
+        slope = torch.tensor([0.173], device=dev).to(dtype)
+        for a in (slope, None):
+            for pq in ((0, 0), (0, 1), (1, 0), (1, 1)):
+                got = tail_epilogue(full, bias, a, pq, (h, w))
+                want = tail_epilogue_reference(full, bias, a, *pq, h, w, 0)
+                check(torch.equal(got, want), f"tail epilogue {dtype} phase {pq} differs")
+            got = tail_epilogue(stage1, bias, a, border=1)
+            want = tail_epilogue_reference(stage1, bias, a, 0, 0, h, w, 1)
+            check(torch.equal(got, want), f"tail epilogue {dtype} stage 1 padded differs")
+        if dtype != torch.bfloat16:
+            continue
+        scratch, scratch1 = full.clone(), stage1.clone()
+
+        def stock():  # the parent's passes: the conv's bias add_, F.prelu of the window
+            return F.prelu(scratch.add_(bias.view(1, -1, 1, 1))[:, :, 1:1 + h, 1:1 + w], slope)
+
+        def stock1():  # stage 1: add_, F.prelu, F.pad
+            return F.pad(F.prelu(scratch1.add_(bias.view(1, -1, 1, 1)), slope), (1, 1, 1, 1))
+
+        ms, plain_ms = _timed_pair(lambda: tail_epilogue(full, bias, slope, (1, 1), (h, w)),
+                                   lambda: tail_epilogue_reference(full, bias, slope, 1, 1, h, w, 0))
+        ms1, plain1 = _timed_pair(lambda: tail_epilogue(stage1, bias, slope, border=1),
+                                  lambda: tail_epilogue_reference(stage1, bias, slope, 0, 0, h, w, 1))
+        stock_ms, stock1_ms = cuda_ms(stock, 20), cuda_ms(stock1, 20)
+        nbytes = 2 * b * c * h * w * 2
+        row = {"ms": ms, "plain_ms": plain_ms, "library_ms": None, "stock_pair_ms": stock_ms,
+               "stage1_ms": ms1, "stage1_plain_ms": plain1, "stage1_stock_ms": stock1_ms,
+               **bound(nbytes, 0, BF16_FLOPS)}
+        print(f"[8b kernel] tail epilogue bf16 [{b},{c},{h + 1},{w + 1}] phase (1,1): kernel"
+              f" {ms:.4f} ms ({100 * row['bound_ms'] / ms:.1f}% of {row['bound_ms']:.4f}),"
+              f" plain {plain_ms:.4f}, stock add_ + F.prelu {stock_ms:.4f}; stage 1 padded"
+              f" from [{b},{c},{h},{w}]: kernel {ms1:.4f}, plain {plain1:.4f}, stock add_ +"
+              f" F.prelu + F.pad {stock1_ms:.4f}; bitwise in bf16 and fp32", flush=True)
+    return row
 
 
 def _unfused_stage_forms() -> dict:
@@ -1795,6 +1865,7 @@ def _counters():
     from fast_srgan_torch.kernels.int8_conv import int8_conv, int8_conv_phases
     from fast_srgan_torch.kernels.pixel_shuffle import pixel_shuffle_phase_major
     from fast_srgan_torch.kernels.quantize import quantize_act
+    from fast_srgan_torch.kernels.tail_epilogue import tail_epilogue
 
     from fast_srgan_torch.kernels.instance_norm import (
         instance_norm_add_from_stats,
@@ -1815,7 +1886,8 @@ def _counters():
             "quantize": (quantize_act, "launches"),
             "shuffle": (pixel_shuffle_phase_major, "launches"),
             "upsample": (fused_upsample, "launches"),
-            "upsample_backward": (fused_upsample, "backward_launches")}
+            "upsample_backward": (fused_upsample, "backward_launches"),
+            "tail": (tail_epilogue, "launches")}
 
 
 def _zero_counts() -> None:
@@ -1829,13 +1901,16 @@ def _read_counts() -> dict:
 
 def _bucketed_counts(forwards: int, n_layers: int, int8: bool = False, shuffle: int = 0) -> dict:
     """A bucketed 4x forward's launches: n_layers masked IN+PReLU, n_layers +
-    1 masked IN+add, no unmasked IN; int8 ups adds stage 1 (with stage 2's
-    quantize), the four-phase launch and one quantize."""
+    1 masked IN+add, no unmasked IN; the float LR tail's five epilogue
+    passes; int8 ups instead stage 1 (with stage 2's quantize), the
+    four-phase launch and one quantize; the canonical tail (``shuffle``
+    launches a forward) no epilogue pass."""
     counts = dict.fromkeys(_counters(), 0)
     counts.update({"in_prelu_masked": n_layers * forwards,
                    "in_add_masked": (n_layers + 1) * forwards,
                    "s8_stage1": forwards if int8 else 0, "s8_phases": forwards if int8 else 0,
-                   "quantize": forwards if int8 else 0, "shuffle": shuffle * forwards})
+                   "quantize": forwards if int8 else 0, "shuffle": shuffle * forwards,
+                   "tail": 0 if int8 or shuffle else TAIL_PASSES * forwards})
     return counts
 
 
@@ -2059,7 +2134,7 @@ def phase_stream(params, frames, staged_fps: float, card: str) -> None:
 COUNTER_OPS = {"in_prelu": "instance_norm_prelu", "in_add": "instance_norm_add",
                "s8_stage1": "int8_conv", "s8_phases": "int8_conv_phases",
                "quantize": "quantize_act", "shuffle": "pixel_shuffle_phase_major",
-               "upsample": "fused_upsample"}
+               "upsample": "fused_upsample", "tail": "tail_epilogue"}
 #: phase 13's artifacts: export_model flags, the form, and the most uint8
 #: counts the loaded artifact may differ from the live engine (fp32 is the
 #: engine's own program, bitwise expected; bf16 and int8 the JAX script's gate)
@@ -2073,10 +2148,12 @@ EXPORTS = {
 
 def _export_counts(form: str, n_layers: int) -> dict:
     """A loaded artifact's launches a call: n_layers IN+PReLU and n_layers +
-    1 IN+add; the int8 tier's stage 1, four-phase launch and quantize; the
-    canonical tail's two shuffles."""
+    1 IN+add; the LR tail's five epilogue passes; the int8 tier's stage 1,
+    four-phase launch and quantize; the canonical tail's two shuffles."""
     counts = dict.fromkeys(_counters(), 0)
     counts.update({"in_prelu": n_layers, "in_add": n_layers + 1})
+    if form == "lr_tail":
+        counts["tail"] = TAIL_PASSES
     if form == "int8":
         counts.update({"s8_stage1": 1, "s8_phases": 1, "quantize": 1})
     if form == "canonical":
@@ -2598,13 +2675,16 @@ def _split_counts(forwards: int, n_layers: int, shards: int, int8: bool = False)
     each shard, n_layers IN+PReLU and n_layers + 1 IN+add a shard in the
     split form, no other IN; int8 ups adds a shard's stage 1 (with stage
     2's quantize) and four phases, both in the halo form, and the quantize
-    of stage 1's input."""
+    of stage 1's input; the float LR tail instead its five epilogue passes
+    a shard."""
     counts = dict.fromkeys(_counters(), 0)
     k = forwards * shards
     counts.update({"in_stats": (2 * n_layers + 1) * k, "in_prelu_split": n_layers * k,
                    "in_add_split": (n_layers + 1) * k})
     if int8:
         counts.update({"s8_halo": k, "s8_phases_halo": k, "quantize": k})
+    else:
+        counts["tail"] = TAIL_PASSES * k
     return counts
 
 
@@ -3562,7 +3642,8 @@ def _engine_past_grid(params, frames) -> dict:
         del engine
     want = {"in_prelu": 8, "in_add": 9}
     for name in outs:
-        extra = {"s8_stage1": 1, "s8_phases": 1, "quantize": 1} if name == "int8 ups" else {}
+        extra = ({"s8_stage1": 1, "s8_phases": 1, "quantize": 1} if name == "int8 ups"
+                 else {"tail": TAIL_PASSES})
         check({k: v for k, v in counts[name].items() if v} == want | extra,
               f"17e: {name} launches {counts[name]}")
     ref = outs["fp32"][1]
@@ -3599,6 +3680,7 @@ def main() -> None:
     phase_widest_channels()
     up_row = phase_upsample_kernel(card)
     shuffle_row, stage_ms = phase_shuffle_kernel()
+    tail_row = phase_tail_epilogue()
 
     from fast_srgan_torch.checkpoints.npz_io import load_npz_params
 
@@ -3667,7 +3749,9 @@ def main() -> None:
     # frame's statistics and applies, as the forward runs them). dp_launches are
     # phase 16b's, one count a rank (both upsample arms); past_grid_launches
     # phase 17e's one forward of 70,000 frames (bf16; int8 ups for the s8
-    # and quantize rows), one count a call however many batch chunks
+    # and quantize rows), one count a call however many batch chunks. The
+    # tail epilogue's launches are phase 4's too, its split launches phase
+    # 14's bf16 4K tiled forward's.
     two = exported["two_launch"]
     split = tiled["counts"]
     split_q = tiled["int8_counts"]
@@ -3739,6 +3823,11 @@ def main() -> None:
          "launches": split_q["s8_halo"] + split_q["s8_phases_halo"],
          "launches_stage1": split_q["s8_halo"], "launches_phases": split_q["s8_phases_halo"],
          **halo_row},
+        {"name": "tail_epilogue", "route": "cuda", "source": TAIL_SOURCE,
+         "replaces": TAIL_REPLACES, "op": "torch.ops.fast_srgan.tail_epilogue",
+         "launches": launches[2], "past_grid_launches": past["bf16"]["tail"],
+         "artifact_launches": art["tail"], "two_launch_artifact_launches": two["tail"],
+         "split_launches": split["tail"], **tail_row},
     ]}))
     print(json.dumps({
         "ok": True,

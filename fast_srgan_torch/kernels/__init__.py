@@ -27,6 +27,7 @@ from fast_srgan_torch.kernels.pixel_shuffle import (
     pixel_shuffle_phase_major_reference,
 )
 from fast_srgan_torch.kernels.quantize import quantize_act, quantize_act_reference
+from fast_srgan_torch.kernels.tail_epilogue import tail_epilogue, tail_epilogue_reference
 
 __all__ = [
     "fused_upsample",
@@ -49,4 +50,6 @@ __all__ = [
     "pixel_shuffle_phase_major_reference",
     "quantize_act",
     "quantize_act_reference",
+    "tail_epilogue",
+    "tail_epilogue_reference",
 ]

@@ -53,6 +53,8 @@ _INT8_CONV = [_P] * 7 + [_I] * 10 + [_P]
 _INT8_PHASES = [_P] * 6 + [_I] * 8 + [_P]
 # (x, scale, out, n (64-bit), stream)
 _QUANTIZE = [_P] * 3 + [ctypes.c_longlong, _P]
+# (x, bias, slope or NULL, out, B, Hin, Win, C, H, W, p, q, border, stream)
+_TAIL_EPILOGUE = [_P] * 4 + [_I] * 9 + [_P]
 
 #: Every ``extern "C"`` entry point of csrc/*.cu and its argument types, in
 #: order: a pointer (and the stream) is c_void_p, or ctypes would pass it as
@@ -83,6 +85,8 @@ ENTRY_POINTS = {
     "fsr_int8_conv_phases_f32": _INT8_PHASES,
     "fsr_quantize_bf16": _QUANTIZE,
     "fsr_quantize_f32": _QUANTIZE,
+    "fsr_tail_epilogue_bf16": _TAIL_EPILOGUE,
+    "fsr_tail_epilogue_f32": _TAIL_EPILOGUE,
 }
 
 _lock = threading.Lock()

@@ -18,11 +18,15 @@ serves a tail with no activation and no output function (SwinIR's
 upsampler and ``conv_last``, :func:`prepare_tail` with slopes None and
 ``tanh=False``): those passes are left out, not run as identities.
 
-With a mask (the bucketed forward, ``generator_apply_lr_tail(valid_hw=)``)
-the padding is re-zeroed after stage 1 and after each phase: the whole tail
-stays at LR, so one LR mask serves every stage (8x: the 2x mask, each LR
-pixel repeated 2x2). Bias and PReLU run fused in the conv here, so the mask
-comes after the PReLU, which is the same for a 0/1 mask (PReLU(0) = 0).
+Each upsampling output (stage 1, the four phases) is its conv without
+bias, then one pass of ``kernels/tail_epilogue``: the bias, the PReLU and
+the phase's window; stage 1's pass (4x) writes its output zero-padded by
+one, which the phase convs read as it is. With a mask (the bucketed
+forward, ``generator_apply_lr_tail(valid_hw=)``) the padding is re-zeroed
+after stage 1 and after each phase: the whole tail stays at LR, so one LR
+mask serves every stage (8x: the 2x mask, each LR pixel repeated 2x2). The
+mask comes after the PReLU, which is the same for a 0/1 mask (PReLU(0) =
+0), and stage 1's pad after the mask.
 
 The rearranged kernels are built once, by :func:`prepare_lr_tail`, when the
 weights load, as tensors in the compute dtype on the device. (The JAX
@@ -38,6 +42,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from fast_srgan_torch.kernels.tail_epilogue import tail_epilogue
 from fast_srgan_torch.ops.norm import valid_mask, zero_outside
 
 # --- kernel rearrangements (HWIO, as in the JAX package) --------------------
@@ -229,9 +234,10 @@ def head_form_4x(batch: int, lr_pixels: int) -> str:
     return "summed"
 
 
-def _conv_prelu(y: torch.Tensor, st: Dict[str, Any]) -> torch.Tensor:
-    z = F.conv2d(y, st["w"], st["b"], padding=1)
-    return z if st["a"] is None else F.prelu(z, st["a"])
+def _conv_prelu(y: torch.Tensor, st: Dict[str, Any], border: int = 0) -> torch.Tensor:
+    """A stage's conv, then its bias and PReLU (none where the slope is
+    None) in one pass, the output zero-padded by ``border``."""
+    return tail_epilogue(F.conv2d(y, st["w"], padding=1), st["b"], st["a"], border=border)
 
 
 def _prelu(x: torch.Tensor, alpha: Optional[torch.Tensor]) -> torch.Tensor:
@@ -243,22 +249,20 @@ def _out(z: torch.Tensor, w: Dict[str, Any]) -> torch.Tensor:
 
 
 def _phase_outputs(
-    a1: torch.Tensor, phases, bias: torch.Tensor, alpha: Optional[torch.Tensor]
+    a1p: torch.Tensor, phases, bias: torch.Tensor, alpha: Optional[torch.Tensor]
 ) -> List[torch.Tensor]:
     """The four stage-2 phases, PReLU applied (none where ``alpha`` is
-    None), each [B, 4F, H, W]; ``phases`` is the ``[((p, q), kernel)]``
-    list of :func:`prepare_lr_tail`.
+    None), each [B, 4F, H, W], of stage 1's output zero-padded by one on
+    every side (``a1p``, [B, 4F, H+2, W+2]); ``phases`` is the ``[((p,
+    q), kernel)]`` list of :func:`prepare_lr_tail`.
 
-    One zero pad of 1 on every side serves all four: a valid 2x2 conv over
-    it gives (H+1)x(W+1) outputs, and phase (p, q) (padding ((1-p, p),
-    (1-q, q)) in the JAX package) is the window starting at (p, q)."""
-    h, wd = a1.shape[2], a1.shape[3]
-    a1p = F.pad(a1, (1, 1, 1, 1))
-    out = []
-    for (p, q), kp in phases:
-        full = F.conv2d(a1p, kp, bias)
-        out.append(_prelu(full[:, :, p:p + h, q:q + wd], alpha))
-    return out
+    The one pad serves all four: a valid 2x2 conv over it gives
+    (H+1)x(W+1) outputs, and phase (p, q) (padding ((1-p, p), (1-q, q)) in
+    the JAX package) is the window starting at (p, q), which the bias and
+    PReLU pass takes."""
+    size = (a1p.shape[2] - 2, a1p.shape[3] - 2)
+    return [tail_epilogue(F.conv2d(a1p, kp), bias, alpha, (p, q), size)
+            for (p, q), kp in phases]
 
 
 def _summed_head(
@@ -294,9 +298,13 @@ def lr_tail(
         head = head_form_4x(y.shape[0], y.shape[2] * y.shape[3])
     if head not in ("summed", "concat"):
         raise ValueError(f"head must be 'summed'/'concat'/'auto': {head!r}")
-    a1 = _masked(_conv_prelu(y.to(w["up0"]["w"].dtype), w["up0"]), mask)  # [B, 4F, H, W]
+    y = y.to(w["up0"]["w"].dtype)
+    if mask is None:
+        a1p = _conv_prelu(y, w["up0"], border=1)  # [B, 4F, H+2, W+2]
+    else:
+        a1p = F.pad(_masked(_conv_prelu(y, w["up0"]), mask), (1, 1, 1, 1))
     phases = [_masked(ph, mask)
-              for ph in _phase_outputs(a1, w["phases"], w["up1_b"], w["up1_a"])]
+              for ph in _phase_outputs(a1p, w["phases"], w["up1_b"], w["up1_a"])]
     if head == "concat":
         a2 = torch.cat(phases, dim=1)  # [B, 16F, H, W], phase-major
         z = F.conv2d(a2, w["head_w"], padding=1).float() + w["head_b"].view(1, -1, 1, 1)

@@ -16,8 +16,10 @@ and the forward stays exact:
   * pixel shuffle, PReLU and tanh act within a shard;
   * the LR-domain tail (``ops/lr_tail.py``) runs per shard: phase (p, q) of
     stage 2 reads LR columns {w+q-1, w+q}, a window of the halo-extended
-    shard, and the dense head is a halo conv. 8x runs stage 0 canonically
-    (a shard's column i gives output columns 2i and 2i+1 in the same shard).
+    shard, and the dense head is a halo conv. Each upsampling output is its
+    conv without bias, then ``kernels/tail_epilogue``'s one bias, PReLU and
+    window pass, as on one device. 8x runs stage 0 canonically (a shard's
+    column i gives output columns 2i and 2i+1 in the same shard).
 
 The mesh (``parallel/mesh.py``) is a grid of ``torch.device``s in this
 process. Halo columns and statistics move by ``Tensor.to``, which orders the
@@ -52,6 +54,7 @@ from fast_srgan_torch.kernels.instance_norm import (
 )
 from fast_srgan_torch.kernels.int8_conv import int8_conv_phases
 from fast_srgan_torch.kernels.pixel_shuffle import phase_major_index, pixel_shuffle_phase_major
+from fast_srgan_torch.kernels.tail_epilogue import tail_epilogue
 from fast_srgan_torch.models.generator import prelu
 from fast_srgan_torch.models.swinir import unwrap_state_dict
 from fast_srgan_torch.ops.lr_tail import prepare_lr_tail
@@ -157,19 +160,25 @@ def _phase_windows(ext: torch.Tensor, phases, bias, alpha) -> List[torch.Tensor]
     """The four stage-2 phases of a halo-extended shard [B, 4F, H, w+2],
     PReLU applied, each [B, 4F, H, w]: one valid 2x2 conv per phase over
     the shard padded by a zero row above and below; phase (p, q) is the
-    window at (p, q) (phase q reads LR columns {w+q-1, w+q})."""
+    window at (p, q) (phase q reads LR columns {w+q-1, w+q}), which the
+    bias and PReLU pass takes."""
     h, w = ext.shape[2], ext.shape[3] - 2
     xp = F.pad(ext, (0, 0, 1, 1))
-    return [F.prelu(F.conv2d(xp, kp, bias)[:, :, p:p + h, q:q + w], alpha)
+    return [tail_epilogue(F.conv2d(xp, kp), bias, alpha, (p, q), (h, w))
             for (p, q), kp in phases]
+
+
+def _stage_1(tails, ys: Shards) -> Shards:
+    """The tail's first upsampling conv, then its bias and PReLU pass."""
+    return [tail_epilogue(v, t["up0"]["b"], t["up0"]["a"])
+            for v, t in zip(halo_conv(ys, [t["up0"]["w"] for t in tails]), tails)]
 
 
 def _lr_tail_4x(tails: Sequence[Dict[str, Any]], ys: Shards) -> Shards:
     """``ops/lr_tail.lr_tail`` on shards, with the dense 16-phase head as a
     halo conv over each shard's phase concat (the only [B, 16F, H, w]
     tensor, made when the four phases of its shard are done)."""
-    a1 = halo_conv(ys, [t["up0"]["w"] for t in tails], [t["up0"]["b"] for t in tails])
-    a1 = [F.prelu(v, t["up0"]["a"]) for v, t in zip(a1, tails)]
+    a1 = _stage_1(tails, ys)
     a2 = [torch.cat(_phase_windows(e, t["phases"], t["up1_b"], t["up1_a"]), dim=1)
           .contiguous(memory_format=_CL) for e, t in zip(halo_extended(a1), tails)]
     del a1
@@ -180,9 +189,7 @@ def _lr_tail_4x(tails: Sequence[Dict[str, Any]], ys: Shards) -> Shards:
 
 
 def _lr_tail_2x(tails, ys: Shards) -> Shards:
-    a1 = halo_conv(ys, [t["up0"]["w"] for t in tails], [t["up0"]["b"] for t in tails])
-    a1 = [F.prelu(v, t["up0"]["a"]) for v, t in zip(a1, tails)]
-    z = halo_conv(a1, [t["head_w"] for t in tails], [t["head_b"] for t in tails])
+    z = halo_conv(_stage_1(tails, ys), [t["head_w"] for t in tails], [t["head_b"] for t in tails])
     return [F.pixel_shuffle(torch.tanh(v.float()), 2) for v in z]
 
 

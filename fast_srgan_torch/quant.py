@@ -395,7 +395,7 @@ def _tail_4x(lay, ex: _Exec, y: torch.Tensor, n0: str = "up0", n1: str = "up1",
     else:
         a1 = _masked(ex.conv(y, n0, lay[n0]), mask)  # [B, 4F, H, W], bias and PReLU applied
         ex.observe(n1, a1)
-        phases = _phase_outputs(a1, st["phases"], st["b"], st["a"])
+        phases = _phase_outputs(F.pad(a1, (1, 1, 1, 1)), st["phases"], st["b"], st["a"])
     phases = [_masked(ph, mask) for ph in phases]
     head = lay["head"]
     if "parts" in head and ex.collect is None:

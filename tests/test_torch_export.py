@@ -39,7 +39,7 @@ SHAPE = (2, 12, 16)
 # (form, lr_tail, quantize): the artifact's three forms
 FORMS = {"lr_tail": (True, False), "canonical": (False, False), "int8": (True, True)}
 OPS = {"instance_norm_prelu", "instance_norm_add"}
-FORM_OPS = {"lr_tail": OPS, "canonical": OPS | {"pixel_shuffle_phase_major"},
+FORM_OPS = {"lr_tail": OPS | {"tail_epilogue"}, "canonical": OPS | {"pixel_shuffle_phase_major"},
             "int8": OPS | {"int8_conv", "int8_conv_phases", "quantize_act"}}
 
 
@@ -269,6 +269,11 @@ def _op_cases():
                                            (x, alpha, torch.rand(2, 4, 32), 70)),
         "instance_norm_add_from_stats": (ops.instance_norm_add_from_stats.default,
                                          (x, cl(2, 16, 5, 7), torch.rand(2, 1, 32), 35)),
+        # the LR tail's epilogue: a phase's window, stage 1's padded output
+        "tail_epilogue": (ops.tail_epilogue.default,
+                          (cl(2, 16, 6, 8), torch.randn(16, generator=g), alpha, 1, 0, 5, 7, 0)),
+        "tail_epilogue padded": (ops.tail_epilogue.default,
+                                 (x, torch.randn(16, generator=g), None, 0, 0, 5, 7, 1)),
     }
 
 

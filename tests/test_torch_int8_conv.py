@@ -228,7 +228,7 @@ def _unfused_tail_4x(lay, ex, y, n0="up0", n1="up1", mask=None):
             for (p, q), wq in zip(PHASES, st["phases_q"].phases)
         ]
     else:
-        phases = _phase_outputs(a1, st["phases"], st["b"], st["a"])
+        phases = _phase_outputs(F.pad(a1, (1, 1, 1, 1)), st["phases"], st["b"], st["a"])
     head = lay["head"]
     if "parts" in head:
         z = _summed_head(phases, head["parts"], head["b32"])
