@@ -222,9 +222,7 @@ own line; any failure exits non-zero and prints no result:
      int8_tail_only, one iteration: both timed (none ``unsupported``), at
      least their PSNR bars; (c) the batch budget the engine resolves for
      each tier (bf16, int8 ups, int8 tail, bucketed bf16 and int8 ups) and
-     scale; (d) ``phase_summed_head_experiment`` at 540x960, batches 1 and
-     8, one iteration: both head forms of both arms timed, their exactness
-     printed; (e) past the grid: IN+PReLU and IN + add on bf16 batches
+     scale; (e) past the grid: IN+PReLU and IN + add on bf16 batches
      past 2^31 elements (2x batch 768 of 180x320, the resident form; 72
      frames of 540x960, the two launches), the last two samples within
      the bars of the plain version on those samples and, in the two
@@ -2000,6 +1998,7 @@ def phase_masked_int8(params, frames) -> None:
 
     from fast_srgan_torch import quant
     from fast_srgan_torch.inference import SRInferenceEngine
+    from fast_srgan_torch.ops.lr_tail import lr_tail
     from fast_srgan_torch.ops.norm import valid_mask
 
     rng = np.random.default_rng(12)
@@ -2036,8 +2035,8 @@ def phase_masked_int8(params, frames) -> None:
                 y = eng._plan.trunk(x)
                 yp = F.pad(y, (0, 0, 0, 12)).contiguous(memory_format=torch.channels_last)
                 mask = valid_mask(192, 320, vh, vw)[0]
-                tails = [quant._tail_4x(eng._plan.layers, ex, yp, mask=mask)[:, :, :720],
-                         quant._tail_4x(eng._plan.layers, ex, y)]
+                tails = [lr_tail(yp, eng._plan.tail, ex, mask)[:, :, :720],
+                         lr_tail(y, eng._plan.tail, ex)]
             a, b = (((t + 1.0) * 127.5).clamp(0, 255).to(torch.uint8).cpu().numpy() for t in tails)
             tail_mx = int(np.abs(a.astype(np.int16) - b.astype(np.int16)).max())
             print(f"[11 int8] masked int8 tail on the zero-padded trunk output vs the unbucketed"
@@ -2768,10 +2767,10 @@ def phase_tiled(params, frames, card: str) -> dict:
     # the one-device trunk output against the one-device tail, within 1
     # count (the int8 convs are exact; only the float head reassociates).
     from fast_srgan_torch.kernels.quantize import quantize_act
+    from fast_srgan_torch.ops.lr_tail import lr_tail
     from fast_srgan_torch.parallel import spatial
 
-    model, _ = forward.replicas(params)[mesh.devices[0]]
-    lays = [forward.replicas(params)[mesh.devices[0]][1].layers] * TILE_SHARDS
+    model, plan = forward.replicas(params)[mesh.devices[0]]
     scales = q32.act_scales
     with torch.inference_mode(), _no_tf32():
         y1 = q32._plan.trunk(x)
@@ -2784,8 +2783,9 @@ def phase_tiled(params, frames, card: str) -> dict:
         trunk_err = (y1 - y4).abs().max().item()
         ex = quant._Exec(scales, None, torch.float32)
         shards = [t.contiguous(memory_format=torch.channels_last) for t in y1.chunk(TILE_SHARDS, 3)]
-        tail4 = torch.cat(spatial._q_tail_4x([ex] * TILE_SHARDS, lays, shards), dim=3)
-        tail1 = quant._tail_4x(q32._plan.layers, ex, y1)
+        tail4 = torch.cat(spatial.lr_tail_shards([plan.tail] * TILE_SHARDS, shards,
+                                                 [ex] * TILE_SHARDS), dim=3)
+        tail1 = lr_tail(y1, q32._plan.tail, ex)
     tail_mx, _, _ = _u8_compare(_u8_out(tail4)[0], _u8_out(tail1)[0])
     print(f"[14 tiled] 4K int8 ups, fp32 glue: trunk sharded vs one device max_abs"
           f" {trunk_err:.3e}, {flips} of {y1.numel()} int8 values of stage 1's input one step"
@@ -3397,22 +3397,13 @@ def _budgets() -> None:
 
 def phase_operating_points(card: str) -> None:
     """17: F1 on the card (17a), a short eval_int8 of the int8 heads past
-    2^31 (17b), the resolved budgets (17c), a cut run of the head-form
-    script (17d)."""
+    2^31 (17b), the resolved budgets (17c)."""
     _f1_on_the_card(card)
     ev = _run_script("eval_int8", ["--scale", "4", "--batch", "40", "--iters", "1",
                                    "--arms", "int8,int8_tail_only"])
     _summary("eval_int8 batch 40", ev, ("psnr_by_arm", "arms"), 17)
     _check_eval_int8("17b eval_int8 batch 40", ev, 4)  # timed, none unsupported; PSNR bars
     _budgets()
-    hd = _run_script("phase_summed_head_experiment", ["--shape", "540x960", "--batches", "1,8",
-                                                      "--iters", "1"])
-    _summary("head forms 540x960", hd, ("exactness", "arms", "max_batch"), 17)
-    for b, row in hd["arms"].items():
-        for name, cell in row.items():
-            check("fps" in cell and np.isfinite(cell["ms"]), f"17d: batch {b} {name}: {cell}")
-    for arm, ex in hd["exactness"].items():
-        check(np.isfinite(ex["fp32_max_abs"]), f"17d: {arm} exactness {ex}")
 
 
 # --- phase 17e: past the grid ------------------------------------------------

@@ -19,10 +19,8 @@ kernels there (and counts their launches); the same graph on the CPU runs
 their plain versions. A program is exported where it runs: the device is in
 the manifest, and a ``cuda`` artifact refuses to load without a card.
 
-What the engine decides by shape is fixed at export where the graph holds
-it (the 4x head's form, ``ops/lr_tail.py:head_form_4x``) and stays inside
-the kernel op where the kernel decides it (the instance-norm family's
-``plan``). A context manager is not captured in a graph, so
+What a kernel decides by shape stays inside its op (the instance-norm
+family's ``plan``). A context manager is not captured in a graph, so
 :func:`load_exported_dir` runs an fp32 artifact inside
 ``ops/precision.py``'s ``cudnn_without_tf32()``, as the engine does.
 
@@ -46,7 +44,7 @@ from fast_srgan_torch import quant
 from fast_srgan_torch.checkpoints.convert import state_dict_from_jax_params
 from fast_srgan_torch.inference import arch_from_params, sr_forward_u8
 from fast_srgan_torch.models.generator import Generator
-from fast_srgan_torch.ops.lr_tail import generator_apply_lr_tail, head_form_4x, prepare_lr_tail
+from fast_srgan_torch.ops.lr_tail import generator_apply_lr_tail, prepare_lr_tail
 from fast_srgan_torch.ops.precision import fp32_precision
 
 MANIFEST = "manifest.json"
@@ -98,31 +96,6 @@ class TensorTree(nn.Module):
         return spec
 
 
-def _without_dense_head(tail: Dict[str, Any]) -> Dict[str, Any]:
-    """The LR tail's weights without the dense 4x head kernel where its four
-    per-phase parts are held (the same values): the summed head reads the
-    parts, and the concat form is rebuilt from them when a shape takes it."""
-    out = {k: v for k, v in tail.items() if not (k == "head_w" and "head_parts" in tail)}
-    if "sub" in out:
-        out["sub"] = _without_dense_head(out["sub"])
-    return out
-
-
-def _int8_layers(layers: Dict[str, Dict[str, Any]]) -> Dict[str, Dict[str, Any]]:
-    """The int8 plan's layers as the quantized forward reads them: a float
-    4x head keeps its four parts only (the summed form; the dense kernel
-    serves calibration), and the four-phase launch reads the phases'
-    combined tiled layout, not each phase's."""
-    out = {}
-    for name, leaf in layers.items():
-        leaf = {k: v for k, v in leaf.items() if not (k == "w" and "parts" in leaf)}
-        if "phases_q" in leaf:
-            ph = leaf["phases_q"]
-            leaf["phases_q"] = ph._replace(phases=tuple(w._replace(tiled=None) for w in ph.phases))
-        out[name] = leaf
-    return out
-
-
 class SRForwardU8(nn.Module):
     """The engine's uint8 -> uint8 forward over one weight set held as module
     state: ``inference.sr_forward_u8`` around the generator with the LR tail
@@ -146,23 +119,23 @@ class SRForwardU8(nn.Module):
         model.load_state_dict(state_dict_from_jax_params(params))
         tail = prepare_lr_tail(model, dtype, device) if self.form == "lr_tail" else None
         self.model = model.to(device=device, dtype=dtype, memory_format=torch.channels_last).eval()
-        if self.form == "lr_tail":
-            self.tail = TensorTree(_without_dense_head(tail))
-        elif self.form == "int8":
+        if self.form == "int8":
             calib_plan = quant.prepare_generator(params, None, torch.float32, device)
             scales = quant.calibrate_scales(
                 calib_plan, calib_batches or [quant.default_calibration_batch()]
             )
             plan = quant.prepare_generator(params, "ups", dtype, device, model=self.model)
-            layers = _int8_layers(plan.layers)
-            int8 = [n for n, leaf in layers.items() if "q" in leaf or "phases_q" in leaf]
-            self.layers = TensorTree(layers)
+            tail = plan.tail
+            int8 = [n for n, e in tail.items()
+                    if isinstance(e, dict) and ("q" in e or "phases_q" in e)]
             self.scales = TensorTree({n: scales[n].to(torch.float32) for n in int8})
-            # the plan's ints and dtypes; its tensors are ``layers``
-            self.plan = dataclasses.replace(plan, layers={}, trunk=None)
+            # the plan's ints and dtypes; its tensors are ``tail`` (the
+            # ups tier's trunk is the Generator's)
+            self.plan = dataclasses.replace(plan, tail={}, trunk=None)
         if self.form != "canonical":
-            # these forms run the Generator's trunk only; the tail's weights
-            # are held rearranged above
+            # these forms run the Generator's trunk and the one LR tail,
+            # whose prepared weights are the module's one tree
+            self.tail = TensorTree(tail)
             self.model.upsampling = nn.ModuleList()
             self.model.head = nn.Sequential()
 
@@ -175,15 +148,8 @@ class SRForwardU8(nn.Module):
         if self.form == "canonical":
             return self.model(x)
         if self.form == "lr_tail":
-            w = self.tail.tree()
-            if self.arch["scale_factor"] == 4 and head_form_4x(
-                x.shape[0], x.shape[2] * x.shape[3]
-            ) == "concat":
-                w["head_w"] = torch.cat(w["head_parts"], dim=1).contiguous(
-                    memory_format=torch.channels_last
-                )
-            return generator_apply_lr_tail(self.model, w, x)
-        plan = dataclasses.replace(self.plan, layers=self.layers.tree(), trunk=self.model.trunk)
+            return generator_apply_lr_tail(self.model, self.tail.tree(), x)
+        plan = dataclasses.replace(self.plan, tail=self.tail.tree(), trunk=self.model.trunk)
         return quant.sr_quant_forward(plan, self.act_scales, x)
 
     def forward(self, x_u8: torch.Tensor) -> torch.Tensor:

@@ -401,7 +401,7 @@ class SwinIR(nn.Module):
         if ph or pw:
             x = F.pad(x, (0, pw, 0, ph), mode="reflect")
         y = self.trunk(x)
-        y = self.canonical_tail(y) if tail is None else _lr_tail.apply_tail(y, tail)
+        y = self.canonical_tail(y) if tail is None else _lr_tail.lr_tail(y, tail)
         y = (y + self.mean(y.device)) * 2.0 - 1.0
         s = self.scale_factor
         return y[:, :, :h * s, :w * s]

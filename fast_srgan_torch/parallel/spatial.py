@@ -14,11 +14,12 @@ and the forward stays exact:
     (``kernels/instance_norm.py``'s split form), so every shard computes
     bitwise the same statistics;
   * pixel shuffle, PReLU and tanh act within a shard;
-  * the LR-domain tail (``ops/lr_tail.py``) runs per shard: phase (p, q) of
-    stage 2 reads LR columns {w+q-1, w+q}, a window of the halo-extended
-    shard, and the dense head is a halo conv. Each upsampling output is its
-    conv without bias, then ``kernels/tail_epilogue``'s one bias, PReLU and
-    window pass, as on one device. 8x runs stage 0 canonically (a shard's
+  * the LR-domain tail (``ops/lr_tail.py``) runs per shard
+    (:func:`lr_tail_shards`: the one tail's skeleton over shard lists, on
+    its prepared form, its conv dispatch and its head rule, with halo convs
+    where the one-device tail pads): phase (p, q) of stage 2 reads LR
+    columns {w+q-1, w+q}, a window of the halo-extended shard, and each
+    head conv is a halo conv. 8x runs stage 0 canonically (a shard's
     column i gives output columns 2i and 2i+1 in the same shard).
 
 The mesh (``parallel/mesh.py``) is a grid of ``torch.device``s in this
@@ -54,10 +55,17 @@ from fast_srgan_torch.kernels.instance_norm import (
 )
 from fast_srgan_torch.kernels.int8_conv import int8_conv_phases
 from fast_srgan_torch.kernels.pixel_shuffle import phase_major_index, pixel_shuffle_phase_major
-from fast_srgan_torch.kernels.tail_epilogue import tail_epilogue
 from fast_srgan_torch.models.generator import prelu
 from fast_srgan_torch.models.swinir import unwrap_state_dict
-from fast_srgan_torch.ops.lr_tail import prepare_lr_tail
+from fast_srgan_torch.ops.lr_tail import (
+    _out,
+    _phase_outputs,
+    concat_head,
+    head_form,
+    prepare_lr_tail,
+    stage_names,
+    tail_conv,
+)
 from fast_srgan_torch.ops.precision import fp32_precision
 from fast_srgan_torch.parallel.mesh import Mesh, mesh_axes
 
@@ -156,53 +164,49 @@ def generator_forward(
     return tail(y)
 
 
-def _phase_windows(ext: torch.Tensor, phases, bias, alpha) -> List[torch.Tensor]:
-    """The four stage-2 phases of a halo-extended shard [B, 4F, H, w+2],
-    PReLU applied, each [B, 4F, H, w]: one valid 2x2 conv per phase over
-    the shard padded by a zero row above and below; phase (p, q) is the
-    window at (p, q) (phase q reads LR columns {w+q-1, w+q}), which the
-    bias and PReLU pass takes."""
-    h, w = ext.shape[2], ext.shape[3] - 2
-    xp = F.pad(ext, (0, 0, 1, 1))
-    return [tail_epilogue(F.conv2d(xp, kp), bias, alpha, (p, q), (h, w))
-            for (p, q), kp in phases]
+def lr_tail_shards(tails: Sequence[Dict[str, Any]], ys: Shards,
+                   exs: Optional[Sequence[Any]] = None) -> Shards:
+    """``ops/lr_tail.lr_tail`` on width shards: ``tails`` is each shard's
+    copy of the prepared tail, ``exs`` each shard's int8 executor context
+    (None: a float tail). Each conv is ``tail_conv`` of the halo-extended
+    shard; the four stage-2 phases are those of the shard padded by a zero
+    row above and below; a summed head takes one halo exchange a phase, a
+    concat one the shard's [B, 16F, H, w] phase concat."""
+    exs = exs or [None] * len(ys)
+    names = stage_names(tails[0])
 
+    def conv(xs: Shards, name: str, heads=None, quantize_for=None) -> Shards:
+        heads = heads or [t[name] for t in tails]
+        return [tail_conv(e, name, st, ex, quantize_for, halo=True)
+                for e, st, ex in zip(halo_extended(xs), heads, exs)]
 
-def _stage_1(tails, ys: Shards) -> Shards:
-    """The tail's first upsampling conv, then its bias and PReLU pass."""
-    return [tail_epilogue(v, t["up0"]["b"], t["up0"]["a"])
-            for v, t in zip(halo_conv(ys, [t["up0"]["w"] for t in tails]), tails)]
-
-
-def _lr_tail_4x(tails: Sequence[Dict[str, Any]], ys: Shards) -> Shards:
-    """``ops/lr_tail.lr_tail`` on shards, with the dense 16-phase head as a
-    halo conv over each shard's phase concat (the only [B, 16F, H, w]
-    tensor, made when the four phases of its shard are done)."""
-    a1 = _stage_1(tails, ys)
-    a2 = [torch.cat(_phase_windows(e, t["phases"], t["up1_b"], t["up1_a"]), dim=1)
-          .contiguous(memory_format=_CL) for e, t in zip(halo_extended(a1), tails)]
-    del a1
-    z = halo_conv(a2, [t["head_w"] for t in tails])
-    del a2
-    return [F.pixel_shuffle(torch.tanh(v.float() + t["head_b"].view(1, -1, 1, 1)), 4)
-            for v, t in zip(z, tails)]
-
-
-def _lr_tail_2x(tails, ys: Shards) -> Shards:
-    z = halo_conv(_stage_1(tails, ys), [t["head_w"] for t in tails], [t["head_b"] for t in tails])
-    return [F.pixel_shuffle(torch.tanh(v.float()), 2) for v in z]
-
-
-def _lr_tail_8x(tails, ys: Shards) -> Shards:
-    """Stage 0 canonically per shard (conv, shuffle, PReLU), then the 4x
-    tail at 2x resolution."""
-    a0 = halo_conv(ys, [t["up0"]["w"] for t in tails], [t["up0"]["b"] for t in tails])
-    y2 = [F.prelu(F.pixel_shuffle(v, 2), t["up0"]["a"]).contiguous(memory_format=_CL)
-          for v, t in zip(a0, tails)]
-    return _lr_tail_4x([t["sub"] for t in tails], y2)
-
-
-_LR_TAILS = {2: _lr_tail_2x, 4: _lr_tail_4x, 8: _lr_tail_8x}
+    if len(names) == 1:
+        z = conv(conv(ys, "up0"), "head")
+        return [F.pixel_shuffle(_out(v.float(), t), 2) for v, t in zip(z, tails)]
+    if len(names) == 3:
+        ys = [F.pixel_shuffle(v, 2).contiguous(memory_format=_CL) for v in conv(ys, "up0")]
+    n0, n1 = names[-2:]
+    stage2 = [t[n1] for t in tails]
+    if "phases_q" in stage2[0]:
+        phases = [int8_conv_phases(e, s2["phases_q"], s2["ws"], ex.scales[n1], s2["b"], s2["a"],
+                                   ex.glue, padding=(0, 0))
+                  for e, s2, ex in zip(halo_extended(conv(ys, n0, quantize_for=n1)), stage2, exs)]
+    else:
+        phases = [_phase_outputs(F.pad(e, (0, 0, 1, 1)), s2["phases"], s2["b"], s2["a"])
+                  for e, s2 in zip(halo_extended(conv(ys, n0)), stage2)]
+    heads = [t["head"] for t in tails]
+    if head_form(heads[0], exs[0]) == "summed":
+        z = None
+        for i in range(4):
+            part = halo_conv([ph[i] for ph in phases], [h["parts"][i] for h in heads])
+            z = [v.float() for v in part] if z is None else [a + v.float()
+                                                             for a, v in zip(z, part)]
+    else:
+        a2 = [torch.cat(ph, dim=1).contiguous(memory_format=_CL) for ph in phases]
+        del phases
+        z = [v.float() for v in conv(a2, "head", [concat_head(h) for h in heads])]
+    return [F.pixel_shuffle(_out(v + h["b32"].view(1, -1, 1, 1), t), 4)
+            for v, h, t in zip(z, heads, tails)]
 
 
 def _canonical_tail(models, stages, ys: Shards) -> Shards:
@@ -302,7 +306,7 @@ class TiledForward(_Tiled):
         models = [reps[d][0] for d in row]
         extras = [reps[d][1] for d in row]
         if self.lr_tail:
-            tail = functools.partial(_LR_TAILS[models[0].scale_factor], extras)
+            tail = functools.partial(lr_tail_shards, extras)
         else:
             tail = functools.partial(_canonical_tail, models, extras)
         return generator_forward(models, self._shards(x, row, self.dtype), halo_conv,
@@ -372,11 +376,11 @@ def tiled_upscale_u8(params, frame_u8: np.ndarray, mesh: Mesh,
 # -- the int8 tier under width tiling -----------------------------------------
 
 
-def _q_conv(exs, lays, xs: Shards, name: str, quantize_for=None) -> Shards:
+def _q_conv(exs, lays, xs: Shards, name: str) -> Shards:
     """``quant._Exec.conv`` of each halo-extended shard (float or int8 by
     the leaf's form; the int8 one quantizes the extended shard, which with
     static scales is the frame's columns quantized)."""
-    return [ex.conv(e, name, lay[name], quantize_for, halo=True)
+    return [ex.conv(e, name, lay[name], halo=True)
             for ex, lay, e in zip(exs, lays, halo_extended(xs))]
 
 
@@ -389,51 +393,6 @@ def _q_trunk(exs, lays, xs: Shards, n_layers: int) -> Shards:
                             [lay[f"stem_{i}_c1"]["norm_a"] for lay in lays])
         y = dist_norm_add(_q_conv(exs, lays, t, f"stem_{i}_c2"), y)
     return dist_norm_add(_q_conv(exs, lays, y, "bottleneck"), r)
-
-
-def _q_tail_4x(exs, lays, ys: Shards, n0: str = "up0", n1: str = "up1") -> Shards:
-    """``quant._tail_4x`` on shards. An int8 stage 2 takes stage 1's int8
-    output (quantized in its epilogue) extended by int8 halo columns and
-    runs the four phases in one halo-form launch. A float head is summed
-    over the phases, one halo exchange each; an int8 head takes the 16F
-    phase concat."""
-    st = [lay[n1] for lay in lays]
-    if "phases_q" in st[0]:
-        a1q = _q_conv(exs, lays, ys, n0, quantize_for=n1)
-        phases = [int8_conv_phases(e, s["phases_q"], s["ws"], ex.scales[n1], s["b"], s["a"],
-                                   ex.glue, padding=(0, 0))
-                  for e, s, ex in zip(halo_extended(a1q), st, exs)]
-    else:
-        a1 = _q_conv(exs, lays, ys, n0)
-        phases = [_phase_windows(e, s["phases"], s["b"], s["a"])
-                  for e, s in zip(halo_extended(a1), st)]
-    heads = [lay["head"] for lay in lays]
-    if "parts" in heads[0]:
-        z = None
-        for i in range(4):
-            part = halo_conv([ph[i] for ph in phases], [h["parts"][i] for h in heads])
-            z = [v.float() for v in part] if z is None else [a + v.float()
-                                                             for a, v in zip(z, part)]
-    else:
-        a2 = [torch.cat(ph, dim=1).contiguous(memory_format=_CL) for ph in phases]
-        del phases
-        z = [v.float() for v in _q_conv(exs, lays, a2, "head")]
-    return [F.pixel_shuffle(torch.tanh(v + h["b32"].view(1, -1, 1, 1)), 4)
-            for v, h in zip(z, heads)]
-
-
-def _q_tail_2x(exs, lays, ys: Shards) -> Shards:
-    a1 = _q_conv(exs, lays, ys, "up0")
-    return [F.pixel_shuffle(torch.tanh(v.float()), 2) for v in _q_conv(exs, lays, a1, "head")]
-
-
-def _q_tail_8x(exs, lays, ys: Shards) -> Shards:
-    y2 = [F.pixel_shuffle(v, 2).contiguous(memory_format=_CL)
-          for v in _q_conv(exs, lays, ys, "up0")]
-    return _q_tail_4x(exs, lays, y2, "up1", "up2")
-
-
-_Q_TAILS = {2: _q_tail_2x, 4: _q_tail_4x, 8: _q_tail_8x}
 
 
 class TiledQuantForward(_Tiled):
@@ -476,7 +435,7 @@ class TiledQuantForward(_Tiled):
                                           dist_norm_add, lambda v: v)
                 else:
                     y = _q_trunk(exs, lays, xs, plans[0].n_layers)
-                outs.append(_Q_TAILS[plans[0].scale_factor](exs, lays, y))
+                outs.append(lr_tail_shards([p.tail for p in plans], y, exs))
             return self._gather(outs)
 
 

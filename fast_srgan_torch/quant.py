@@ -9,8 +9,9 @@ The port of ``fast_srgan_tpu/quant.py``. Static PTQ, shaped to this network:
     (:func:`calibrate_scales`);
   * everything between convs in the glue dtype (bf16 by default): bias,
     PReLU, instance norm, pixel shuffle; tanh in fp32;
-  * the upsampling tail in its LR-domain form (``ops/lr_tail.py``), with the
-    int8 kernels rearranged by the same dtype-generic functions.
+  * the upsampling tail in its LR-domain form: ``ops/lr_tail.py``'s one
+    tail, whose prepared form holds the int8 kernels rearranged by the same
+    dtype-generic functions as the float ones.
 
 Four modes choose what quantizes (``MODES``): ``ups`` (the upsampling
 stages; the JAX package's production tier, ``SRInferenceEngine(quantize=
@@ -27,12 +28,13 @@ s8 x s8 -> s32 on the tensor cores) and each activation quantization
 bitwise the same function. The float trunk of the ``ups``/``tail`` modes is
 the port's ``Generator.trunk`` (with the IN+PReLU kernel).
 
-Weights are prepared once, when they load (:func:`prepare_generator`): int8
-kernels packed in the layout the conv kernel reads, the four int8 phase
-kernels of stage 2, the dense head kernel, the per-channel dequant scales
-mapped through the same channel packing. The JAX package rebuilds these in
-every call only because its params are jit inputs. Activations are NCHW
-tensors in channels_last memory, as everywhere in the port.
+Weights are prepared once, when they load (:func:`prepare_generator`): the
+trunk's int8 kernels packed in the layout the conv kernel reads, and the
+tail by ``ops/lr_tail.prepare_tail`` (the four int8 phase kernels of stage
+2, the head, the per-channel dequant scales mapped through the same channel
+packing). The JAX package rebuilds these in every call only because its
+params are jit inputs. Activations are NCHW tensors in channels_last
+memory, as everywhere in the port.
 
 The masked int8 forward of a zero-padded (bucketed) batch
 (:func:`sr_quant_forward_masked`) runs the masked float trunk
@@ -56,24 +58,9 @@ import torch
 import torch.nn.functional as F
 
 from fast_srgan_torch.kernels.instance_norm import instance_norm_add, instance_norm_prelu
-from fast_srgan_torch.kernels.int8_conv import (
-    bias_prelu,
-    int8_conv,
-    int8_conv_phases,
-    pack_int8_phases,
-    pack_int8_weight,
-)
+from fast_srgan_torch.kernels.int8_conv import bias_prelu, int8_conv
 from fast_srgan_torch.kernels.quantize import quantize_act
-from fast_srgan_torch.ops.lr_tail import (
-    _head_kernel_2x,
-    _head_kernel_4x,
-    _masked,
-    _phase_kernels_2x,
-    _phase_outputs,
-    _prepared,
-    _summed_head,
-    mask_2x,
-)
+from fast_srgan_torch.ops.lr_tail import Int8Kernel, _conv_entry, _hwio, lr_tail, prepare_tail
 from fast_srgan_torch.ops.norm import valid_mask
 from fast_srgan_torch.ops.precision import cudnn_without_tf32
 
@@ -157,17 +144,15 @@ def quantize_generator_params(params: Dict[str, Any], only=None) -> Dict[str, An
 class PreparedGenerator:
     """A generator param tree prepared for the executor on one device.
 
-    ``layers`` maps the executor's conv names (``neck``, ``stem_{i}_c1``,
-    ``stem_{i}_c2``, ``bottleneck``, ``up{j}``, ``head``) to a float conv
-    (``w``: OIHW channels_last in the glue dtype) or an int8 one (``q``:
+    ``layers`` maps the trunk's conv names (``neck``, ``stem_{i}_c1``,
+    ``stem_{i}_c2``, ``bottleneck``) to a float conv (``w``: OIHW
+    channels_last in the glue dtype) or an int8 one (``q``:
     :class:`~fast_srgan_torch.kernels.int8_conv.Int8Weight`, ``ws``: fp32
     dequant scales), with ``b``/``a`` (bias, PReLU slope in the glue dtype)
-    where the conv's epilogue applies them. The stage-2 entry holds the four
-    phase kernels (``phases`` float, ``phases_q`` an
-    :class:`~fast_srgan_torch.kernels.int8_conv.Int8Phases`); a float 4x head
-    also holds its four per-phase ``parts``; ``b32`` is the 4x head's fp32
-    bias. ``trunk`` is the float ``Generator.trunk`` of the ``ups``/``tail``
-    modes, whose plans then hold no trunk layers."""
+    where the conv's epilogue applies them. ``tail`` is
+    ``ops/lr_tail.prepare_tail``'s form of the upsampling stages (``up{j}``)
+    and the head. ``trunk`` is the float ``Generator.trunk`` of the
+    ``ups``/``tail`` modes, whose plans then hold no trunk layers."""
 
     mode: Optional[str]
     scale_factor: int
@@ -175,6 +160,7 @@ class PreparedGenerator:
     glue: torch.dtype
     device: torch.device
     layers: Dict[str, Dict[str, Any]]
+    tail: Dict[str, Any]
     trunk: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
 
 
@@ -213,28 +199,20 @@ def prepare_generator(
     if scale not in (2, 4, 8):
         raise ValueError(f"scale_factor must be 2, 4, or 8: {scale}")
 
-    def vec(v, dtype) -> torch.Tensor:
-        return torch.from_numpy(np.array(v, dtype=np.float32)).to(device=dev, dtype=dtype)
+    def vec(v) -> torch.Tensor:
+        return torch.from_numpy(np.array(v, dtype=np.float32))
 
-    def kernel(leaf) -> torch.Tensor:
-        """The leaf's HWIO kernel: int8 where quantized, else fp32."""
+    def kernel(leaf):
+        """The leaf's canonical kernel: an Int8Kernel (HWIO) where
+        quantized, else the fp32 OIHW conv weight."""
         if "qkernel" in leaf:
-            return torch.from_numpy(np.array(leaf["qkernel"], dtype=np.int8))
-        return torch.from_numpy(np.array(leaf["kernel"], dtype=np.float32))
+            return Int8Kernel(torch.from_numpy(np.array(leaf["qkernel"], dtype=np.int8)),
+                              vec(leaf["wscale"]))
+        return vec(leaf["kernel"]).permute(3, 2, 0, 1)
 
-    def weight(k: torch.Tensor):
-        return pack_int8_weight(k, dev) if k.dtype == torch.int8 else _prepared(k, glue, dev)
-
-    def conv(leaf, k=None, ws_repeat=1) -> Dict[str, Any]:
-        """A conv entry; ``k`` is the leaf's kernel rearranged, if it is."""
-        k = kernel(leaf) if k is None else k
-        if k.dtype != torch.int8:
-            return {"w": weight(k)}
-        ws = vec(leaf["wscale"], torch.float32).repeat_interleave(ws_repeat)
-        return {"q": weight(k), "ws": ws}
-
-    def epilogue(leaf, relu) -> Dict[str, torch.Tensor]:
-        return {"b": vec(leaf["bias"], glue), "a": vec(relu["alpha"], glue)}
+    def conv(leaf) -> Dict[str, Any]:
+        k = kernel(leaf)
+        return _conv_entry(k, _hwio(k), glue, dev)
 
     lay: Dict[str, Dict[str, Any]] = {}
     trunk = None
@@ -243,42 +221,21 @@ def prepare_generator(
             model = _float_generator(params, glue, dev)
         trunk = model.trunk
     else:
-        lay["neck"] = {**conv(p["neck_conv"]), **epilogue(p["neck_conv"], p["neck_relu"])}
+        neck = p["neck_conv"]
+        lay["neck"] = {**conv(neck), "b": vec(neck["bias"]).to(dev, glue),
+                       "a": vec(p["neck_relu"]["alpha"]).to(dev, glue)}
         lay["bottleneck"] = conv(p["bottleneck_conv"])
         for i in range(n_layers):
             blk = p[f"stem_{i}"]
             lay[f"stem_{i}_c1"] = {
-                **conv(blk["conv1"]), "norm_a": vec(blk["relu1"]["alpha"], glue)
+                **conv(blk["conv1"]), "norm_a": vec(blk["relu1"]["alpha"]).to(dev, glue)
             }
             lay[f"stem_{i}_c2"] = conv(blk["conv2"])
-    for j in range(n_up):
-        up = p[f"upsampling_{j}"]
-        entry = epilogue(up["conv"], up["relu"])
-        if scale > 2 and j == n_up - 1:  # stage 2 of the 4x transform: phases
-            phases = _phase_kernels_2x(kernel(up["conv"])).items()
-            if "qkernel" in up["conv"]:
-                entry["phases_q"] = pack_int8_phases([(pq, weight(kp)) for pq, kp in phases])
-                entry["ws"] = vec(up["conv"]["wscale"], torch.float32)
-            else:
-                entry["phases"] = [(pq, weight(kp)) for pq, kp in phases]
-        else:
-            entry.update(conv(up["conv"]))
-        lay[f"up{j}"] = entry
+    ups = [p[f"upsampling_{j}"] for j in range(n_up)]
     head = p["head_conv"]
-    if scale == 2:
-        lay["head"] = {
-            **conv(head, _head_kernel_2x(kernel(head)), 4),
-            "b": vec(head["bias"], torch.float32).repeat_interleave(4).to(glue),
-        }
-    else:
-        kd = _head_kernel_4x(kernel(head))
-        entry = conv(head, kd, 16)
-        entry["b32"] = vec(head["bias"], torch.float32).repeat_interleave(16)
-        if "w" in entry:  # a float head also runs phase-summed
-            f4 = kd.shape[2] // 4
-            entry["parts"] = [weight(kd[:, :, i * f4:(i + 1) * f4, :]) for i in range(4)]
-        lay["head"] = entry
-    return PreparedGenerator(mode, scale, n_layers, glue, dev, lay, trunk)
+    tail = prepare_tail([(kernel(u["conv"]), vec(u["conv"]["bias"]), vec(u["relu"]["alpha"]))
+                         for u in ups], kernel(head), vec(head["bias"]), glue, dev)
+    return PreparedGenerator(mode, scale, n_layers, glue, dev, lay, tail, trunk)
 
 
 def _float_generator(params, dtype, device):
@@ -295,7 +252,8 @@ def _float_generator(params, dtype, device):
 #
 # One topology, three uses: float calibration (records a statistic of each
 # conv input), float oracle (must equal the canonical generator + LR tail),
-# and the int8 serving path. Each conv dispatches on its prepared leaf.
+# and the int8 serving path. Each conv dispatches on its prepared leaf; the
+# tail is ``ops/lr_tail.lr_tail``, which takes the executor as its context.
 
 
 def percentile(x: torch.Tensor, q: float) -> torch.Tensor:
@@ -325,7 +283,9 @@ def percentile(x: torch.Tensor, q: float) -> torch.Tensor:
 
 class _Exec:
     """Conv executor: float (optionally collecting calibration statistics)
-    or int8, chosen by the prepared leaf's form."""
+    or int8, chosen by the prepared leaf's form. The LR tail's context: its
+    act ``scales``, the statistics it ``collect``s, ``observe``, ``qin``
+    and the ``glue`` dtype."""
 
     def __init__(self, scales, collect, glue, collect_q=None):
         self.scales = scales
@@ -347,24 +307,19 @@ class _Exec:
         return quantize_act(x.contiguous(memory_format=torch.channels_last), self.scales[name])
 
     def conv(
-        self, x: torch.Tensor, name: str, leaf: Dict[str, Any], quantize_for=None,
-        halo: bool = False,
+        self, x: torch.Tensor, name: str, leaf: Dict[str, Any], halo: bool = False,
     ) -> torch.Tensor:
-        """3x3 pad-1 conv of a prepared leaf, then its bias and PReLU where
-        it has them, each rounded to the glue dtype (quant.py's order).
-        ``quantize_for`` (an int8 conv's name) returns that conv's int8
-        input instead, quantized in an int8 conv's epilogue. ``halo``: x is
-        a width shard extended by its neighbours' columns
-        (``parallel/spatial.py``), so no zero column pads it left or right
-        and the output is two columns narrower."""
+        """3x3 pad-1 conv of a prepared trunk leaf, then its bias and PReLU
+        where it has them, each rounded to the glue dtype (quant.py's
+        order). ``halo``: x is a width shard extended by its neighbours'
+        columns (``parallel/spatial.py``), so no zero column pads it left
+        or right and the output is two columns narrower."""
         bias, alpha = leaf.get("b"), leaf.get("a")
-        out_scale = None if quantize_for is None else self.scales[quantize_for]
         if "q" in leaf:
             return int8_conv(self.qin(name, x), leaf["q"], leaf["ws"], self.scales[name],
-                             (1, 0, 0) if halo else (1, 1), bias, alpha, self.glue, out_scale)
+                             (1, 0, 0) if halo else (1, 1), bias, alpha, self.glue)
         self.observe(name, x)
-        y = bias_prelu(F.conv2d(x, leaf["w"], padding=(1, 0) if halo else 1), bias, alpha)
-        return y if quantize_for is None else self.qin(quantize_for, y)
+        return bias_prelu(F.conv2d(x, leaf["w"], padding=(1, 0) if halo else 1), bias, alpha)
 
 
 def _trunk(lay, ex: _Exec, x: torch.Tensor, n_layers: int) -> torch.Tensor:
@@ -377,59 +332,12 @@ def _trunk(lay, ex: _Exec, x: torch.Tensor, n_layers: int) -> torch.Tensor:
     return instance_norm_add(ex.conv(y, "bottleneck", lay["bottleneck"]), r)
 
 
-def _tail_4x(lay, ex: _Exec, y: torch.Tensor, n0: str = "up0", n1: str = "up1",
-             mask: Optional[torch.Tensor] = None):
-    """The 4x LR-domain tail. An int8 stage 2 takes its input quantized in
-    stage 1's epilogue and runs its four phases in one launch. The head is
-    phase-summed with fp32 partials when it is float and nothing is
-    collecting; calibration and an int8 head take the 16F phase concat
-    (per-conv-input statistics are defined on it). ``mask`` re-zeroes the
-    padding of stage 1's output (in int8, after its epilogue's quantize)
-    and of each phase."""
-    st = lay[n1]
-    if "phases_q" in st:  # a quantized plan: nothing collects
-        a1q = _masked(ex.conv(y, n0, lay[n0], quantize_for=n1), mask)  # [B, 4F, H, W] int8
-        phases = int8_conv_phases(
-            a1q, st["phases_q"], st["ws"], ex.scales[n1], st["b"], st["a"], ex.glue
-        )
-    else:
-        a1 = _masked(ex.conv(y, n0, lay[n0]), mask)  # [B, 4F, H, W], bias and PReLU applied
-        ex.observe(n1, a1)
-        phases = _phase_outputs(F.pad(a1, (1, 1, 1, 1)), st["phases"], st["b"], st["a"])
-    phases = [_masked(ph, mask) for ph in phases]
-    head = lay["head"]
-    if "parts" in head and ex.collect is None:
-        z = _summed_head(phases, head["parts"], head["b32"])
-    else:
-        a2 = torch.cat(phases, dim=1).contiguous(memory_format=torch.channels_last)
-        z = ex.conv(a2, "head", head).float() + head["b32"].view(1, -1, 1, 1)
-    return F.pixel_shuffle(torch.tanh(z), 4)
-
-
-def _tail_2x(lay, ex: _Exec, y: torch.Tensor, mask=None) -> torch.Tensor:
-    a1 = _masked(ex.conv(y, "up0", lay["up0"]), mask)
-    z = ex.conv(a1, "head", lay["head"])  # + the repeated bias, in glue
-    return F.pixel_shuffle(torch.tanh(z.float()), 2)
-
-
-def _tail_8x(lay, ex: _Exec, y: torch.Tensor, mask=None) -> torch.Tensor:
-    """Stage 0 canonical (the one-slope PReLU commutes with the shuffle),
-    then the 4x transform at 2x resolution with the stage names shifted
-    (masked: the LR mask before the shuffle, then the 2x mask)."""
-    y2 = F.pixel_shuffle(_masked(ex.conv(y, "up0", lay["up0"]), mask), 2)
-    return _tail_4x(lay, ex, y2.contiguous(memory_format=torch.channels_last), "up1", "up2",
-                    None if mask is None else mask_2x(mask))
-
-
-_TAILS = {2: _tail_2x, 4: _tail_4x, 8: _tail_8x}
-
-
 def _forward(plan: PreparedGenerator, ex: _Exec, x: torch.Tensor) -> torch.Tensor:
     if plan.trunk is not None:
         y = plan.trunk(x)
     else:
         y = _trunk(plan.layers, ex, x, plan.n_layers)
-    return _TAILS[plan.scale_factor](plan.layers, ex, y)
+    return lr_tail(y, plan.tail, ex)
 
 
 # -- public entry points ------------------------------------------------------
@@ -485,7 +393,7 @@ def sr_quant_forward_masked(
     y = plan.trunk(x.to(plan.glue), valid_hw)
     mask = valid_mask(y.shape[2], y.shape[3], *valid_hw)[0]
     ex = _Exec(act_scales, None, plan.glue)
-    return _TAILS[plan.scale_factor](plan.layers, ex, y, mask=mask)
+    return lr_tail(y, plan.tail, ex, mask)
 
 
 def default_calibration_batch(

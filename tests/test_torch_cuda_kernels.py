@@ -1060,19 +1060,6 @@ def test_int8_head_modes_run_past_2_31_elements(device, mode):
     _free(device)
 
 
-def test_head_form_script_on_the_card(device):
-    """``phase_summed_head_experiment`` cut to 540x960 at batches 1 and 2:
-    every cell timed, the two forms' fp32 outputs within 1e-4."""
-    from fast_srgan_torch.scripts import phase_summed_head_experiment as head
-
-    result = head.main(["--shape", "540x960", "--batches", "1,2", "--iters", "1"])
-    assert result["card"] and result["device"] == torch.cuda.get_device_name(0)
-    for row in result["arms"].values():
-        assert all("fps" in cell and cell["peak_bytes"] > 0 for cell in row.values())
-    assert all(ex["fp32_max_abs"] <= 1e-4 for ex in result["exactness"].values())
-    _free(device)
-
-
 def test_int8_engine_launches_and_matches_cpu(device):
     from fast_srgan_torch.checkpoints.npz_io import load_npz_params
     from fast_srgan_torch.inference import SRInferenceEngine

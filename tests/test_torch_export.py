@@ -119,8 +119,8 @@ def test_cpu_export_records_the_ops(tmp_path, params, calib, form):
 
 def test_weights_are_state_held_once(params):
     """The artifact's tensors are its state: the trunk, the LR tail's
-    rearranged weights without the dense head (its parts hold the same
-    values), no constant baked in."""
+    prepared weights (the 4x head as its four parts, no dense kernel), no
+    constant baked in."""
     module = export.build_forward_u8(params, bf16=False, device="cpu")
     program = export.export_shape(module, *SHAPE)
     names = set(program.state_dict)
@@ -129,27 +129,6 @@ def test_weights_are_state_held_once(params):
     assert {f"tail.w_head_parts_{i}" for i in range(4)} <= names
     ptrs = [t.untyped_storage().data_ptr() for t in program.state_dict.values()]
     assert len(set(ptrs)) == len(ptrs)
-
-
-def test_concat_head_form_is_rebuilt_from_the_parts(params):
-    """At >= 2 frames of >= 540x960 the 4x head runs as one dense conv
-    (head_form_4x): the module rebuilds its kernel from the four parts,
-    so the result equals the engine's, whose dense kernel was prepared."""
-    from fast_srgan_torch.ops import lr_tail
-
-    module = export.build_forward_u8(params, bf16=False, device="cpu")
-    engine = SRInferenceEngine(params, dtype=torch.float32, device="cpu")
-    x = torch.from_numpy(np.random.default_rng(3).integers(0, 256, (2, 6, 8, 3), np.uint8))
-    old = lr_tail.CONCAT_HEAD_MIN_PIXELS
-    try:
-        lr_tail.CONCAT_HEAD_MIN_PIXELS = 6 * 8
-        assert lr_tail.head_form_4x(2, 48) == "concat"
-        with torch.no_grad():
-            got = module(x)
-        want = engine.forward_u8(x)
-    finally:
-        lr_tail.CONCAT_HEAD_MIN_PIXELS = old
-    torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 def test_fused_stage_exports_as_its_op(tmp_path):

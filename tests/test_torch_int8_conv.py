@@ -41,7 +41,13 @@ from fast_srgan_torch.kernels.int8_conv import (
     tile_weights,
 )
 from fast_srgan_torch.kernels.quantize import quantize_act_reference
-from fast_srgan_torch.ops.lr_tail import _phase_kernels_2x, _phase_outputs, _summed_head
+from fast_srgan_torch.ops import lr_tail as port_lr_tail
+from fast_srgan_torch.ops.lr_tail import (
+    _phase_kernels_2x,
+    _phase_outputs,
+    _summed_head,
+    tail_conv,
+)
 from test_torch_generator import random_params
 
 torch.set_num_threads(1)
@@ -213,12 +219,12 @@ class TestTiledWeights:
         assert tiled.shape == (1, 1, 9, 2, 64, 16)  # Cin 16 zero-filled to 32
 
 
-def _unfused_tail_4x(lay, ex, y, n0="up0", n1="up1", mask=None):
-    """The int8 4x tail unfused: stage 1 in the glue dtype, a separate
-    quantize of its output, four single-phase convs (unmasked)."""
+def _unfused_transform_4x(y, w, n0, n1, ex, mask):
+    """The one tail's 4x transform unfused: stage 1 in the glue dtype, a
+    separate quantize of its output, four single-phase convs (unmasked)."""
     assert mask is None
-    a1 = ex.conv(y, n0, lay[n0])
-    st = lay[n1]
+    a1 = tail_conv(y, n0, w[n0], ex)
+    st = w[n1]
     if "phases_q" in st:
         a1q = quantize_act_reference(
             a1.contiguous(memory_format=torch.channels_last), ex.scales[n1])
@@ -229,12 +235,12 @@ def _unfused_tail_4x(lay, ex, y, n0="up0", n1="up1", mask=None):
         ]
     else:
         phases = _phase_outputs(F.pad(a1, (1, 1, 1, 1)), st["phases"], st["b"], st["a"])
-    head = lay["head"]
+    head = w["head"]
     if "parts" in head:
         z = _summed_head(phases, head["parts"], head["b32"])
     else:
         a2 = torch.cat(phases, dim=1).contiguous(memory_format=torch.channels_last)
-        z = ex.conv(a2, "head", head).float() + head["b32"].view(1, -1, 1, 1)
+        z = tail_conv(a2, "head", head, ex).float() + head["b32"].view(1, -1, 1, 1)
     return F.pixel_shuffle(torch.tanh(z), 4)
 
 
@@ -249,8 +255,7 @@ class TestExecutor:
             scales = quant.calibrate_scales(quant.prepare_generator(params, device="cpu"), [x])
             plan = quant.prepare_generator(params, mode, glue, device="cpu")
             got = quant.sr_quant_forward(plan, scales, _nchw(x))
-            monkeypatch.setattr(quant, "_tail_4x", _unfused_tail_4x)
-            monkeypatch.setitem(quant._TAILS, 4, _unfused_tail_4x)
+            monkeypatch.setattr(port_lr_tail, "_transform_4x", _unfused_transform_4x)
             want = quant.sr_quant_forward(plan, scales, _nchw(x))
         assert got.shape == (2, 3, 6 * scale, 7 * scale)
         assert torch.equal(got, want)
@@ -268,9 +273,7 @@ class TestExecutor:
         calls = {k: 0 for k in want}
         fused = []
 
-        def counted(name):
-            fn = getattr(quant, name)
-
+        def counted(name, fn):
             def wrapper(*args, **kwargs):
                 calls[name] += 1
                 if name == "int8_conv":
@@ -280,8 +283,10 @@ class TestExecutor:
 
             return wrapper
 
-        for name in want:
-            monkeypatch.setattr(quant, name, counted(name))
+        for name in want:  # the executor's trunk and the one tail's calls
+            for module in (quant, port_lr_tail):
+                if hasattr(module, name):
+                    monkeypatch.setattr(module, name, counted(name, getattr(module, name)))
         params = random_params(8, 1, 4, seed=1)
         x = np.random.default_rng(1).uniform(-1, 1, (1, 5, 6, 3)).astype(np.float32)
         with torch.no_grad():
@@ -296,7 +301,7 @@ class TestExecutor:
 
     def test_phases_prepared_once(self):
         plan = quant.prepare_generator(random_params(8, 1, 4), "ups", device="cpu")
-        st = plan.layers["up1"]
+        st = plan.tail["up1"]
         assert isinstance(st["phases_q"], Int8Phases)
         assert st["phases_q"].tiled.dtype == torch.int8 and st["phases_q"].cout == 32
 
@@ -343,7 +348,7 @@ class TestHaloForm:
         gen = torch.Generator().manual_seed(2)
         k = torch.randint(-127, 128, (3, 3, 16, 32), generator=gen).to(torch.int8)
         phases = pack_int8_phases(
-            [(pq, pack_int8_weight(kp)) for pq, kp in quant._phase_kernels_2x(k).items()])
+            [(pq, pack_int8_weight(kp)) for pq, kp in _phase_kernels_2x(k).items()])
         xq = torch.randint(-127, 128, (2, 5, 11, 64), generator=gen).to(torch.int8)
         xq = xq.permute(0, 3, 1, 2)
         ws, s = torch.rand(32, generator=gen) * 1e-2 + 1e-3, torch.tensor(1.7)

@@ -56,13 +56,13 @@ class TestQuantForward:
     def test_plan_holds_int8_where_the_mode_says(self):
         params = random_params(8, 1, 4)
         ups = quant.prepare_generator(params, "ups", torch.bfloat16, device="cpu")
-        assert "neck" not in ups.layers and "w" in ups.layers["head"]
-        assert "q" in ups.layers["up0"] and "phases_q" in ups.layers["up1"]
+        assert not ups.layers and "parts" in ups.tail["head"]  # a float head: summed
+        assert "q" in ups.tail["up0"] and "phases_q" in ups.tail["up1"]
         assert ups.trunk is not None  # Generator.trunk, with the IN+PReLU kernel
         full = quant.prepare_generator(params, "full", torch.bfloat16, device="cpu")
-        assert "q" in full.layers["neck"] and "q" in full.layers["head"]
+        assert "q" in full.layers["neck"] and "q" in full.tail["head"]
         assert full.trunk is None
-        assert full.layers["head"]["q"].packed.shape == (64, 3, 3, 128)  # 48 -> 64 rows
+        assert full.tail["head"]["q"].packed.shape == (64, 3, 3, 128)  # 48 -> 64 rows
 
 
 def _small(seed=0):

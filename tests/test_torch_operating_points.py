@@ -7,9 +7,6 @@ values the card set.
   bucketed bf16 and bucketed ``ups``), scale and explicit budget; then the
   port's own values, each the row of PERF.md's budget sweep (section 6)
   it was set from.
-* The 4x head form: ``head_form_4x`` equals JAX's at equal thresholds over
-  a grid of (batch, LR pixels), and with the threshold None is always
-  summed.
 * The int8 kernels' size predicates take a shape of 2^31 elements or more
   (checked on the shape alone, nothing allocated) and still refuse what
   the grid cannot hold: more than 65535 samples or N tiles, or nothing.
@@ -20,13 +17,11 @@ import pytest
 import torch
 
 from fast_srgan_tpu.inference import SRInferenceEngine as JaxEngine
-from fast_srgan_tpu.ops import lr_tail as jax_lr_tail
 from fast_srgan_torch.inference import SRInferenceEngine
 from fast_srgan_torch.kernels.int8_conv import _check_x, pack_int8_weight
 from fast_srgan_torch.kernels.int8_conv import check_size as int8_check_size
 from fast_srgan_torch.kernels.quantize import check_kernel_inputs as quantize_check_inputs
 from fast_srgan_torch.kernels.quantize import check_size as quantize_check_size
-from fast_srgan_torch.ops import lr_tail
 from test_torch_generator import random_params
 
 torch.set_num_threads(2)
@@ -73,30 +68,6 @@ def test_port_budgets_are_the_sweeps(scale):
     assert (SRInferenceEngine.INT8_UPS_PIXEL_BUDGETS[scale]
             == H100_INT8_UPS_FRAMES[scale] * 180 * 320)
 
-
-_HEAD_GRID = [(b, px) for b in (1, 2, 3, 8, 128)
-              for px in (1, 90 * 160, 180 * 320, 360 * 640, 540 * 960 - 1, 540 * 960,
-                         720 * 1280, 1080 * 1920)]
-
-
-@pytest.mark.parametrize("threshold", [540 * 960, 180 * 320, 1, 720 * 1280])
-def test_head_form_matches_jax_at_equal_thresholds(monkeypatch, threshold):
-    monkeypatch.setattr(lr_tail, "CONCAT_HEAD_MIN_PIXELS", threshold)
-    monkeypatch.setattr(jax_lr_tail, "CONCAT_HEAD_MIN_PIXELS", threshold)
-    for batch, px in _HEAD_GRID:
-        assert lr_tail.head_form_4x(batch, px) == jax_lr_tail.head_form_4x(batch, px), (batch, px)
-
-
-def test_head_form_none_is_always_summed(monkeypatch):
-    monkeypatch.setattr(lr_tail, "CONCAT_HEAD_MIN_PIXELS", None)
-    assert {lr_tail.head_form_4x(b, px) for b, px in _HEAD_GRID} == {"summed"}
-
-
-def test_head_threshold_is_the_sweeps():
-    """PERF.md section 6, the head-form table: summed never loses,
-    so the float 4x tail is summed at every batch and frame size."""
-    assert lr_tail.CONCAT_HEAD_MIN_PIXELS is None
-    assert lr_tail.head_form_4x(8, 540 * 960) == "summed"
 
 #: the int8 4x head's input at batch 40 of 180x320 (2.36e9 elements) and
 #: the four stage-2 phases' at batch 148 (2.18e9)

@@ -178,7 +178,7 @@ def test_int8_conv_formulas_are_their_convolutions():
     assert counter.get_total_flops() == _conv_count(x, torch.zeros((40, 48, 3, 3)), padding=1)
     params = random_params(16, 1, 4, seed=3)
     plan = quant.prepare_generator(params, "ups", torch.float32, "cpu")
-    st = plan.layers["up1"]
+    st = plan.tail["up1"]
     a1q = torch.randint(-127, 128, (2, 64, 5, 7), generator=gen, dtype=torch.int8)
     a1q = a1q.contiguous(memory_format=torch.channels_last)
     with FlopCounterMode(display=False) as counter:

@@ -109,7 +109,9 @@ def test_psnr_by_arm_matches_jax(pretrained, scale, shape):
 def test_head_only_arm_quantizes_the_head_alone(pretrained):
     plan = quant.prepare_generator(pretrained, eval_int8.ARMS["int8_head_only"],
                                    torch.float32, "cpu")
-    int8_layers = sorted(k for k, v in plan.layers.items() if "q" in v or "phases_q" in v)
+    convs = {**plan.layers, **plan.tail}
+    int8_layers = sorted(k for k, v in convs.items()
+                         if isinstance(v, dict) and ("q" in v or "phases_q" in v))
     assert int8_layers == ["head"] and plan.trunk is None
 
 

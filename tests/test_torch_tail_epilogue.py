@@ -2,9 +2,12 @@
 
 CPU: the op's plain version is bitwise the composition it replaces (the
 conv without bias, the bias ``add_``, ``F.prelu``, the window's copy; the
-padded form's border 0 and interior equal), and every LR tail (4x summed,
-concat and masked, 2x, 8x, SwinIR's) is bitwise that composition's tail,
-in bf16 and fp32, as are the width-sharded tail's stages.
+padded form's border 0 and interior equal), and the one LR tail at every
+scale and form (4x summed, concat and masked, 2x, 8x, SwinIR's) is bitwise
+that composition's tail, in bf16 and fp32, as are the width-sharded tail's
+stages. The head rule as a table: a float or an int8 head, with
+statistics collected or not, each output bitwise the plain composition in
+the form the rule names.
 
 Card (marked ``cuda``; they skip without a CUDA device, decided in the
 fixture):
@@ -22,6 +25,10 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from fast_srgan_torch import quant
+from fast_srgan_torch.checkpoints.convert import params_from_state_dict
+from fast_srgan_torch.kernels.int8_conv import int8_conv_reference
+from fast_srgan_torch.kernels.quantize import quantize_act_reference
 from fast_srgan_torch.kernels.tail_epilogue import tail_epilogue, tail_epilogue_reference
 from fast_srgan_torch.models.generator import Generator
 from fast_srgan_torch.models.swinir import SwinIR
@@ -30,12 +37,12 @@ from fast_srgan_torch.ops.lr_tail import (
     _masked,
     _out,
     _summed_head,
-    apply_tail,
+    head_form,
     lr_tail,
-    lr_tail_2x,
-    lr_tail_8x,
     mask_2x,
     prepare_lr_tail,
+    stage_names,
+    tail_conv,
 )
 from fast_srgan_torch.ops.norm import valid_mask
 from fast_srgan_torch.parallel import spatial
@@ -60,8 +67,9 @@ def _draw(shape, dtype, seed, device="cpu"):
 # The parent tail as the card runs it: cuDNN's conv adds no bias, so a
 # biased conv is the conv, then ``add_`` of the bias; F.prelu reads the
 # phase's window; stage 1's output goes through F.pad. ``fused`` passes the
-# bias to F.conv2d as the parent's code did (the same on the card; on the
-# CPU oneDNN adds it inside the conv and rounds once).
+# bias of stage 1 and the phases to F.conv2d as the parent's code did (the
+# same on the card; on the CPU oneDNN adds it inside the conv and rounds
+# once). The 2x head and the 8x stage 0 add their bias after the conv.
 
 
 def _conv(x, w, b, padding, fused):
@@ -85,38 +93,40 @@ def _phases(a1, phases, bias, alpha, fused):
             for (p, q), kp in phases]
 
 
-def composition_lr_tail(y, w, head="summed", mask=None, fused=False):
-    a1 = _masked(_stage(y.to(w["up0"]["w"].dtype), w["up0"], fused), mask)
-    phases = [_masked(ph, mask)
-              for ph in _phases(a1, w["phases"], w["up1_b"], w["up1_a"], fused)]
+def _dense(head):
+    return torch.cat(head["parts"], dim=1).contiguous(memory_format=torch.channels_last)
+
+
+def composition_lr_tail(y, w, head="summed", mask=None, fused=False, names=("up0", "up1")):
+    st1, st2 = w[names[0]], w[names[1]]
+    a1 = _masked(_stage(y.to(st1["w"].dtype), st1, fused), mask)
+    phases = [_masked(ph, mask) for ph in _phases(a1, st2["phases"], st2["b"], st2["a"], fused)]
+    hd = w["head"]
     if head == "concat":
-        z = (F.conv2d(torch.cat(phases, dim=1), w["head_w"], padding=1).float()
-             + w["head_b"].view(1, -1, 1, 1))
+        z = (F.conv2d(torch.cat(phases, dim=1), _dense(hd), padding=1).float()
+             + hd["b32"].view(1, -1, 1, 1))
     else:
-        z = _summed_head(phases, w["head_parts"], w["head_b"])
+        z = _summed_head(phases, hd["parts"], hd["b32"])
     return F.pixel_shuffle(_out(z, w), 4)
 
 
 def composition_lr_tail_2x(y, w, mask=None, fused=False):
-    a1 = _masked(_stage(y.to(w["head_w"].dtype), w["up0"], fused), mask)
-    z = F.conv2d(a1, w["head_w"], w["head_b"], padding=1)
+    a1 = _masked(_stage(y.to(w["up0"]["w"].dtype), w["up0"], fused), mask)
+    z = _conv(a1, w["head"]["w"], w["head"]["b"], 1, fused=False)
     return F.pixel_shuffle(_out(z.float(), w), 2)
 
 
 def composition_lr_tail_8x(y, w, mask=None, fused=False):
-    st = w["up0"]
-    a0 = _masked(F.conv2d(y.to(st["w"].dtype), st["w"], st["b"], padding=1), mask)
-    y2 = _prelu(F.pixel_shuffle(a0, 2), st["a"])
-    return composition_lr_tail(y2, w["sub"], mask=None if mask is None else mask_2x(mask),
-                               fused=fused)
+    a0 = _masked(_stage(y.to(w["up0"]["w"].dtype), w["up0"], fused=False), mask)
+    y2 = F.pixel_shuffle(a0, 2).contiguous(memory_format=torch.channels_last)
+    return composition_lr_tail(y2, w, mask=None if mask is None else mask_2x(mask),
+                               fused=fused, names=("up1", "up2"))
 
 
 def composition_apply_tail(y, w, fused=False):
-    if "sub" in w:
-        return composition_lr_tail_8x(y, w, fused=fused)
-    if "phases" in w:
-        return composition_lr_tail(y, w, fused=fused)
-    return composition_lr_tail_2x(y, w, fused=fused)
+    scale = 2 ** len(stage_names(w))
+    return {2: composition_lr_tail_2x, 4: composition_lr_tail,
+            8: composition_lr_tail_8x}[scale](y, w, fused=fused)
 
 
 def _composition_window(x, bias, slope, p, q, h, w):
@@ -217,14 +227,15 @@ def test_generator_tails_are_the_composition(case, dtype):
     mask = valid_mask(7, 9, torch.tensor([7, 4]), torch.tensor([9, 5]))[0] \
         if case.endswith("masked") else None
     with torch.inference_mode():
+        got = lr_tail(y, w, mask=mask)
         if scale == 4:
-            head = "concat" if case.endswith("concat") else "summed"
-            got = lr_tail(y, w, head=head, mask=mask)
-            want = composition_lr_tail(y, w, head=head, mask=mask)
+            if case.endswith("concat"):  # reached as calibration reaches it
+                got = lr_tail(y, w, quant._Exec(None, {}, dtype), mask)
+            want = composition_lr_tail(y, w, head=case.split()[1], mask=mask)
         elif scale == 2:
-            got, want = lr_tail_2x(y, w, mask), composition_lr_tail_2x(y, w, mask)
+            want = composition_lr_tail_2x(y, w, mask)
         else:
-            got, want = lr_tail_8x(y, w, mask), composition_lr_tail_8x(y, w, mask)
+            want = composition_lr_tail_8x(y, w, mask)
     assert got.shape == (2, 3, 7 * scale, 9 * scale) and got.dtype == torch.float32
     assert torch.equal(got, want)
 
@@ -238,7 +249,7 @@ def test_swinir_tail_is_the_composition(dtype):
     w = model.prepare_lr_tail(dtype=dtype)
     y = _trunk_out(dtype, seed=30)
     with torch.inference_mode():
-        got, want = apply_tail(y, w), composition_apply_tail(y, w)
+        got, want = lr_tail(y, w), composition_apply_tail(y, w)
     assert got.shape == (2, 3, 28, 36)
     assert torch.equal(got, want)
 
@@ -253,34 +264,75 @@ def test_fp32_tail_is_the_parents_cpu_code():
 
 
 def test_phase_outputs_take_stage_1_padded():
-    """``_phase_outputs`` (also the calibration plan's, ``quant._tail_4x``)
-    on stage 1's padded output: the composition's phases."""
-    w = _generator_tail(4, torch.bfloat16, seed=50)
+    """``_phase_outputs`` (the one tail's, calibration's and the sharded
+    forward's) on stage 1's padded output: the composition's phases."""
+    st = _generator_tail(4, torch.bfloat16, seed=50)["up1"]
     a1 = _cl(_draw((2, 32, 5, 6), torch.bfloat16, 51))
-    got = port_lr_tail._phase_outputs(F.pad(a1, (1, 1, 1, 1)), w["phases"], w["up1_b"],
-                                      w["up1_a"])
-    want = _phases(a1, w["phases"], w["up1_b"], w["up1_a"], fused=False)
+    got = port_lr_tail._phase_outputs(F.pad(a1, (1, 1, 1, 1)), st["phases"], st["b"], st["a"])
+    want = _phases(a1, st["phases"], st["b"], st["a"], fused=False)
     assert all(torch.equal(g, v) for g, v in zip(got, want))
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["bf16", "fp32"])
 def test_tiled_tail_stages_are_the_composition(dtype):
-    """The width-sharded tail (``parallel/spatial.py``): stage 1 of each
-    shard and the four phase windows of a halo-extended shard, bitwise the
-    conv, the bias add_, F.prelu and the window's copy."""
+    """The width-sharded tail (``parallel/spatial.lr_tail_shards``): stage
+    1 of each halo-extended shard (``tail_conv``'s halo form) and the four
+    phase windows of a halo-extended shard padded by a zero row above and
+    below, bitwise the conv, the bias add_, F.prelu and the window's copy."""
     w = _generator_tail(4, dtype, seed=60)
     ys = [_cl(_draw((2, 8, 5, 4), dtype, 61 + i)) for i in range(2)]
-    st = w["up0"]
-    got = spatial._stage_1([w, w], ys)
+    st, st2 = w["up0"], w["up1"]
+    got = [tail_conv(e, "up0", st, halo=True) for e in spatial.halo_extended(ys)]
     want = [_prelu(v.add_(st["b"].view(1, -1, 1, 1)), st["a"])
             for v in spatial.halo_conv(ys, [st["w"]] * 2)]
     assert all(torch.equal(g, v) for g, v in zip(got, want))
     ext = next(spatial.halo_extended(got))  # [2, 32, 5, 6]
     xp = F.pad(ext, (0, 0, 1, 1))
-    want = [_prelu(_conv(xp, kp, w["up1_b"], 0, fused=False)[:, :, p:p + 5, q:q + 4],
-                   w["up1_a"]) for (p, q), kp in w["phases"]]
-    got = spatial._phase_windows(ext, w["phases"], w["up1_b"], w["up1_a"])
+    want = [_prelu(_conv(xp, kp, st2["b"], 0, fused=False)[:, :, p:p + 5, q:q + 4], st2["a"])
+            for (p, q), kp in st2["phases"]]
+    got = port_lr_tail._phase_outputs(xp, st2["phases"], st2["b"], st2["a"])
     assert all(g.shape == (2, 32, 5, 4) and torch.equal(g, v) for g, v in zip(got, want))
+
+
+#: the head rule: (head, collecting) -> the form it names
+HEAD_RULE = {("float", False): "summed", ("float", True): "concat",
+             ("int8", False): "concat", ("int8", True): "concat"}
+
+
+@pytest.mark.parametrize("head,collecting", list(HEAD_RULE), ids=lambda v: str(v))
+def test_head_rule_table(head, collecting):
+    """The 4x head's one rule, each cell of (a float or an int8 head) x
+    (statistics collected or not): the form it names, and the tail's
+    output bitwise the plain composition in that form; the head's
+    statistic, where one is collected, is the 16F concat's."""
+    torch.manual_seed(70)
+    params = params_from_state_dict(Generator(n_filters=8, n_layers=1, scale_factor=4).state_dict())
+    x = np.random.default_rng(70).uniform(-1, 1, (1, 6, 7, 3)).astype(np.float32)
+    scales = quant.calibrate_scales(quant.prepare_generator(params, device="cpu"), [x])
+    mode = None if head == "float" else (lambda name: name == "head_conv")
+    w = quant.prepare_generator(params, mode, torch.float32, "cpu").tail
+    ex = quant._Exec(scales, {} if collecting else None, torch.float32)
+    form = HEAD_RULE[(head, collecting)]
+    assert head_form(w["head"], ex) == form
+    y = _trunk_out(torch.float32, seed=71)
+    with torch.inference_mode():
+        got = lr_tail(y, w, ex)
+        a1 = _stage(y, w["up0"], fused=False)
+        st2 = w["up1"]
+        phases = _phases(a1, st2["phases"], st2["b"], st2["a"], fused=False)
+        hd, a2 = w["head"], _cl(torch.cat(phases, dim=1))
+        if form == "summed":
+            z = sum(F.conv2d(ph, kp, padding=1).float() for ph, kp in zip(phases, hd["parts"]))
+        elif head == "float":
+            z = F.conv2d(a2, _dense(hd), padding=1).float()
+        else:
+            a2q = quantize_act_reference(a2, scales["head"])
+            z = int8_conv_reference(a2q, hd["q"], hd["ws"], scales["head"],
+                                    out_dtype=torch.float32).float()
+        want = F.pixel_shuffle(torch.tanh(z + hd["b32"].view(1, -1, 1, 1)), 4)
+    assert got.shape == (2, 3, 28, 36) and torch.equal(got, want)
+    if collecting:
+        assert torch.equal(ex.collect["head"], a2.abs().amax())
 
 
 # --- the card -------------------------------------------------------------------
@@ -392,7 +444,7 @@ def test_graphed_stream_is_the_eager_composition(device, pretrained, dtype, monk
     got = list(engine.stream(iter(frames), batch_size=8))
     assert engine.graph_replays == 2
     monkeypatch.setattr(port_lr_tail, "lr_tail",
-                        lambda y, w, head="auto", mask=None:
+                        lambda y, w, ex=None, mask=None:
                         composition_lr_tail(y, w, mask=mask, fused=True))
     before = tail_epilogue.launches
     want = np.concatenate([engine.upscale_batch(np.stack(frames[i:i + 8])) for i in (0, 8)])
