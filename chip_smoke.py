@@ -48,6 +48,16 @@ own line; any failure exits non-zero and prints no result:
      the plain version and the stock pair it replaces (``add_`` of the
      bias over the conv output, then ``F.prelu`` of the window; stage 1:
      ``add_``, ``F.prelu``, ``F.pad``) as the yardstick;
+ 8c. kernel: SwinIR's window attention (``window_attn``, its ptxas line
+     first) against its plain version at the video cell's layer,
+     [8, 184, 320, 540] (6 heads of 30) in bf16 and fp32, unshifted and
+     shifted; each timed beside its bound, the plain version and the chain
+     SwinIR's layer ran before it (roll, partition by class, the qkv
+     linear, head pad 30 -> 32, SDPA a class, transpose, reverse, roll
+     back, less the qkv linear's own time) as the yardstick; two planted
+     faults (the padded head's scale, the shift mask dropped) read beyond
+     the bf16 limit; one eager SwinIR-M forward's launches in bf16 and in
+     fp32 (one a layer, 36);
   9. training: the reference configuration (64/8 4x generator, 64-filter
      discriminator, VGG19 with fixed-seed weights, batch 24 of 96x96 crops,
      bf16 autocast): 20 pretrain steps (the loss must fall) and 10 GAN steps
@@ -283,6 +293,9 @@ TAIL_SOURCE = "fast_srgan_torch/csrc/tail_epilogue.cu"
 TAIL_REPLACES = None
 #: epilogue launches a float 4x LR-tail forward: stage 1 and the four phases
 TAIL_PASSES = 5
+WINDOW_ATTN_SOURCE = "fast_srgan_torch/csrc/window_attn.cu"
+# none: the JAX package has no SwinIR
+WINDOW_ATTN_REPLACES = None
 
 FP32_TOL = 2e-5
 BF16_TOL = 2e-2
@@ -311,6 +324,12 @@ HBM_BPS = 3.35e12
 BF16_FLOPS = 989e12
 INT8_OPS = 1979e12
 FP32_FLOPS = 67e12  # outside the tensor cores
+# window_attn against its fp32 plain version, as a share of the largest |v|
+# (phase 8c's shape, NVIDIA H100): bf16 read 1.4e-3 to 1.6e-3 (P and the
+# output rounded to bf16), the padded head's scale 2.4e-2 to 2.8e-2 and a
+# dropped shift mask 0.51 to 0.68; fp32 3.4e-7 (another order of sums alone)
+WINDOW_ATTN_BF16_TOL = 3e-3
+WINDOW_ATTN_F32_TOL = 2e-6
 
 
 def bound(nbytes: float, ops: float, peak: float) -> dict:
@@ -1267,6 +1286,133 @@ def phase_tail_epilogue() -> dict:
               f" plain {plain_ms:.4f}, stock add_ + F.prelu {stock_ms:.4f}; stage 1 padded"
               f" from [{b},{c},{h},{w}]: kernel {ms1:.4f}, plain {plain1:.4f}, stock add_ +"
               f" F.prelu + F.pad {stock1_ms:.4f}; bitwise in bf16 and fp32", flush=True)
+    return row
+
+
+def _parent_window_chain(t, qkv_w, qkv_b, masks, shift, scale):
+    """SwinIR's layer before the window-attention kernel, from LN1's output
+    t [B, H, W, C] to proj's input: roll, partition by window class, the qkv
+    linear, the head zero-padded to a multiple of 8, one SDPA a class, the
+    output's transpose, reverse, roll back (the yardstick)."""
+    import torch.nn.functional as F
+
+    from fast_srgan_torch.kernels.window_attn import partition, reverse, window_regions
+
+    b, h, w, c = t.shape
+    heads = masks.shape[1]
+    hd = c // heads
+    hp = -(-hd // 8) * 8
+    regions = window_regions(h, w, 8, bool(shift))
+    if shift:
+        t = torch.roll(t, (-shift, -shift), (1, 2))
+    x = partition(t, 8, regions)
+    m = x.shape[0]
+    qkv = F.linear(x, qkv_w, qkv_b).view(m, 64, 3, heads, hd).permute(2, 0, 3, 1, 4)
+    q, k, v = F.pad(qkv, (0, hp - hd))
+    out = x.new_empty(m, 64, heads, hd)
+    at = 0
+    for _, _, nh, nw, cls in regions:
+        run = slice(at, at + b * nh * nw)
+        o = F.scaled_dot_product_attention(q[run], k[run], v[run],
+                                           attn_mask=masks[cls:cls + 1], scale=scale)
+        out[run] = o.transpose(1, 2)[..., :hd]
+        at = run.stop
+    o = reverse(out.view(m, 64, c), 8, regions, h, w)
+    return torch.roll(o, (shift, shift), (1, 2)) if shift else o
+
+
+def phase_window_attn() -> dict:
+    """SwinIR's window attention at the video cell's layer ([8, 184, 320],
+    C = 180, 6 heads of 30): the kernel against its plain version in bf16
+    and fp32, each timed beside its bound, the plain version and the
+    parent's chain; two planted faults' distance from the plain version
+    (the padded head's scale, the shift mask dropped), which the bf16 limit
+    has to catch; one eager SwinIR-M forward's launches in each type.
+    Returns the kernels line's row (the bf16 shifted layer's; unshifted_*
+    and f32_* the others)."""
+    import torch.nn.functional as F
+
+    from benchmark.reference.swinir import seeded_state_dict
+    from fast_srgan_torch.inference import SRInferenceEngine
+    from fast_srgan_torch.kernels.window_attn import window_attn, window_attn_reference
+    from fast_srgan_torch.models.swinir import shift_mask
+
+    for line in _ptxas_lines("window_attn"):
+        print(f"[8c kernel] ptxas {line}", flush=True)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(24)
+    b, h, w, c, heads = 8, 184, 320, 180, 6
+    hd, scale = c // heads, (c // heads) ** -0.5
+    t32 = torch.randn((b, h, w, c), device=dev, generator=gen)
+    w32 = torch.randn((3 * c, c), device=dev, generator=gen) / c ** 0.5
+    b32 = torch.randn(3 * c, device=dev, generator=gen) / 10
+    bias = torch.randn((1, heads, 64, 64), device=dev, generator=gen)
+    tokens = b * h * w
+    row = {}
+    for dtype, name, limit, peak in ((torch.bfloat16, "bf16", WINDOW_ATTN_BF16_TOL, BF16_FLOPS),
+                                     (torch.float32, "f32", WINDOW_ATTN_F32_TOL, FP32_FLOPS)):
+        t, qkv_w, qkv_b = t32.to(dtype), w32.to(dtype), b32.to(dtype)
+        qkv = F.linear(t, qkv_w, qkv_b)
+        vmax = qkv[..., 2 * c:].float().abs().max().item()
+        for shift in (0, 4):
+            masks = bias + shift_mask(16, 16, 8, shift, dev)[:, None] if shift else bias
+            masks = masks.to(dtype).contiguous()
+            got = window_attn(qkv, masks, shift, scale)
+            want = window_attn_reference(qkv.float(), masks.float(), shift, scale)
+            err = (got.float() - want).abs().max().item()
+            check(err <= limit * vmax,
+                  f"window_attn {name} shift {shift}: {err} off the plain version")
+            check(torch.equal(got, window_attn(qkv, masks, shift, scale)),
+                  f"window_attn {name} shift {shift}: not the same run to run")
+            r = {"max_err": err, "max_err_share": err / vmax}
+            if dtype == torch.bfloat16:
+                # planted: the padded head's scale; a shifted layer's masks
+                # without the shift mask (every window the interior's)
+                planted = {"planted_scale_share": window_attn_reference(
+                    qkv.float(), masks.float(), shift, 32 ** -0.5)}
+                if shift:
+                    planted["planted_mask_share"] = window_attn_reference(
+                        qkv.float(), masks[:1].float().expand(4, -1, -1, -1).contiguous(),
+                        shift, scale)
+                for key, fault in planted.items():
+                    r[key] = (fault - want).abs().max().item() / vmax
+                    check(r[key] > limit, f"window_attn {name} shift {shift}: {key} {r[key]}"
+                          f" within the limit {limit}")
+            del got, want
+            ms, plain_ms = _timed_pair(lambda: window_attn(qkv, masks, shift, scale),
+                                       lambda: window_attn_reference(qkv, masks, shift, scale),
+                                       iters=50, plain_iters=5)
+            chain_ms = cuda_ms(lambda: _parent_window_chain(t, qkv_w, qkv_b, masks, shift, scale),
+                               20)
+            linear_ms = cuda_ms(lambda: F.linear(t, qkv_w, qkv_b), 20)
+            nbytes = (4 * tokens * c + masks.numel()) * qkv.element_size()
+            ops = 4 * tokens * 64 * c  # q k^T and P v, 2 x 64 x hd a query and head each
+            r.update({"ms": ms, "plain_ms": plain_ms, "library_ms": chain_ms - linear_ms,
+                      "chain_ms": chain_ms, "qkv_linear_ms": linear_ms,
+                      **bound(nbytes, ops, peak)})
+            print(f"[8c kernel] window_attn {name} [{b},{h},{w},{3 * c}] shift {shift}: kernel"
+                  f" {ms:.4f} ms ({100 * r['bound_ms'] / ms:.1f}% of {r['bound_ms']:.4f},"
+                  f" {r['bound_by']}), plain {plain_ms:.4f}, parent chain {chain_ms:.4f} less"
+                  f" the qkv linear {linear_ms:.4f} = {chain_ms - linear_ms:.4f}; max |err|"
+                  f" {err:.3g} = {err / vmax:.3g} of |v| <= {vmax:.3g} (limit {limit:g})"
+                  + "".join(f", {k} {r[k]:.3g}" for k in r if k.startswith("planted")),
+                  flush=True)
+            prefix = ("" if shift else "unshifted_") if dtype == torch.bfloat16 else \
+                ("f32_" if shift else "f32_unshifted_")
+            row.update({f"{prefix}{k}": v for k, v in r.items()})
+        del qkv
+    arch = dict(embed_dim=180, depths=[6] * 6, num_heads=[6] * 6, window_size=8,
+                mlp_ratio=2.0, num_feat=64, scale_factor=4)
+    frames = np.random.default_rng(24).integers(0, 256, (2, 36, 60, 3), dtype=np.uint8)
+    for dtype, key in ((torch.bfloat16, "launches"), (torch.float32, "f32_launches")):
+        engine = SRInferenceEngine(seeded_state_dict(arch, 24), dtype=dtype, device=dev)
+        engine.upscale_batch(frames)
+        before = window_attn.launches
+        engine.upscale_batch(frames)
+        row[key] = window_attn.launches - before
+        check(row[key] == 36, f"window_attn launches a {dtype} SwinIR-M forward: {row[key]}")
+        print(f"[8c kernel] one eager {dtype} SwinIR-M forward: {row[key]} window_attn launches",
+              flush=True)
     return row
 
 
@@ -3672,6 +3818,7 @@ def main() -> None:
     up_row = phase_upsample_kernel(card)
     shuffle_row, stage_ms = phase_shuffle_kernel()
     tail_row = phase_tail_epilogue()
+    window_row = phase_window_attn()
 
     from fast_srgan_torch.checkpoints.npz_io import load_npz_params
 
@@ -3742,7 +3889,9 @@ def main() -> None:
     # phase 17e's one forward of 70,000 frames (bf16; int8 ups for the s8
     # and quantize rows), one count a call however many batch chunks. The
     # tail epilogue's launches are phase 4's too, its split launches phase
-    # 14's bf16 4K tiled forward's.
+    # 14's bf16 4K tiled forward's. The window attention's are phase 8c's
+    # one eager SwinIR-M forward; its times the shifted layer's (unshifted_*
+    # the other's), library_ms the parent's chain less the qkv linear.
     two = exported["two_launch"]
     split = tiled["counts"]
     split_q = tiled["int8_counts"]
@@ -3819,6 +3968,9 @@ def main() -> None:
          "launches": launches[2], "past_grid_launches": past["bf16"]["tail"],
          "artifact_launches": art["tail"], "two_launch_artifact_launches": two["tail"],
          "split_launches": split["tail"], **tail_row},
+        {"name": "window_attn", "route": "cuda", "source": WINDOW_ATTN_SOURCE,
+         "replaces": WINDOW_ATTN_REPLACES, "op": "torch.ops.fast_srgan.window_attn",
+         **window_row},
     ]}))
     print(json.dumps({
         "ok": True,

@@ -28,6 +28,7 @@ from fast_srgan_torch.kernels.pixel_shuffle import (
 )
 from fast_srgan_torch.kernels.quantize import quantize_act, quantize_act_reference
 from fast_srgan_torch.kernels.tail_epilogue import tail_epilogue, tail_epilogue_reference
+from fast_srgan_torch.kernels.window_attn import window_attn, window_attn_reference
 
 __all__ = [
     "fused_upsample",
@@ -52,4 +53,6 @@ __all__ = [
     "quantize_act_reference",
     "tail_epilogue",
     "tail_epilogue_reference",
+    "window_attn",
+    "window_attn_reference",
 ]

@@ -55,6 +55,8 @@ _INT8_PHASES = [_P] * 6 + [_I] * 8 + [_P]
 _QUANTIZE = [_P] * 3 + [ctypes.c_longlong, _P]
 # (x, bias, slope or NULL, out, B, Hin, Win, C, H, W, p, q, border, stream)
 _TAIL_EPILOGUE = [_P] * 4 + [_I] * 9 + [_P]
+# (qkv, masks, out, B, H, W, C, heads, shift, scale, stream)
+_WINDOW_ATTN = [_P] * 3 + [_I] * 6 + [_F, _P]
 
 #: Every ``extern "C"`` entry point of csrc/*.cu and its argument types, in
 #: order: a pointer (and the stream) is c_void_p, or ctypes would pass it as
@@ -87,6 +89,8 @@ ENTRY_POINTS = {
     "fsr_quantize_f32": _QUANTIZE,
     "fsr_tail_epilogue_bf16": _TAIL_EPILOGUE,
     "fsr_tail_epilogue_f32": _TAIL_EPILOGUE,
+    "fsr_window_attn_bf16": _WINDOW_ATTN,
+    "fsr_window_attn_f32": _WINDOW_ATTN,
 }
 
 _lock = threading.Lock()

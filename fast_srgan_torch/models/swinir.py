@@ -19,29 +19,27 @@ Tokens are held as [B, H, W, C], which is the memory of an NCHW
 channels_last tensor, so the convs between the RSTBs read and write them
 without a copy. Each Swin layer is, with s the shift (0 or window / 2):
 
-    x += roll(proj(WindowAttn(roll(LN1(x), -s))), +s)
+    x += proj(window_attn(qkv(LN1(x)), masks, s))
     x += fc2(GELU(fc1(LN2(x))))
-    WindowAttn = softmax(q k^T * head^-0.5 + B[rel_index] + M_shift) v  (each window)
 
-The attention runs through ``F.scaled_dot_product_attention`` with the
-relative-position bias and the shift mask as its float mask, windows
-folded into SDPA's batch. A shifted layer's mask takes one of four forms,
-by where the window lies: the interior (the bias alone), the last column,
-the last row and the last corner (:func:`window_regions`); so its windows
-are partitioned region by region and each region's run of windows shares
-one [1, heads, N, N] mask, broadcast over them. The masks are built once
-per (dtype, device) and cached on the model (:meth:`SwinIR.masks`, in a
-``swinir.masks`` span; ``mask_builds`` counts the sets built): 18 + 4 x 18
-of [heads, N, N] for SwinIR-M, 4.4 MB in bf16 whatever the input's size,
-which a CUDA graph captured over the forward reads as static tensors.
-The head size is zero-padded to a multiple of 8 (30 -> 32) with the scale
-of the true size, so a fused attention kernel takes it (at 30 SDPA falls
-back to its unfused math); the padded columns are zeros in and out, which
-is exact.
+which is the published ``x += roll(proj(WindowAttn(roll(LN1(x), -s))),
++s)``: LN, qkv and proj act on each token alone, so the rolls, the window
+partition and its reverse are one address that the attention
+(``kernels/window_attn.py``) reads and writes its tokens at. Its masks are
+the layer's [K, heads, N, N] by window class: the relative-position bias
+(unshifted, K = 1), and the bias plus the shift mask of the interior, the
+last window column, the last row and the corner (shifted, K = 4, the
+classes of ``window_regions``). They are built once per (dtype, device)
+and cached on the model (:meth:`SwinIR.masks`, in a ``swinir.masks`` span;
+``mask_builds`` counts the sets built): 18 of [1, heads, N, N] and 18 of
+[4, heads, N, N] for SwinIR-M, 4.4 MB in bf16 whatever the input's size,
+which a CUDA graph captured over the forward reads as static tensors. On
+the card a layer is one launch of the ``window_attn`` kernel, in bf16 or
+fp32.
 
 The compute dtype is the parameters' (``.to(torch.bfloat16)``); LayerNorm
-statistics and the softmax run in fp32 inside torch's kernels, as they do
-for the published model under autocast. The forward takes the engine's
+statistics and the softmax run in fp32, as they do for the published model
+under autocast. The forward takes the engine's
 [-1, 1] input, normalizes it as SwinIR does (x01 - mean; ``img_range`` is
 1 in every published classical-SR model and is not an option here),
 reflect-pads the bottom and right to a multiple of the window
@@ -66,6 +64,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from fast_srgan_torch.kernels.window_attn import window_attn
 from fast_srgan_torch.models.generator import upsample_stage
 from fast_srgan_torch.ops import lr_tail as _lr_tail
 from fast_srgan_torch.utils.spans import span
@@ -114,70 +113,23 @@ def shift_mask(h: int, w: int, window: int, shift: int, device=None) -> torch.Te
     return torch.where(diff != 0, MASK_VALUE, 0.0)
 
 
-def window_regions(h: int, w: int, window: int, shifted: bool
-                   ) -> List[Tuple[slice, slice, int, int, int]]:
-    """(rows, columns, windows down, windows across, mask class) of each
-    part of an (h, w) map whose windows share one mask, in the order
-    :func:`partition` lays them out: unshifted, the whole map (class 0);
-    shifted, the interior, the last column, the last row and the corner
-    (classes 0 to 3, the windows of ``shift_mask(2w, 2w, ...)``), each
-    where it holds a window."""
-    if not shifted:
-        return [(slice(0, h), slice(0, w), h // window, w // window, 0)]
-    rows = ((slice(0, h - window), h // window - 1), (slice(h - window, h), 1))
-    cols = ((slice(0, w - window), w // window - 1), (slice(w - window, w), 1))
-    return [(rs, cs, nh, nw, 2 * i + j) for i, (rs, nh) in enumerate(rows)
-            for j, (cs, nw) in enumerate(cols) if nh and nw]
-
-
-def partition(t: torch.Tensor, window: int, regions) -> torch.Tensor:
-    """[B, H, W, C] -> [M, N, C] windows: each region's in turn, batch-major
-    and row-major within it; one copy a region."""
-    b, c = t.shape[0], t.shape[-1]
-    out = t.new_empty(b * sum(r[2] * r[3] for r in regions), window * window, c)
-    at = 0
-    for rs, cs, nh, nw, _ in regions:
-        n = b * nh * nw
-        out[at:at + n].view(b, nh, nw, window, window, c).copy_(
-            t[:, rs, cs].view(b, nh, window, nw, window, c).permute(0, 1, 3, 2, 4, 5))
-        at += n
-    return out
-
-
-def reverse(o: torch.Tensor, window: int, regions, h: int, w: int) -> torch.Tensor:
-    """:func:`partition`'s inverse: [M, N, C] windows -> [B, H, W, C]."""
-    c = o.shape[-1]
-    b = o.shape[0] // sum(r[2] * r[3] for r in regions)
-    out = o.new_empty(b, h, w, c)
-    at = 0
-    for rs, cs, nh, nw, _ in regions:
-        n = b * nh * nw
-        out[:, rs, cs].view(b, nh, window, nw, window, c).copy_(
-            o[at:at + n].view(b, nh, nw, window, window, c).permute(0, 1, 3, 2, 4, 5))
-        at += n
-    return out
-
-
-def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     mask: torch.Tensor, scale: float) -> torch.Tensor:
-    """``F.scaled_dot_product_attention`` of [B', heads, N, D] q, k, v under
-    the float ``mask`` [1, heads, N, N], broadcast over B'. With D a
-    multiple of 8 the card runs cuDNN's fused flash kernel
-    (``cudnn_generated_fort_native_sdpa_sm90_flash_fprop_*``), which takes
-    B' past 65535; at head 30 SDPA falls back to separate fp32 matmuls and
-    a softmax (NVIDIA H100, torch 2.11). ``window_attention.calls`` counts
-    the calls (one a layer, four a shifted layer with windows in every
-    region), a CUDA graph's capture once and no replay."""
+def window_attention(qkv: torch.Tensor, masks: torch.Tensor, shift: int,
+                     scale: float) -> torch.Tensor:
+    """One Swin layer's window attention on the qkv linear's output
+    [B, H, W, 3C] -> [B, H, W, C], ``masks`` the layer's [K, heads, N, N]:
+    :func:`window_attn` (the kernel on the card, its plain version on the
+    CPU). ``window_attention.calls`` counts the calls (one a layer), a CUDA
+    graph's capture once and no replay."""
     window_attention.calls += 1
-    return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale)
+    return window_attn(qkv, masks, shift, scale)
 
 
 window_attention.calls = 0
 
 
 class WindowAttention(nn.Module):
-    """qkv, the relative-position bias table and proj of one Swin layer;
-    :meth:`forward` runs it on [M, N, C] window tokens."""
+    """qkv, the relative-position bias table and proj of one Swin layer
+    (:func:`window_attention` runs between qkv and proj)."""
 
     def __init__(self, dim: int, window: int, heads: int):
         super().__init__()
@@ -187,25 +139,6 @@ class WindowAttention(nn.Module):
             torch.zeros((2 * window - 1) ** 2, heads))
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
-
-    def forward(self, x: torch.Tensor, parts: Sequence[Tuple[int, torch.Tensor]]
-                ) -> torch.Tensor:
-        """``parts``: (windows, mask) of each run of ``x``'s windows, in
-        order, whose windows share the [1, heads, N, N] mask."""
-        m, n, c = x.shape
-        hd, heads = self.head_dim, self.heads
-        hp = -(-hd // 8) * 8
-        # [3, M, heads, N, hd], zero-padded to hp: one copy
-        qkv = self.qkv(x).view(m, n, 3, heads, hd).permute(2, 0, 3, 1, 4)
-        q, k, v = F.pad(qkv, (0, hp - hd)) if hp != hd else qkv.contiguous()
-        out = x.new_empty(m, n, heads, hd)
-        at = 0
-        for count, mask in parts:
-            o = window_attention(q[at:at + count], k[at:at + count], v[at:at + count],
-                                 mask, hd ** -0.5)
-            out[at:at + count] = o.transpose(1, 2)[..., :hd]
-            at += count
-        return self.proj(out.view(m, n, c))
 
 
 class Mlp(nn.Module):
@@ -229,20 +162,12 @@ class SwinLayer(nn.Module):
         self.norm2 = nn.LayerNorm(dim)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
 
-    def forward(self, x: torch.Tensor, masks: Sequence[torch.Tensor]) -> torch.Tensor:
-        """``masks``: the layer's masks by class (:meth:`SwinIR.masks`)."""
-        b, h, w, c = x.shape
-        ws, s = self.window, self.shift
-        regions = window_regions(h, w, ws, bool(s))
-        t = self.norm1(x)
-        if s:
-            t = torch.roll(t, (-s, -s), (1, 2))
-        t = self.attn(partition(t, ws, regions),
-                      [(b * nh * nw, masks[k]) for _, _, nh, nw, k in regions])
-        t = reverse(t, ws, regions, h, w)
-        if s:
-            t = torch.roll(t, (s, s), (1, 2))
-        x = x + t
+    def forward(self, x: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
+        """``masks``: the layer's [K, heads, N, N] masks by window class
+        (:meth:`SwinIR.masks`)."""
+        attn = self.attn
+        o = window_attention(attn.qkv(self.norm1(x)), masks, self.shift, attn.head_dim ** -0.5)
+        x = x + attn.proj(o)
         return x + self.mlp(self.norm2(x))
 
 
@@ -263,7 +188,7 @@ class RSTB(nn.Module):
         self.residual_group = BasicLayer(dim, depth, heads, window, mlp_ratio)
         self.conv = nn.Conv2d(dim, dim, 3, 1, 1)
 
-    def forward(self, x: torch.Tensor, masks: Sequence[Sequence[torch.Tensor]]) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, masks: Sequence[torch.Tensor]) -> torch.Tensor:
         y = x
         for block, mask in zip(self.residual_group.blocks, masks):
             y = block(y, mask)
@@ -308,8 +233,8 @@ class SwinIR(nn.Module):
         #: the fp32 RGB mean on each device the model ran on (no buffer: a
         #: cast of the module to bf16 would round it)
         self._means: Dict[torch.device, torch.Tensor] = {}
-        #: each Swin layer's masks by class, by (dtype, device)
-        self._masks: Dict[Tuple[torch.dtype, torch.device], List[List[torch.Tensor]]] = {}
+        #: each Swin layer's [K, heads, N, N] masks by class, by (dtype, device)
+        self._masks: Dict[Tuple[torch.dtype, torch.device], List[torch.Tensor]] = {}
         #: mask sets built (one a key of ``_masks``; new weights build anew)
         self.mask_builds = 0
 
@@ -329,11 +254,11 @@ class SwinIR(nn.Module):
     def swin_layers(self) -> List[SwinLayer]:
         return [b for layer in self.layers for b in layer.residual_group.blocks]
 
-    def masks(self) -> List[List[torch.Tensor]]:
-        """Each Swin layer's attention masks by class, [1, heads, N, N] in
-        the compute dtype on the model's device, built at the first call:
-        an unshifted layer's bias; a shifted layer's bias plus the shift
-        mask of each of :func:`window_regions`' four classes."""
+    def masks(self) -> List[torch.Tensor]:
+        """Each Swin layer's attention masks by window class, [K, heads, N, N]
+        contiguous in the compute dtype on the model's device, built at the
+        first call: an unshifted layer's bias (K = 1); a shifted layer's bias
+        plus the shift mask of each of ``window_regions``' four classes."""
         table = self.layers[0].residual_group.blocks[0].attn.relative_position_bias_table
         key = (table.dtype, table.device)
         if key not in self._masks:
@@ -343,15 +268,13 @@ class SwinIR(nn.Module):
         return self._masks[key]
 
     @staticmethod
-    def _layer_masks(blk: SwinLayer) -> List[torch.Tensor]:
-        # contiguous: a fused SDPA kernel takes no mask whose rows are strided
+    def _layer_masks(blk: SwinLayer) -> torch.Tensor:
         table = blk.attn.relative_position_bias_table
-        bias = relative_position_bias(table.float(), blk.window)[None]  # [1, heads, N, N]
-        if not blk.shift:
-            return [bias.to(table.dtype).contiguous()]
-        ws = blk.window
-        classes = shift_mask(2 * ws, 2 * ws, ws, blk.shift, table.device)  # [4, N, N]
-        return [(bias + m).to(table.dtype).contiguous() for m in classes]
+        masks = relative_position_bias(table.float(), blk.window)[None]  # [1, heads, N, N]
+        if blk.shift:
+            ws = blk.window
+            masks = masks + shift_mask(2 * ws, 2 * ws, ws, blk.shift, table.device)[:, None]
+        return masks.to(table.dtype).contiguous()
 
     def load_state_dict(self, *args, **kwargs):
         self._masks.clear()

@@ -4,15 +4,15 @@ plain reference (``swinir_reference.py``) on the CPU at a small size: embed
 padding and shift masks both run), 2x and 4x, seeded weights.
 
 fp32 tolerance 1e-5 max abs on [0, 1] outputs: the port and the reference
-compute the same operations in fp32 in another order (SDPA against the
-explicit matmul and softmax, tokens as [B, H, W, C] against [B, L, C], the
+compute the same operations in fp32 in another order (the attention on
+all windows at once against region by region, tokens as [B, H, W, C] against [B, L, C], the
 LR tail against the canonical upsampler), which moves the outputs by
 ~1e-6; each planted fault below moves them by far more. The card's tests
 (``-m cuda``, skipped here) hold the graphed ``stream`` bitwise to the
 eager forward and the published widths to the reference.
 """
 
-import contextlib
+import importlib
 import math
 import os
 
@@ -27,6 +27,8 @@ from fast_srgan_torch.inference import SRInferenceEngine, arch_from_params
 from fast_srgan_torch.models import swinir
 from fast_srgan_torch.ops import lr_tail
 
+# the package exports the function under the module's name
+window_attn = importlib.import_module("fast_srgan_torch.kernels.window_attn")
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = 1e-5
 
@@ -88,32 +90,20 @@ def test_each_mechanism_fails_the_tolerance_without_it(monkeypatch, fault):
 
 
 def test_padded_head_size_is_exact():
-    """Head 30 (padded to 32 for the fused kernels), one mask for all the
-    windows and one a run of them, against the published attention written
-    out (1e-5 of the output's largest value: fp32 in another order)."""
-    torch.manual_seed(0)
-    attn = swinir.WindowAttention(60, 4, 2)
-    with torch.no_grad():
-        for p in attn.parameters():
-            p.normal_()
-    x = torch.randn(12, 16, 60)
-    bias = swinir.relative_position_bias(attn.relative_position_bias_table, 4)
-    sd = {"p.qkv.weight": attn.qkv.weight, "p.qkv.bias": attn.qkv.bias,
-          "p.proj.weight": attn.proj.weight, "p.proj.bias": attn.proj.bias,
-          "p.relative_position_bias_table": attn.relative_position_bias_table}
-    classes = swinir.shift_mask(8, 8, 4, 2)
-    with torch.no_grad():
-        got = attn(x, [(12, bias[None])])
-        want = ref.window_attention(sd, "p.", x, 2, 4, None)
+    """Head 30 (the kernel zero-pads it to 32 in registers), an unshifted
+    layer (one mask for every window) and a shifted one (a mask a window
+    class), through the plain version against the published attention
+    written out (1e-5 of the output's largest value: fp32 in another
+    order)."""
+    from test_torch_window_attn import port_layer_attention, published_layer_attention, seeded_layer
+
+    x = torch.randn(3, 8, 12, 60, generator=torch.Generator().manual_seed(0))
+    for shift in (0, 2):
+        layer = seeded_layer(60, 2, 4, shift, 0)
+        with torch.no_grad():
+            want = published_layer_attention(layer, x)
+            got = port_layer_attention(layer, x)
         assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
-        runs = [(5, 0), (4, 1), (2, 2), (1, 3)]
-        got = attn(x, [(n, bias[None] + classes[k]) for n, k in runs])
-        at = 0
-        for n, k in runs:
-            want = ref.window_attention(sd, "p.", x[at:at + n], 2, 4, classes[k:k + 1])
-            part = got[at:at + n]
-            assert (part - want).abs().max().item() <= 1e-5 * want.abs().max().item()
-            at += n
 
 
 @pytest.mark.parametrize("hw", [(20, 24), (8, 12), (4, 12), (12, 4), (4, 4)])
@@ -122,17 +112,18 @@ def test_window_classes_are_the_shift_mask(hw):
     mask that the published shift mask gives it at its own place, and the
     partition's reverse gives the map back."""
     h, w = hw
-    regions = swinir.window_regions(h, w, 4, True)
+    regions = window_attn.window_regions(h, w, 4, True)
     full = swinir.shift_mask(h, w, 4, 2)  # [nW, N, N], windows row-major
     classes = swinir.shift_mask(8, 8, 4, 2)
     index = torch.arange(h * w // 16, dtype=torch.float32).view(1, h // 4, 1, w // 4, 1, 1)
     index = index.expand(1, h // 4, 4, w // 4, 4, 1).reshape(1, h, w, 1)
-    order = swinir.partition(index, 4, regions)[:, 0, 0].long()
+    order = window_attn.partition(index, 4, regions)[:, 0, 0].long()
     assert sorted(order.tolist()) == list(range(h * w // 16))
     want = torch.cat([classes[k].expand(nh * nw, 16, 16) for _, _, nh, nw, k in regions])
     assert torch.equal(full[order], want)
     x = torch.randn(2, h, w, 5)
-    assert torch.equal(swinir.reverse(swinir.partition(x, 4, regions), 4, regions, h, w), x)
+    assert torch.equal(window_attn.reverse(window_attn.partition(x, 4, regions), 4, regions, h, w),
+                       x)
 
 
 @pytest.mark.parametrize("hw", [(4, 4), (5, 13), (31, 5)])
@@ -157,13 +148,12 @@ def test_mask_cache_builds_once_per_shape():
         for _ in range(3):
             model(x01)
         assert model.mask_builds == 1
-        # two unshifted layers, two shifted ones in four regions each
-        assert swinir.window_attention.calls - calls == 3 * (2 + 2 * 4)
+        # one call a layer: two unshifted, two shifted
+        assert swinir.window_attention.calls - calls == 3 * 4
         masks = model.masks()
-        assert [[tuple(m.shape) for m in ms] for ms in masks] == [[(1, 3, 16, 16)],
-                                                                  [(1, 3, 16, 16)] * 4] * 2
-        # the fused SDPA kernels on the card take only masks with unit-stride rows
-        assert all(m.is_contiguous() for ms in masks for m in ms)
+        assert [tuple(m.shape) for m in masks] == [(1, 3, 16, 16), (4, 3, 16, 16)] * 2
+        # the kernel on the card takes only contiguous masks
+        assert all(m.is_contiguous() for m in masks)
         for h, w in ((9, 13), (4, 4), (31, 5), (40, 56), (18, 22), (7, 100)):
             model(torch.rand(1, 3, h, w) * 2 - 1)
         assert model.mask_builds == 1 and len(model._masks) == 1
@@ -351,10 +341,11 @@ def test_graphed_stream_is_bitwise_the_eager_forward():
 
 @pytest.mark.cuda
 def test_published_widths_against_the_reference_on_two_frames():
-    """fp32 with TF32 off within one count; bf16, with the LR tail and with
-    the canonical upsampler on the fused kernel (``prelu=False``), within
-    the benchmark cell's limit on the share three or more counts off, its
-    attention on a fused SDPA kernel."""
+    """fp32 with TF32 off within one count (its attention the
+    ``window_attn`` kernel's fp32 entry); bf16, with the LR tail and with the canonical upsampler on
+    the fused kernel (``prelu=False``), within the benchmark cell's limit on
+    the share three or more counts off, its attention the ``window_attn``
+    kernel."""
     _card()
     import json
 
@@ -365,14 +356,9 @@ def test_published_widths_against_the_reference_on_two_frames():
     want = ref.upscale_u8({k: v.cuda() for k, v in sd.items()}, PUBLISHED, frames).cpu().numpy()
     with open(os.path.join(ROOT, "benchmark", "workloads", "swinir-x4-video-bf16.json")) as f:
         limit = json.load(f)["limits"]["off3_pct"]
-    from torch.nn.attention import SDPBackend, sdpa_kernel
-
-    fused = [SDPBackend.CUDNN_ATTENTION, SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION]
     for dtype, tail in ((torch.float32, True), (torch.bfloat16, True), (torch.bfloat16, False)):
         engine = SRInferenceEngine(sd, dtype=dtype, device="cuda", lr_tail=tail)
-        # bf16 attention on a fused kernel: SDPA's unfused math would raise here
-        with sdpa_kernel(fused) if dtype == torch.bfloat16 else contextlib.nullcontext():
-            got = engine.upscale_batch(frames.cpu().numpy())
+        got = engine.upscale_batch(frames.cpu().numpy())
         diff = np.abs(got.astype(int) - want.astype(int))
         if dtype == torch.float32:
             assert diff.max() <= 1
