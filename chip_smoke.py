@@ -58,6 +58,13 @@ own line; any failure exits non-zero and prints no result:
      faults (the padded head's scale, the shift mask dropped) read beyond
      the bf16 limit; one eager SwinIR-M forward's launches in bf16 and in
      fp32 (one a layer, 36);
+ 8d. kernel: HAT's window attention, window 16 (``window_attn16``, its
+     ptxas line first) against its plain version at the HAT cell's layer,
+     [8, 192, 320, 540] in bf16, unshifted and shifted; each timed beside
+     its bound, the plain version and the stock chain from the qkv
+     linear's output (roll, partition by class, head pad, SDPA a class,
+     transpose, reverse, roll back); the two planted faults of 8c; one
+     eager HAT forward's launches (36 ``window_attn``, 6 OCA calls);
   9. training: the reference configuration (64/8 4x generator, 64-filter
      discriminator, VGG19 with fixed-seed weights, batch 24 of 96x96 crops,
      bf16 autocast): 20 pretrain steps (the loss must fall) and 10 GAN steps
@@ -261,6 +268,7 @@ peak rate of their type); the last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -1413,6 +1421,120 @@ def phase_window_attn() -> dict:
         check(row[key] == 36, f"window_attn launches a {dtype} SwinIR-M forward: {row[key]}")
         print(f"[8c kernel] one eager {dtype} SwinIR-M forward: {row[key]} window_attn launches",
               flush=True)
+    return row
+
+
+def _stock_window_chain(qkv, masks, shift, scale):
+    """The window attention in stock PyTorch from the qkv linear's output
+    [B, H, W, 3C] (the yardstick of a window the port had no kernel for):
+    roll, partition by window class, the head zero-padded to a multiple of
+    8, one SDPA a class, the output's transpose, reverse, roll back."""
+    import torch.nn.functional as F
+
+    from fast_srgan_torch.kernels.window_attn import partition, reverse, window_regions
+
+    b, h, w, c3 = qkv.shape
+    heads, n = masks.shape[1], masks.shape[-1]
+    window, c = math.isqrt(n), c3 // 3
+    hd = c // heads
+    hp = -(-hd // 8) * 8
+    regions = window_regions(h, w, window, bool(shift))
+    t = torch.roll(qkv, (-shift, -shift), (1, 2)) if shift else qkv
+    x = partition(t, window, regions)
+    m = x.shape[0]
+    q, k, v = F.pad(x.view(m, n, 3, heads, hd).permute(2, 0, 3, 1, 4), (0, hp - hd))
+    out = x.new_empty(m, n, heads, hd)
+    at = 0
+    for _, _, nh, nw, cls in regions:
+        run = slice(at, at + b * nh * nw)
+        o = F.scaled_dot_product_attention(q[run], k[run], v[run],
+                                           attn_mask=masks[cls:cls + 1], scale=scale)
+        out[run] = o.transpose(1, 2)[..., :hd]
+        at = run.stop
+    o = reverse(out.view(m, n, c), window, regions, h, w)
+    return torch.roll(o, (shift, shift), (1, 2)) if shift else o
+
+
+def phase_window_attn16() -> dict:
+    """HAT's window attention, window 16, at the HAT cell's layer ([8, 192,
+    320], C = 180, 6 heads of 30), bf16: the kernel against its plain
+    version, unshifted and shifted, timed beside its bound (q, k, v and the
+    output once, the mask classes once), the plain version and the stock
+    chain (``_stock_window_chain``); the two planted faults of window 8;
+    one eager HAT forward's launches. Returns the kernels line's row (the
+    shifted layer's; unshifted_* the other's)."""
+    import torch.nn.functional as F
+
+    from benchmark.reference.hat import seeded_state_dict
+    from fast_srgan_torch.inference import SRInferenceEngine
+    from fast_srgan_torch.kernels.window_attn import window_attn, window_attn_reference
+    from fast_srgan_torch.models.hat import overlap_attention
+    from fast_srgan_torch.models.swinir import shift_mask
+
+    for line in _ptxas_lines("window_attn16"):
+        print(f"[8d kernel] ptxas {line}", flush=True)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(25)
+    b, h, w, c, heads = 8, 192, 320, 180, 6
+    hd, scale = c // heads, (c // heads) ** -0.5
+    t = torch.randn((b, h, w, c), device=dev, generator=gen).to(torch.bfloat16)
+    qkv_w = (torch.randn((3 * c, c), device=dev, generator=gen) / c ** 0.5).to(torch.bfloat16)
+    qkv_b = (torch.randn(3 * c, device=dev, generator=gen) / 10).to(torch.bfloat16)
+    bias = torch.randn((1, heads, 256, 256), device=dev, generator=gen)
+    qkv = F.linear(t, qkv_w, qkv_b)
+    del t
+    vmax = qkv[..., 2 * c:].float().abs().max().item()
+    tokens, limit = b * h * w, WINDOW_ATTN_BF16_TOL
+    row = {}
+    for shift in (0, 8):
+        masks = bias + shift_mask(32, 32, 16, shift, dev)[:, None] if shift else bias
+        masks = masks.to(torch.bfloat16).contiguous()
+        got = window_attn(qkv, masks, shift, scale)
+        want = window_attn_reference(qkv.float(), masks.float(), shift, scale)
+        err = (got.float() - want).abs().max().item()
+        check(err <= limit * vmax, f"window_attn16 shift {shift}: {err} off the plain version")
+        check(torch.equal(got, window_attn(qkv, masks, shift, scale)),
+              f"window_attn16 shift {shift}: not the same run to run")
+        r = {"max_err": err, "max_err_share": err / vmax}
+        planted = {"planted_scale_share": window_attn_reference(
+            qkv.float(), masks.float(), shift, 32 ** -0.5)}
+        if shift:
+            planted["planted_mask_share"] = window_attn_reference(
+                qkv.float(), masks[:1].float().expand(4, -1, -1, -1).contiguous(), shift, scale)
+        for key, fault in planted.items():
+            r[key] = (fault - want).abs().max().item() / vmax
+            check(r[key] > limit, f"window_attn16 shift {shift}: {key} {r[key]} within {limit}")
+        del got, want, planted
+        torch.cuda.empty_cache()
+        ms, plain_ms = _timed_pair(lambda: window_attn(qkv, masks, shift, scale),
+                                   lambda: window_attn_reference(qkv, masks, shift, scale),
+                                   iters=50, plain_iters=3)
+        chain_ms = cuda_ms(lambda: _stock_window_chain(qkv, masks, shift, scale), 20)
+        nbytes = (4 * tokens * c + masks.numel()) * qkv.element_size()
+        ops = 4 * tokens * 256 * c
+        r.update({"ms": ms, "plain_ms": plain_ms, "library_ms": chain_ms,
+                  **bound(nbytes, ops, BF16_FLOPS)})
+        print(f"[8d kernel] window_attn16 bf16 [{b},{h},{w},{3 * c}] shift {shift}: kernel"
+              f" {ms:.4f} ms ({100 * r['bound_ms'] / ms:.1f}% of {r['bound_ms']:.4f},"
+              f" {r['bound_by']}), plain {plain_ms:.4f}, stock chain {chain_ms:.4f}; max |err|"
+              f" {err:.3g} = {err / vmax:.3g} of |v| <= {vmax:.3g} (limit {limit:g})"
+              + "".join(f", {k} {r[k]:.3g}" for k in r if k.startswith("planted")), flush=True)
+        row.update({f"{'' if shift else 'unshifted_'}{k}": v for k, v in r.items()})
+    del qkv
+    arch = dict(embed_dim=180, depths=[6] * 6, num_heads=[6] * 6, window_size=16,
+                mlp_ratio=2.0, num_feat=64, scale_factor=4, compress_ratio=3,
+                squeeze_factor=30, overlap_ratio=0.5)
+    frames = np.random.default_rng(25).integers(0, 256, (2, 36, 60, 3), dtype=np.uint8)
+    engine = SRInferenceEngine(seeded_state_dict(arch, 25), dtype=torch.bfloat16, device=dev)
+    engine.upscale_batch(frames)
+    before, oca = window_attn.launches, overlap_attention.calls
+    engine.upscale_batch(frames)
+    row["launches"] = window_attn.launches - before
+    oca = overlap_attention.calls - oca
+    check(row["launches"] == 36 and oca == 6,
+          f"a bf16 HAT forward: {row['launches']} window_attn launches, {oca} OCA calls")
+    print(f"[8d kernel] one eager bf16 HAT forward: {row['launches']} window_attn launches,"
+          f" {oca} overlap_attention calls", flush=True)
     return row
 
 
@@ -3819,6 +3941,7 @@ def main() -> None:
     shuffle_row, stage_ms = phase_shuffle_kernel()
     tail_row = phase_tail_epilogue()
     window_row = phase_window_attn()
+    window16_row = phase_window_attn16()
 
     from fast_srgan_torch.checkpoints.npz_io import load_npz_params
 
@@ -3891,7 +4014,8 @@ def main() -> None:
     # tail epilogue's launches are phase 4's too, its split launches phase
     # 14's bf16 4K tiled forward's. The window attention's are phase 8c's
     # one eager SwinIR-M forward; its times the shifted layer's (unshifted_*
-    # the other's), library_ms the parent's chain less the qkv linear.
+    # the other's), library_ms the parent's chain less the qkv linear;
+    # window_attn16's phase 8d's HAT forward, library_ms the stock chain.
     two = exported["two_launch"]
     split = tiled["counts"]
     split_q = tiled["int8_counts"]
@@ -3971,6 +4095,9 @@ def main() -> None:
         {"name": "window_attn", "route": "cuda", "source": WINDOW_ATTN_SOURCE,
          "replaces": WINDOW_ATTN_REPLACES, "op": "torch.ops.fast_srgan.window_attn",
          **window_row},
+        {"name": "window_attn16", "route": "cuda", "source": WINDOW_ATTN_SOURCE,
+         "replaces": WINDOW_ATTN_REPLACES, "op": "torch.ops.fast_srgan.window_attn",
+         **window16_row},
     ]}))
     print(json.dumps({
         "ok": True,

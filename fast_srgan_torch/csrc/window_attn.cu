@@ -57,6 +57,36 @@
 // 16-byte aligned, K = 1 at s = 0 and 4 at s = 4; hd = C / heads even and
 // <= 32, C a multiple of 4; the window's 192 C + 32 values within one block's
 // shared memory.
+//
+// Window 16 (HAT), bf16 only: the same contract (the roll, the partition and
+// the class in the addressing; masks [K, heads, 256, 256]; one launch a call),
+// another design, because a 16 x 16 window's qkv (256 x 3C values, 276 KB in
+// bf16 at C = 180) is more than one block's shared memory, and its 256 x 256
+// logits a head are more than a warp's registers:
+//
+// * One block (4 warps) a (window, head), the heads of a window in adjacent
+//   blocks, so that the window's token rows come from device memory once and
+//   from L2 for its other heads. The block brings the head's q, k and v of
+//   the 256 tokens into shared memory by 4-byte cp.async (a token's head is hd
+//   values at an offset of h hd, 4-byte aligned since hd is even), each row
+//   zero-padded to 32 values: 49 KB, four blocks an SM.
+// * Rows are 64 bytes, with 16 bytes of padding after every 16 rows, so that
+//   the 8 rows one ldmatrix reads, keys {k, k + 1, k + 16, k + 17, k + 32,
+//   k + 33, k + 48, k + 49} (the column order of S below), fall on distinct
+//   16-byte bank groups.
+// * Warp w takes the query tiles 16 m .. 16 m + 15 for m = w, w + 4, ...; for
+//   each, the keys in four chunks of 64 with an online softmax (fp32 row max
+//   and sum, the output's fp32 sums rescaled when the max grows): S = Q K^T on
+//   mma.sync m16n8k16 from ldmatrix fragments, with the window-8 column order,
+//   so that a lane's mask values are two 16-byte loads a row and a chunk; then
+//   P V with P from S's accumulators and V by ldmatrix.trans in the same key
+//   order. The output goes from registers to out, 4 bytes a pair of values.
+//
+// What bounds it: the masks. Each (window, head) reads its class's 256 x 256
+// mask values (128 KB) from L2, 786 KB a window at 6 heads, against the
+// window's 373 KB of qkv and output in device memory; q, k and v move once.
+// The exponentials (256 x 256 a window and head) come next: MUFU does 16 a
+// clock on an SM.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -412,6 +442,232 @@ int launch(const void* qkv, const void* masks, void* out, int B, int H, int W, i
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- window 16, bf16: one block a (window, head) --------------------------
+
+constexpr int kWindow16 = 16;
+constexpr int kTokens16 = kWindow16 * kWindow16;
+constexpr int kThreads16 = 128;
+constexpr int kBlocksPerSm16 = 4;
+constexpr int kChunk16 = 64;  // keys a step of the online softmax
+// values of one matrix (q, k or v of the head) in shared memory: 32 a row,
+// 8 more after every 16 rows
+constexpr int kMatrix16 = 32 * kTokens16 + 8 * (kTokens16 / 16);
+
+__device__ __forceinline__ int slot16(int t) { return 32 * t + 8 * (t >> 4); }
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+// Image offset (in tokens) of window token t: row y0 + (t >> 4), column
+// x0 + (t & 15), each mod the map's size (the roll).
+__device__ __forceinline__ long long token16(int t, long long row0, int H, int W, int y0,
+                                             int x0) {
+  int y = y0 + (t >> 4), x = x0 + (t & 15);
+  if (y >= H) y -= H;
+  if (x >= W) x -= W;
+  return (row0 + y) * W + x;
+}
+
+__global__ void __launch_bounds__(kThreads16, kBlocksPerSm16)
+    window_attn16_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ masks,
+                         bf16* __restrict__ out, int H, int W, int C, int heads, int shift,
+                         float scale, long long tasks) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* s = reinterpret_cast<bf16*>(smem_raw);  // q, k, v: kMatrix16 values each
+  const int hd = C / heads, c3 = 3 * C, words = hd / 2;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, q4 = lane & 3;
+  const int nwr = H / kWindow16, nwc = W / kWindow16;
+  const long long per_image = (long long)nwr * nwc;
+
+  // the padding of every row (values hd .. 31) is zero, once: the loads
+  // write values < hd only
+  for (int i = threadIdx.x; i < 3 * kTokens16; i += kThreads16) {
+    bf16* row = s + (i / kTokens16) * kMatrix16 + slot16(i % kTokens16);
+    for (int d = hd; d < 32; ++d) row[d] = __float2bfloat16(0.f);
+  }
+  // this lane's two 4-byte pieces of a token: word j of 3 hd / 2 (q, k, v
+  // in turn), at qkv offset part C + d and shared offset part kMatrix16 + d
+  int src_off[2], dst_off[2];
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    const int j = lane + 32 * p;
+    const int part = j / words, d = 2 * (j - part * words);
+    src_off[p] = j < 3 * words ? part * C + d : -1;
+    dst_off[p] = part * kMatrix16 + d;
+  }
+
+  for (long long task = blockIdx.x; task < tasks; task += gridDim.x) {
+    const long long win = task / heads;
+    const int h = (int)(task - win * heads);
+    const long long b = win / per_image;
+    const int rem = (int)(win - b * per_image);
+    const int wr = rem / nwc, wc = rem - wr * nwc;
+    const int y0 = wr * kWindow16 + shift, x0 = wc * kWindow16 + shift;
+    const long long row0 = b * H;
+    __syncthreads();  // the last task's reads of shared memory are done
+    for (int t = warp; t < kTokens16; t += kThreads16 / 32) {
+      const bf16* src = qkv + token16(t, row0, H, W, y0, x0) * c3 + h * hd;
+      bf16* dst = s + slot16(t);
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        if (src_off[p] >= 0) {
+          const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst + dst_off[p]));
+          asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+                       "l"(src + src_off[p])
+                       : "memory");
+        }
+      }
+    }
+    asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();
+
+    const int cls = shift ? 2 * (wr == nwr - 1) + (wc == nwc - 1) : 0;
+    const bf16* mask = masks + ((size_t)cls * heads + h) * kTokens16 * kTokens16 + 16 * q4;
+    const bf16* sq = s;
+    const bf16* sk = s + kMatrix16;
+    const bf16* sv = s + 2 * kMatrix16;
+    // ldmatrix rows this lane gives: matrix lane >> 3, row lane & 7
+    const int r8 = lane & 7, mat = lane >> 3;
+    for (int m = warp; m < kTokens16 / 16; m += kThreads16 / 32) {
+      const int r0 = 16 * m + g, r1 = r0 + 8;
+      uint32_t qa[2][4];  // A fragments of Q, head dims 0-15 and 16-31
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        ldsm_x4(qa[kk], sq + slot16(16 * m + r8 + 8 * (mat & 1)) + 8 * (mat >> 1) + 16 * kk);
+      }
+      float o[4][4];
+#pragma unroll
+      for (int nd = 0; nd < 4; ++nd) o[nd][0] = o[nd][1] = o[nd][2] = o[nd][3] = 0.f;
+      float mx0 = __int_as_float(0xff800000), mx1 = mx0;  // -inf
+      float l0 = 0.f, l1 = 0.f;  // this lane's part of the row sums
+      for (int c = 0; c < kTokens16; c += kChunk16) {
+        // S's n-tile j, column n is key c + 16 (n >> 1) + 2 j + (n & 1): the
+        // accumulator (row, 2 q4 + e) is key c + 16 q4 + 2 j + e
+        float acc[8][4];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          uint32_t kb[4];
+          ldsm_x4(kb, sk + slot16(c + 16 * (r8 >> 1) + 2 * j + (r8 & 1)) + 8 * mat);
+          acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+          mma(acc[j], qa[0], kb[0], kb[1]);
+          mma(acc[j], qa[1], kb[2], kb[3]);
+        }
+        const uint4 m0a = __ldg(reinterpret_cast<const uint4*>(mask + r0 * kTokens16 + c));
+        const uint4 m0b = __ldg(reinterpret_cast<const uint4*>(mask + r0 * kTokens16 + c + 8));
+        const uint4 m1a = __ldg(reinterpret_cast<const uint4*>(mask + r1 * kTokens16 + c));
+        const uint4 m1b = __ldg(reinterpret_cast<const uint4*>(mask + r1 * kTokens16 + c + 8));
+        float c0 = __int_as_float(0xff800000), c1 = c0;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const uint32_t w0 = word(j < 4 ? m0a : m0b, j & 3), w1 = word(j < 4 ? m1a : m1b, j & 3);
+          acc[j][0] = fmaf(acc[j][0], scale, lo_of(w0));
+          acc[j][1] = fmaf(acc[j][1], scale, hi_of(w0));
+          acc[j][2] = fmaf(acc[j][2], scale, lo_of(w1));
+          acc[j][3] = fmaf(acc[j][3], scale, hi_of(w1));
+          c0 = fmaxf(c0, fmaxf(acc[j][0], acc[j][1]));
+          c1 = fmaxf(c1, fmaxf(acc[j][2], acc[j][3]));
+        }
+#pragma unroll
+        for (int x = 1; x < 4; x <<= 1) {
+          c0 = fmaxf(c0, __shfl_xor_sync(kAll, c0, x));
+          c1 = fmaxf(c1, __shfl_xor_sync(kAll, c1, x));
+        }
+        const float n0 = fmaxf(mx0, c0), n1 = fmaxf(mx1, c1);
+        const float a0 = ex2((mx0 - n0) * kLog2e), a1 = ex2((mx1 - n1) * kLog2e);
+        mx0 = n0;
+        mx1 = n1;
+        const float b0 = n0 * kLog2e, b1 = n1 * kLog2e;
+        l0 *= a0;
+        l1 *= a1;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          acc[j][0] = ex2(fmaf(acc[j][0], kLog2e, -b0));
+          acc[j][1] = ex2(fmaf(acc[j][1], kLog2e, -b0));
+          acc[j][2] = ex2(fmaf(acc[j][2], kLog2e, -b1));
+          acc[j][3] = ex2(fmaf(acc[j][3], kLog2e, -b1));
+          l0 += acc[j][0] + acc[j][1];
+          l1 += acc[j][2] + acc[j][3];
+        }
+#pragma unroll
+        for (int nd = 0; nd < 4; ++nd) {
+          o[nd][0] *= a0;
+          o[nd][1] *= a0;
+          o[nd][2] *= a1;
+          o[nd][3] *= a1;
+        }
+        // P V: k-step kk's index i is key c + 16 (i >> 1) + 4 kk + (i & 1)
+        // (i < 8) or that + 2 (i >= 8), as S's n-tiles 2 kk and 2 kk + 1 hold
+        // them; V's fragments by ldmatrix.trans of those key rows
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint32_t pa[4] = {pack(acc[2 * kk][0], acc[2 * kk][1]),
+                                  pack(acc[2 * kk][2], acc[2 * kk][3]),
+                                  pack(acc[2 * kk + 1][0], acc[2 * kk + 1][1]),
+                                  pack(acc[2 * kk + 1][2], acc[2 * kk + 1][3])};
+          const bf16* vrow =
+              sv + slot16(c + 16 * (r8 >> 1) + 4 * kk + 2 * (mat & 1) + (r8 & 1)) + 8 * (mat >> 1);
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            uint32_t vb[4];
+            ldsm_x4_trans(vb, vrow + 16 * half);
+            mma(o[2 * half], pa, vb[0], vb[1]);
+            mma(o[2 * half + 1], pa, vb[2], vb[3]);
+          }
+        }
+      }
+#pragma unroll
+      for (int x = 1; x < 4; x <<= 1) {
+        l0 += __shfl_xor_sync(kAll, l0, x);
+        l1 += __shfl_xor_sync(kAll, l1, x);
+      }
+      const float i0 = 1.f / l0, i1 = 1.f / l1;
+      bf16* o0 = out + token16(r0, row0, H, W, y0, x0) * C + h * hd;
+      bf16* o1 = out + token16(r1, row0, H, W, y0, x0) * C + h * hd;
+#pragma unroll
+      for (int nd = 0; nd < 4; ++nd) {
+        const int d = 8 * nd + 2 * q4;
+        if (d < hd) {
+          *reinterpret_cast<__nv_bfloat162*>(o0 + d) =
+              __floats2bfloat162_rn(o[nd][0] * i0, o[nd][1] * i0);
+          *reinterpret_cast<__nv_bfloat162*>(o1 + d) =
+              __floats2bfloat162_rn(o[nd][2] * i1, o[nd][3] * i1);
+        }
+      }
+    }
+  }
+}
+
+int launch16(const void* qkv, const void* masks, void* out, int B, int H, int W, int C,
+             int heads, int shift, float scale, void* stream) {
+  const int smem = static_cast<int>(sizeof(bf16)) * 3 * kMatrix16;
+  cudaError_t err = cudaFuncSetAttribute(window_attn16_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(window_attn16_kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long tasks = (long long)B * (H / kWindow16) * (W / kWindow16) * heads;
+  const int grid = (int)(tasks < kMaxGrid ? tasks : kMaxGrid);
+  window_attn16_kernel<<<grid, kThreads16, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(qkv), static_cast<const bf16*>(masks), static_cast<bf16*>(out), H,
+      W, C, heads, shift, scale, tasks);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // C entry points (bound with ctypes): qkv [B, H, W, 3C], masks [K, heads, 64,
@@ -426,4 +682,12 @@ extern "C" int fsr_window_attn_bf16(const void* qkv, const void* masks, void* ou
 extern "C" int fsr_window_attn_f32(const void* qkv, const void* masks, void* out, int B, int H,
                                    int W, int C, int heads, int shift, float scale, void* stream) {
   return launch<float>(qkv, masks, out, B, H, W, C, heads, shift, scale, stream);
+}
+
+// Window 16, bf16: masks [K, heads, 256, 256], shift 0 or 8; otherwise as
+// fsr_window_attn_bf16.
+extern "C" int fsr_window_attn16_bf16(const void* qkv, const void* masks, void* out, int B,
+                                      int H, int W, int C, int heads, int shift, float scale,
+                                      void* stream) {
+  return launch16(qkv, masks, out, B, H, W, C, heads, shift, scale, stream);
 }

@@ -44,6 +44,7 @@ from fast_srgan_torch import quant
 from fast_srgan_torch.checkpoints.convert import state_dict_from_jax_params
 from fast_srgan_torch.inference import arch_from_params, sr_forward_u8
 from fast_srgan_torch.models.generator import Generator
+from fast_srgan_torch.models.swinir import FAMILY_NAMES
 from fast_srgan_torch.ops.lr_tail import generator_apply_lr_tail, prepare_lr_tail
 from fast_srgan_torch.ops.precision import fp32_precision
 
@@ -109,9 +110,9 @@ class SRForwardU8(nn.Module):
                  quantize: bool, calib_batches: Optional[Sequence[Any]], device: torch.device):
         super().__init__()
         self.arch = arch_from_params(params)
-        if self.arch.get("family") == "swinir":
-            raise ValueError("export takes the Fast-SRGAN generator; SwinIR is served by"
-                             " SRInferenceEngine")
+        if "family" in self.arch:
+            raise ValueError("export takes the Fast-SRGAN generator;"
+                             f" {FAMILY_NAMES[self.arch['family']]} is served by SRInferenceEngine")
         self.dtype = dtype
         self.device = device
         self.form = "int8" if quantize else ("lr_tail" if lr_tail else "canonical")

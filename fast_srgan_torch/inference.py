@@ -52,7 +52,8 @@ import torch
 
 from fast_srgan_torch import quant
 from fast_srgan_torch.checkpoints.convert import state_dict_from_jax_params
-from fast_srgan_torch.models import swinir
+from fast_srgan_torch.kernels.window_attn import check_kernel_shapes
+from fast_srgan_torch.models import hat, swinir
 from fast_srgan_torch.models.generator import Generator
 from fast_srgan_torch.ops.lr_tail import generator_apply_lr_tail, prepare_lr_tail
 from fast_srgan_torch.ops.norm import valid_mask, zero_outside
@@ -62,6 +63,12 @@ from fast_srgan_torch.utils.spans import span
 
 #: Batches a stream keeps in flight on the card (the JAX engine's window).
 STREAM_IN_FLIGHT = 2
+#: the transformer families the engine serves, by ``arch["family"]``: each
+#: one's (architecture from its state_dict, fp32 CPU model from it)
+TRANSFORMERS = {
+    "swinir": (swinir.arch_from_state_dict, swinir.load_swinir),
+    "hat": (hat.arch_from_state_dict, hat.load_hat),
+}
 
 
 def graphs_apply(device: torch.device, mesh: Optional[Mesh]) -> bool:
@@ -94,12 +101,13 @@ def sr_forward_u8(
 def arch_from_params(params: Dict[str, Any]) -> Dict[str, Any]:
     """Read n_filters, n_layers and scale_factor off a generator param tree
     (the neck conv's output features, the ``stem_i`` count, and 2 to the
-    number of ``upsampling_i`` stages). A SwinIR state_dict (bare, or under
-    ``params_ema`` or ``params``) is told apart by its keys and gives
-    ``swinir.arch_from_state_dict``'s dict, whose ``family`` is
-    ``"swinir"``."""
-    if swinir.unwrap_state_dict(params) is not None:
-        return swinir.arch_from_state_dict(params)
+    number of ``upsampling_i`` stages). A SwinIR or HAT state_dict (bare, or
+    under ``params_ema`` or ``params``) is told apart by its keys
+    (``swinir.family_of``) and gives its module's ``arch_from_state_dict``
+    dict, whose ``family`` is ``"swinir"`` or ``"hat"``."""
+    family = swinir.family_of(params)
+    if family is not None:
+        return TRANSFORMERS[family][0](params)
     p = params["params"] if "params" in params else params
     if "neck_conv" not in p:
         raise ValueError(
@@ -119,7 +127,7 @@ class _Replica:
     """The engine's weights on one device."""
 
     device: torch.device
-    model: Generator | swinir.SwinIR
+    model: Generator | swinir.SwinIR | hat.HAT
     tail: Optional[Dict[str, Any]] = None
     plan: Optional[quant.PreparedGenerator] = None
     act_scales: Optional[Dict[str, torch.Tensor]] = None
@@ -197,10 +205,13 @@ class SRInferenceEngine:
 
     Args:
       params: generator param tree with numpy leaves (``load_npz_params``),
-        or a SwinIR state_dict (``models/swinir.py``; the architecture is
-        read off its keys). SwinIR runs every entry point but ``bucket``
-        and ``quantize``, which raise ValueError: zero padding would enter
-        its attention windows, and it has no calibrated int8 tier.
+        or a SwinIR or HAT state_dict (``models/swinir.py``,
+        ``models/hat.py``; the architecture is read off its keys). These
+        run every entry point but ``bucket`` and ``quantize``, which raise
+        ValueError: zero padding would enter their attention windows, and
+        they have no calibrated int8 tier. On the card, a model whose
+        attention the ``window_attn`` kernel does not take in ``dtype``
+        (HAT's window 16 in fp32) raises ValueError here.
       dtype: compute dtype, ``torch.bfloat16`` or ``torch.float32``.
       scale_factor: the expected upscale; None takes it from ``params``.
       device: where the model runs. ``"cuda"`` without CUDA raises: the
@@ -288,10 +299,10 @@ class SRInferenceEngine:
             )
         self.SCALE = arch["scale_factor"]
         self.dtype = dtype
-        #: "swinir" or "fsrgan"
+        #: "swinir", "hat" or "fsrgan"
         self.family = arch.get("family", "fsrgan")
-        if self.family == "swinir":
-            _refuse_for_swinir(bucket, quantize)
+        if self.family in TRANSFORMERS:
+            _refuse_for_transformer(arch, bucket, quantize, dtype, self.devices)
         mode = "ups" if quantize is True else (quantize or None)
         if mode is not None and mode not in quant.MODES:
             raise ValueError(f"quantize must be True/'tail'/'ups'/'full'/'trunk': {mode!r}")
@@ -312,8 +323,8 @@ class SRInferenceEngine:
         for dev in self.devices:
             if dev in self._replicas:
                 continue
-            if self.family == "swinir":
-                model = swinir.load_swinir(params)
+            if self.family in TRANSFORMERS:
+                model = TRANSFORMERS[self.family][1](params)
                 tail = model.prepare_lr_tail(dtype, dev) if use_lr_tail else None
             else:
                 model = Generator(**arch)
@@ -400,7 +411,7 @@ class SRInferenceEngine:
             if valid_hw is None:
                 return quant.sr_quant_forward(rep.plan, rep.act_scales, x)
             return quant.sr_quant_forward_masked(rep.plan, rep.act_scales, x, valid_hw)
-        if self.family == "swinir":
+        if self.family in TRANSFORMERS:
             return rep.model(x, rep.tail)
         if rep.tail is None:
             return rep.model(x, valid_hw=valid_hw)
@@ -741,15 +752,28 @@ class SRInferenceEngine:
                 ring.held = False
 
 
-def _refuse_for_swinir(bucket: int, quantize) -> None:
-    """The engine's paths SwinIR cannot run exactly, refused by name."""
+def _refuse_for_transformer(arch: Dict[str, Any], bucket: int, quantize, dtype: torch.dtype,
+                            devices: Sequence[torch.device]) -> None:
+    """The engine's paths a SwinIR or HAT cannot run exactly, refused by
+    the family's name, and on the card an attention the ``window_attn``
+    kernel does not take in ``dtype`` (nothing falls back to its plain
+    version there)."""
+    name = swinir.FAMILY_NAMES[arch["family"]]
     if bucket:
         raise ValueError(
-            "bucket= does not serve SwinIR: the zero padding of a bucketed batch would enter"
+            f"bucket= does not serve {name}: the zero padding of a bucketed batch would enter"
             " its attention windows and LayerNorms, so the padded forward is not the"
             " image's. Use bucket=0.")
     if quantize:
-        raise ValueError("quantize= does not serve SwinIR: it has no calibrated int8 tier")
+        raise ValueError(f"quantize= does not serve {name}: it has no calibrated int8 tier")
+    if any(d.type == "cuda" for d in devices):
+        ws, c = arch["window_size"], arch["embed_dim"]
+        try:
+            check_kernel_shapes((1, ws, ws, 3 * c), (1, arch["num_heads"][0], ws * ws, ws * ws), 0,
+                                dtype)
+        except ValueError as e:
+            raise ValueError(f"{name} at window {ws} in {dtype} does not run on the card: {e}"
+                             ) from None
 
 
 def _gathered(batches: Iterator[List[np.ndarray]]) -> Iterator[Tuple[int, List[np.ndarray]]]:

@@ -91,6 +91,7 @@ ENTRY_POINTS = {
     "fsr_tail_epilogue_f32": _TAIL_EPILOGUE,
     "fsr_window_attn_bf16": _WINDOW_ATTN,
     "fsr_window_attn_f32": _WINDOW_ATTN,
+    "fsr_window_attn16_bf16": _WINDOW_ATTN,
 }
 
 _lock = threading.Lock()

@@ -20,9 +20,12 @@ softmax, then :func:`reverse` and the roll back. The kernel
 ``qkv``, the rolls and the partition folded into its addresses, and writes
 the output back at the same place in one launch. In bf16 its logits and
 softmax are fp32 and P is rounded to bf16 for P V; in fp32 every product
-and sum is fp32. It takes window 8, an even head size of at most 32 and C a
-multiple of 4 (every published SwinIR SR model: head 30 at C = 180 or 240,
-lightweight head 10 at C = 60).
+and sum is fp32. It takes window 8 in bf16 and fp32 (every published SwinIR
+SR model: head 30 at C = 180 or 240, lightweight head 10 at C = 60) and
+window 16 in bf16 (HAT, ``models/hat.py``: head 30 at C = 180), each with an
+even head size of at most 32 and C a multiple of 4. At window 16 the kernel
+takes one (window, head) a block and the keys in chunks with an online
+softmax, since a window's qkv is more than a block's shared memory.
 
 The ``torch.library`` op ``fast_srgan::window_attn`` dispatches on the
 tensor: its CPU implementation is the plain version; its CUDA one launches
@@ -37,14 +40,13 @@ from typing import List, Sequence, Tuple
 
 import torch
 
-#: the window the kernel takes (csrc/window_attn.cu kWindow)
-KERNEL_WINDOW = 8
+#: the windows the kernel takes (csrc/window_attn.cu kWindow, kWindow16),
+#: and the types it takes at each (its entry points)
+KERNEL_WINDOWS = {8: (torch.bfloat16, torch.float32), 16: (torch.bfloat16,)}
 #: the largest head size the kernel takes (zero-padded to 32 in registers)
 KERNEL_MAX_HEAD = 32
-#: the types the kernel takes (csrc/window_attn.cu's two entry points)
-KERNEL_DTYPES = (torch.bfloat16, torch.float32)
-#: one block's shared memory on Hopper; the kernel holds a window's qkv,
-#: 192 C + 32 values
+#: one block's shared memory on Hopper; at window 8 the kernel holds a
+#: window's qkv, 192 C + 32 values (at 16, one head's, which always fits)
 SMEM_BYTES = 232_448
 
 
@@ -121,18 +123,20 @@ def check_kernel_shapes(qkv_shape: Sequence[int], masks_shape: Sequence[int], sh
     """Raise ValueError unless the kernel takes a call of these shapes in
     ``dtype``."""
     window, heads, hd = check_shapes(qkv_shape, masks_shape, shift)
-    if window != KERNEL_WINDOW:
-        raise ValueError(f"window_attn's kernel takes window {KERNEL_WINDOW}, not {window}")
+    if window not in KERNEL_WINDOWS:
+        raise ValueError(f"window_attn's kernel takes window 8 or 16, not {window}")
     if hd > KERNEL_MAX_HEAD or hd % 2:
         raise ValueError(f"window_attn's kernel takes an even head size of at most"
                          f" {KERNEL_MAX_HEAD}, not {hd}")
     c = qkv_shape[-1] // 3
     if c % 4:
         raise ValueError(f"window_attn's kernel takes C a multiple of 4, not {c}")
-    if dtype not in KERNEL_DTYPES:
-        raise ValueError(f"window_attn's kernel takes bf16 or fp32, not {dtype}")
+    if dtype not in KERNEL_WINDOWS[window]:
+        names = " or ".join({torch.bfloat16: "bf16", torch.float32: "fp32"}[t]
+                            for t in KERNEL_WINDOWS[window])
+        raise ValueError(f"window_attn's kernel takes {names} at window {window}, not {dtype}")
     smem = (192 * c + 32) * torch.finfo(dtype).bits // 8
-    if smem > SMEM_BYTES:
+    if window == 8 and smem > SMEM_BYTES:
         raise ValueError(f"C={c}: a window's qkv in {dtype} ({smem} bytes) exceeds one block's"
                          f" {SMEM_BYTES} bytes of shared memory")
 
@@ -175,7 +179,12 @@ def _launch(qkv, masks, shift, scale):
     lib = load_library()
     with torch.cuda.device(qkv.device):
         out = _fake(qkv, masks, shift, scale)
-        fn = lib.fsr_window_attn_bf16 if qkv.dtype == torch.bfloat16 else lib.fsr_window_attn_f32
+        if masks.shape[-1] != 64:
+            fn = lib.fsr_window_attn16_bf16
+        elif qkv.dtype == torch.bfloat16:
+            fn = lib.fsr_window_attn_bf16
+        else:
+            fn = lib.fsr_window_attn_f32
         err = fn(
             qkv.data_ptr(), masks.data_ptr(), out.data_ptr(), b, h, w, c3 // 3,
             masks.shape[1], shift, scale, torch.cuda.current_stream(qkv.device).cuda_stream,

@@ -74,6 +74,11 @@ RGB_MEAN = (0.4488, 0.4371, 0.4040)
 #: what the shift mask adds between tokens of different shifted regions
 MASK_VALUE = -100.0
 NOT_SWINIR = "not a SwinIR state_dict (no 'conv_first.weight' and 'layers.0.conv.weight')"
+#: the key that tells HAT's state_dict (``models/hat.py``) from SwinIR's:
+#: its first group's overlapping cross-attention
+HAT_KEY = "layers.0.residual_group.overlap_attn.qkv.weight"
+#: each transformer family's name in messages
+FAMILY_NAMES = {"swinir": "SwinIR", "hat": "HAT"}
 #: the published model's buffers, recomputed here for the input's own size
 BUFFERS = ("attn_mask", "relative_position_index")
 _STAGES = {2: 1, 4: 2, 8: 3}
@@ -219,7 +224,7 @@ class SwinIR(nn.Module):
         self.window_size, self.scale_factor = window_size, upscale
         self.conv_first = nn.Conv2d(3, embed_dim, 3, 1, 1)
         self.patch_embed = PatchEmbed(embed_dim)
-        self.layers = nn.ModuleList(RSTB(embed_dim, d, h, window_size, mlp_ratio)
+        self.layers = nn.ModuleList(self.group(embed_dim, d, h, window_size, mlp_ratio)
                                     for d, h in zip(depths, num_heads))
         self.norm = nn.LayerNorm(embed_dim)
         self.conv_after_body = nn.Conv2d(embed_dim, embed_dim, 3, 1, 1)
@@ -238,6 +243,11 @@ class SwinIR(nn.Module):
         #: mask sets built (one a key of ``_masks``; new weights build anew)
         self.mask_builds = 0
 
+    #: the residual group of the body (HAT's is another)
+    group = RSTB
+    #: the span that :meth:`masks` builds in
+    MASK_SPAN = "swinir.masks"
+
     @classmethod
     def from_arch(cls, arch: Mapping[str, Any]) -> "SwinIR":
         """The model :func:`arch_from_state_dict` describes."""
@@ -254,18 +264,22 @@ class SwinIR(nn.Module):
     def swin_layers(self) -> List[SwinLayer]:
         return [b for layer in self.layers for b in layer.residual_group.blocks]
 
-    def masks(self) -> List[torch.Tensor]:
+    def masks(self) -> Any:
         """Each Swin layer's attention masks by window class, [K, heads, N, N]
         contiguous in the compute dtype on the model's device, built at the
-        first call: an unshifted layer's bias (K = 1); a shifted layer's bias
-        plus the shift mask of each of ``window_regions``' four classes."""
+        first call (:meth:`build_masks`) and cached by (dtype, device)."""
         table = self.layers[0].residual_group.blocks[0].attn.relative_position_bias_table
         key = (table.dtype, table.device)
         if key not in self._masks:
-            with span("swinir.masks"), torch.no_grad():
-                self._masks[key] = [self._layer_masks(blk) for blk in self.swin_layers()]
+            with span(self.MASK_SPAN), torch.no_grad():
+                self._masks[key] = self.build_masks()
             self.mask_builds += 1
         return self._masks[key]
+
+    def build_masks(self) -> Any:
+        """An unshifted layer's bias (K = 1); a shifted layer's bias plus
+        the shift mask of each of ``window_regions``' four classes."""
+        return [self._layer_masks(blk) for blk in self.swin_layers()]
 
     @staticmethod
     def _layer_masks(blk: SwinLayer) -> torch.Tensor:
@@ -330,18 +344,34 @@ class SwinIR(nn.Module):
         return y[:, :, :h * s, :w * s]
 
 
-def unwrap_state_dict(obj: Any) -> Optional[Dict[str, Any]]:
-    """A SwinIR state_dict from ``obj``: the dict itself, or the one under
-    ``params_ema`` or ``params`` (the published files), ``_orig_mod.`` and
-    ``module.`` prefixes stripped; None where it holds no SwinIR."""
+def transformer_state_dict(obj: Any) -> Tuple[Optional[str], Optional[Dict[str, Any]]]:
+    """(family, state_dict) of a SwinIR or HAT state_dict in ``obj``: the
+    dict itself, or the one under ``params_ema`` or ``params`` (the published
+    files), ``_orig_mod.`` and ``module.`` prefixes stripped; the family is
+    ``"hat"`` where it holds HAT_KEY, else ``"swinir"``. (None, None) where
+    it holds neither."""
     if not isinstance(obj, Mapping):
-        return None
+        return None, None
     for key in ("params_ema", "params"):
         if isinstance(obj.get(key), Mapping):
             obj = obj[key]
             break
     sd = {str(k).replace("_orig_mod.", "").removeprefix("module."): v for k, v in obj.items()}
-    return sd if "conv_first.weight" in sd and "layers.0.conv.weight" in sd else None
+    if "conv_first.weight" not in sd or "layers.0.conv.weight" not in sd:
+        return None, None
+    return ("hat" if HAT_KEY in sd else "swinir"), sd
+
+
+def family_of(obj: Any) -> Optional[str]:
+    """``"swinir"``, ``"hat"``, or None where ``obj`` holds neither."""
+    return transformer_state_dict(obj)[0]
+
+
+def unwrap_state_dict(obj: Any) -> Optional[Dict[str, Any]]:
+    """A SwinIR state_dict from ``obj`` (:func:`transformer_state_dict`);
+    None where it holds no SwinIR, a HAT's included."""
+    family, sd = transformer_state_dict(obj)
+    return sd if family == "swinir" else None
 
 
 def swinir_state_dict(obj: Any) -> Dict[str, torch.Tensor]:
@@ -350,8 +380,14 @@ def swinir_state_dict(obj: Any) -> Dict[str, torch.Tensor]:
     sd = unwrap_state_dict(obj)
     if sd is None:
         raise ValueError(NOT_SWINIR)
+    return weights_only(sd, BUFFERS)
+
+
+def weights_only(sd: Mapping[str, Any], buffers: Sequence[str]) -> Dict[str, torch.Tensor]:
+    """``sd`` as fp32 CPU tensors without the keys whose last part is one
+    of ``buffers``."""
     return {k: torch.as_tensor(v).detach().to("cpu", torch.float32)
-            for k, v in sd.items() if k.rsplit(".", 1)[-1] not in BUFFERS}
+            for k, v in sd.items() if k.rsplit(".", 1)[-1] not in buffers}
 
 
 def arch_from_state_dict(obj: Any) -> Dict[str, Any]:
@@ -363,6 +399,12 @@ def arch_from_state_dict(obj: Any) -> Dict[str, Any]:
     sd = unwrap_state_dict(obj)
     if sd is None:
         raise ValueError(NOT_SWINIR)
+    return swin_arch(sd)
+
+
+def swin_arch(sd: Mapping[str, Any]) -> Dict[str, Any]:
+    """:func:`arch_from_state_dict` of an unwrapped state_dict, which HAT's
+    shares."""
     embed = sd["conv_first.weight"].shape[0]
     depths, heads = [], []
     i = 0

@@ -56,7 +56,7 @@ from fast_srgan_torch.kernels.instance_norm import (
 from fast_srgan_torch.kernels.int8_conv import int8_conv_phases
 from fast_srgan_torch.kernels.pixel_shuffle import phase_major_index, pixel_shuffle_phase_major
 from fast_srgan_torch.models.generator import prelu
-from fast_srgan_torch.models.swinir import unwrap_state_dict
+from fast_srgan_torch.models.swinir import FAMILY_NAMES, family_of
 from fast_srgan_torch.ops.lr_tail import (
     _out,
     _phase_outputs,
@@ -248,11 +248,12 @@ class _Tiled:
 
     def replicas(self, params) -> Dict[torch.device, Any]:
         if params is not self._params:
-            if unwrap_state_dict(params) is not None:
+            family = family_of(params)
+            if family is not None:
                 raise ValueError(
-                    "the width-tiled forward serves the Fast-SRGAN generator only: SwinIR's"
-                    " shifted windows would need halos of whole windows; run it through"
-                    " SRInferenceEngine")
+                    "the width-tiled forward serves the Fast-SRGAN generator only:"
+                    f" {FAMILY_NAMES[family]}'s shifted windows would need halos of whole"
+                    " windows; run it through SRInferenceEngine")
             self._replicas = {}
             self._params = params
             for d in (d for row in self.rows for d in row):

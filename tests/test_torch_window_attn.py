@@ -8,7 +8,8 @@ against ``window_regions`` and the shift mask; the kernel's envelope.
 On the card (``-m cuda``, skipped here): the kernel against the plain
 version in bf16 and fp32 at the video cell's shape, at edge shapes, past
 65,535 windows and past 2^31 bytes; one launch a layer in a SwinIR-M
-forward in each type, which runs with SDPA patched to raise.
+forward in each type, which runs with SDPA patched to raise. The same for
+window 16 (HAT) in bf16, the one type the kernel takes there.
 """
 
 import importlib
@@ -77,6 +78,24 @@ def test_reference_matches_the_composition(shifted, hw, window, hd, batch):
     want = composition(qkv, masks, shift, hd ** -0.5)
     got = wa.window_attn_reference(qkv, masks, shift, hd ** -0.5)
     assert got.shape == (batch, *hw, heads * hd)
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+HW16 = [(16, 16), (16, 48), (48, 16), (32, 48)]
+
+
+@pytest.mark.parametrize("hd", [30, 10])
+@pytest.mark.parametrize("hw", HW16, ids=[f"{h}x{w}" for h, w in HW16])
+@pytest.mark.parametrize("shifted", [False, True], ids=["unshifted", "shifted"])
+def test_reference_matches_the_composition_at_window_16(shifted, hw, hd):
+    """HAT's window: the plain version against the roll, partition and SDPA
+    composition, as at SwinIR's windows."""
+    gen = torch.Generator().manual_seed(2000 * shifted + hw[0] + hw[1] + hd)
+    shift = 8 if shifted else 0
+    qkv = torch.randn(2, *hw, 3 * 2 * hd, generator=gen)
+    masks = _masks(2, 16, shift, gen)
+    want = composition(qkv, masks, shift, hd ** -0.5)
+    got = wa.window_attn_reference(qkv, masks, shift, hd ** -0.5)
     assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
 
 
@@ -187,6 +206,21 @@ def test_kernel_shape_check_takes_the_published_models(dtype):
         wa._check_kernel_tensors(qkv, torch.zeros(1, 6, 64, 64, dtype=torch.float16), 0)
 
 
+def test_kernel_shape_check_takes_window_16_in_bf16_alone():
+    """HAT's layer (window 16, head 30, C = 180) in bf16, shifted and not,
+    and edge sizes of the envelope; fp32 at window 16 is refused by name."""
+    wa.check_kernel_shapes((8, 192, 320, 540), (4, 6, 256, 256), 8, BF16)
+    wa.check_kernel_shapes((8, 192, 320, 540), (1, 6, 256, 256), 0, BF16)
+    wa.check_kernel_shapes((1, 16, 16, 3 * 2 * 32), (1, 2, 256, 256), 0, BF16)  # head 32
+    for shift, k in ((0, 1), (8, 4)):
+        with pytest.raises(ValueError, match="bf16 at window 16, not torch.float32"):
+            wa.check_kernel_shapes((8, 192, 320, 540), (k, 6, 256, 256), shift, F32)
+    with pytest.raises(ValueError, match="shift"):
+        wa.check_kernel_shapes((1, 16, 16, 540), (4, 6, 256, 256), 4, BF16)
+    with pytest.raises(ValueError, match="multiples of the window 16"):
+        wa.check_kernel_shapes((1, 24, 16, 540), (1, 6, 256, 256), 0, BF16)
+
+
 def test_op_runs_the_plain_version_on_the_cpu():
     gen = torch.Generator().manual_seed(1)
     qkv = torch.randn(2, 16, 24, 3 * 60, generator=gen).to(torch.bfloat16)
@@ -294,3 +328,96 @@ def test_swinir_forward_is_one_launch_a_layer_without_sdpa(monkeypatch, dtype):
     assert out.shape == (2, 144, 240, 3)
     assert wa.window_attn.launches - launches == 36
     assert swinir.window_attention.calls - calls == 36
+
+
+def _pair16(shape, heads, shift, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn(shape, device="cuda", generator=gen).to(BF16)
+    masks = torch.randn(1, heads, 256, 256, device="cuda", generator=gen)
+    if shift:
+        masks = masks + swinir.shift_mask(32, 32, 16, shift, "cuda")[:, None]
+    return qkv, masks.to(BF16).contiguous()
+
+
+#: window 16: the HAT cell's layer, one window, one window row or column,
+#: head 10 and head 32
+CARD_CASES16 = [(8, 192, 320, 6, 30), (1, 16, 16, 6, 30), (3, 16, 48, 6, 30),
+                (2, 48, 16, 2, 10), (3, 48, 80, 4, 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shifted", [False, True], ids=["unshifted", "shifted"])
+@pytest.mark.parametrize("case", CARD_CASES16,
+                         ids=[f"{b}x{h}x{w}_h{n}_hd{d}" for b, h, w, n, d in CARD_CASES16])
+def test_window16_kernel_matches_the_plain_version(case, shifted):
+    """bf16 within TOL of the fp32 plain version (the window-8 limit: P and
+    the output rounded to bf16 as there, the online softmax's rescaling in
+    fp32)."""
+    _card()
+    b, h, w, heads, hd = case
+    shift = 8 if shifted else 0
+    qkv, masks = _pair16((b, h, w, 3 * heads * hd), heads, shift, b * h + w + hd)
+    launches = wa.window_attn.launches
+    got = wa.window_attn(qkv, masks, shift, hd ** -0.5)
+    torch.cuda.synchronize()
+    assert wa.window_attn.launches == launches + 1 and got.dtype == BF16
+    want = wa.window_attn_reference(qkv.float(), masks.float(), shift, hd ** -0.5)
+    _held(got, want, qkv[..., 2 * heads * hd:])
+    assert torch.equal(got, wa.window_attn(qkv, masks, shift, hd ** -0.5))  # run to run
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [((260, 16, 4096, 60), 2), ((9, 384, 640, 540), 6)],
+                         ids=["66560_windows", "past_2^31_bytes"])
+def test_window16_kernel_past_the_grid_and_2_to_the_31_bytes(case):
+    """The last image of a batch past 65,535 windows, and of one whose qkv
+    passes 2^31 bytes, against the plain version of that image alone."""
+    _card()
+    shape, heads = case
+    hd = shape[-1] // 3 // heads
+    for shift in (0, 8):
+        qkv, masks = _pair16(shape, heads, shift, shape[0] + shift)
+        got = wa.window_attn(qkv, masks, shift, hd ** -0.5)[-1:]
+        want = wa.window_attn_reference(qkv[-1:].float(), masks.float(), shift, hd ** -0.5)
+        _held(got, want, qkv[-1:, ..., 2 * heads * hd:])
+        del qkv, got, want
+        torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+def test_fp32_at_window_16_is_refused_on_the_card():
+    _card()
+    qkv, masks = _pair16((1, 16, 16, 540), 6, 0, 1)
+    with pytest.raises(ValueError, match="window 16"):
+        wa.window_attn(qkv.float(), masks.float(), 0, 30 ** -0.5)
+
+
+@pytest.mark.cuda
+def test_hat_forward_is_one_launch_a_hab_and_one_sdpa_an_ocab(monkeypatch):
+    _card()
+    from fast_srgan_torch.inference import SRInferenceEngine
+    from fast_srgan_torch.models import hat
+
+    import hat_reference as hat_ref
+
+    published = dict(embed_dim=180, depths=[6] * 6, num_heads=[6] * 6, window_size=16,
+                     mlp_ratio=2.0, num_feat=64, scale_factor=4, compress_ratio=3,
+                     squeeze_factor=30, overlap_ratio=0.5)
+    engine = SRInferenceEngine(hat_ref.seeded_state_dict(published, 2**31 + 7),
+                               dtype=BF16, device="cuda")
+    sdpa = []
+    orig = F.scaled_dot_product_attention
+
+    def counted(*args, **kwargs):
+        sdpa.append(kwargs["attn_mask"].shape)
+        return orig(*args, **kwargs)
+
+    monkeypatch.setattr(F, "scaled_dot_product_attention", counted)
+    frames = torch.randint(0, 256, (2, 36, 60, 3), dtype=torch.uint8).numpy()
+    engine.upscale_batch(frames)  # builds the masks
+    launches, calls, sdpa[:] = wa.window_attn.launches, hat.overlap_attention.calls, []
+    out = engine.upscale_batch(frames)
+    assert out.shape == (2, 144, 240, 3)
+    assert wa.window_attn.launches - launches == 36
+    assert hat.overlap_attention.calls - calls == 6
+    assert sdpa == [(1, 6, 256, 576)] * 6  # the bias broadcast over the windows
