@@ -65,6 +65,14 @@ own line; any failure exits non-zero and prints no result:
      linear's output (roll, partition by class, head pad, SDPA a class,
      transpose, reverse, roll back); the two planted faults of 8c; one
      eager HAT forward's launches (36 ``window_attn``, 6 OCA calls);
+ 8e. kernel: SwinIR's and HAT's LayerNorm (``layer_norm``, its ptxas lines
+     first) against ``F.layer_norm`` and its plain version at the two
+     cells' tokens, [8, 184, 320, 180] and [8, 192, 320, 180], in bf16 (one
+     bf16 ulp of |y|, |y| at least 2^-10) and fp32 (1e-5 of the largest
+     |y|), and on rows past 2^31 bytes; each timed beside its bound (x read
+     once, the output written once), the plain version and
+     ``F.layer_norm`` (library_ms); one eager SwinIR-M and one eager HAT
+     forward's launches (74 and 86);
   9. training: the reference configuration (64/8 4x generator, 64-filter
      discriminator, VGG19 with fixed-seed weights, batch 24 of 96x96 crops,
      bf16 autocast): 20 pretrain steps (the loss must fall) and 10 GAN steps
@@ -304,6 +312,18 @@ TAIL_PASSES = 5
 WINDOW_ATTN_SOURCE = "fast_srgan_torch/csrc/window_attn.cu"
 # none: the JAX package has no SwinIR
 WINDOW_ATTN_REPLACES = None
+LAYER_NORM_SOURCE = "fast_srgan_torch/csrc/layer_norm.cu"
+# none: the JAX package has no transformer
+LAYER_NORM_REPLACES = None
+#: layer_norm's limits against F.layer_norm and the plain version: bf16
+#: one ulp of |y|, |y| taken as at least LAYER_NORM_ULP_FLOOR (both round an
+#: fp32 result once, and another order of fp32 sums moves a value across a
+#: rounding boundary at most; where (x - mean) * rstd * gamma and beta
+#: nearly cancel, the fp32 result is itself ~1e-7 off, many bf16 ulps of a y
+#: near 0); fp32 a share of the largest |y| (the same sums in another order:
+#: ~1e-7 of |y|)
+LAYER_NORM_ULP_FLOOR = 2.0**-10
+LAYER_NORM_F32_TOL = 1e-5
 
 FP32_TOL = 2e-5
 BF16_TOL = 2e-2
@@ -661,6 +681,7 @@ def phase_widest_channels() -> dict:
 def phase_serving(params, frames) -> tuple:
     from fast_srgan_torch.inference import SRInferenceEngine
     from fast_srgan_torch.kernels.instance_norm import instance_norm_add, instance_norm_prelu
+    from fast_srgan_torch.kernels.layer_norm import layer_norm
     from fast_srgan_torch.kernels.tail_epilogue import tail_epilogue
     from fast_srgan_torch.serving import MicroBatcher
 
@@ -677,6 +698,7 @@ def phase_serving(params, frames) -> tuple:
 
     batcher = MicroBatcher(engine, max_batch=8, max_wait_ms=20)
     instance_norm_prelu.launches = instance_norm_add.launches = tail_epilogue.launches = 0
+    layer_norm.launches = 0
     engine.forward_calls = 0
     t0 = time.perf_counter()
     threads = [threading.Thread(target=client, args=(k,)) for k in range(4)]
@@ -685,7 +707,8 @@ def phase_serving(params, frames) -> tuple:
     for t in threads:
         t.join(timeout=900)
     seconds = time.perf_counter() - t0
-    launches = [instance_norm_prelu.launches, instance_norm_add.launches, tail_epilogue.launches]
+    launches = [instance_norm_prelu.launches, instance_norm_add.launches, tail_epilogue.launches,
+                layer_norm.launches]
     forwards = engine.forward_calls
     batcher.close()
     check(not any(t.is_alive() for t in threads), "a client thread hung")
@@ -700,13 +723,14 @@ def phase_serving(params, frames) -> tuple:
     n_layers = engine.model.n_layers
     # n_layers norms feed a PReLU; the stem's other n_layers and the
     # bottleneck's are followed by a residual add; the LR tail's five
-    # upsampling outputs each take one epilogue pass
-    want = [n_layers * forwards, (n_layers + 1) * forwards, TAIL_PASSES * forwards]
+    # upsampling outputs each take one epilogue pass; the generator has no
+    # LayerNorm
+    want = [n_layers * forwards, (n_layers + 1) * forwards, TAIL_PASSES * forwards, 0]
     print(
         f"[4 serving] {len(frames)} requests in {batcher.stats['batches']} batches"
         f" ({seconds:.2f} s incl. first-call setup); {forwards} generator forwards;"
         f" launches instance_norm_prelu {launches[0]}, instance_norm_add {launches[1]},"
-        f" tail_epilogue {launches[2]} (want {want})",
+        f" tail_epilogue {launches[2]}, layer_norm {launches[3]} (want {want})",
         flush=True,
     )
     check(forwards > 0 and launches == want, "launch count mismatch")
@@ -971,6 +995,7 @@ def phase_int8_engine(params, frames) -> list:
     from fast_srgan_torch.inference import SRInferenceEngine
     from fast_srgan_torch.kernels.instance_norm import instance_norm_add, instance_norm_prelu
     from fast_srgan_torch.kernels.int8_conv import int8_conv, int8_conv_phases
+    from fast_srgan_torch.kernels.layer_norm import layer_norm
     from fast_srgan_torch.kernels.quantize import quantize_act
     from fast_srgan_torch.kernels.tail_epilogue import tail_epilogue
 
@@ -978,7 +1003,7 @@ def phase_int8_engine(params, frames) -> list:
     engine = SRInferenceEngine(params, device="cuda", dtype=torch.bfloat16,
                                quantize=True, calib_batches=[calib])
     counters = (int8_conv, int8_conv_phases, quantize_act, instance_norm_prelu,
-                instance_norm_add, tail_epilogue)
+                instance_norm_add, tail_epilogue, layer_norm)
     for f in counters:
         f.launches = 0
     engine.forward_calls = 0
@@ -987,14 +1012,14 @@ def phase_int8_engine(params, frames) -> list:
     forwards = engine.forward_calls
     # a 4x forward: stage 1 (quantizing stage 2's input in its epilogue) and
     # the four phases in one launch, so 2 s8 launches, and 1 quantize; their
-    # epilogues take the bias and PReLU, so no tail epilogue pass
+    # epilogues take the bias and PReLU, so no tail epilogue pass; no LayerNorm
     n_layers = engine.model.n_layers
-    want = [forwards, forwards, forwards, n_layers * forwards, (n_layers + 1) * forwards, 0]
+    want = [forwards, forwards, forwards, n_layers * forwards, (n_layers + 1) * forwards, 0, 0]
     print(
         f"[10 int8] ups bf16 engine: {len(frames)} frames in {forwards} forwards; launches"
         f" s8 conv {launches[0] + launches[1]} (stage 1 {launches[0]}, four phases"
         f" {launches[1]}), quantize {launches[2]}, IN+PReLU {launches[3]}, IN+add"
-        f" {launches[4]}, tail epilogue {launches[5]} (want {want})",
+        f" {launches[4]}, tail epilogue {launches[5]}, layer_norm {launches[6]} (want {want})",
         flush=True,
     )
     check(forwards > 0 and launches == want, "int8 launch count mismatch")
@@ -1535,6 +1560,101 @@ def phase_window_attn16() -> dict:
           f"a bf16 HAT forward: {row['launches']} window_attn launches, {oca} OCA calls")
     print(f"[8d kernel] one eager bf16 HAT forward: {row['launches']} window_attn launches,"
           f" {oca} overlap_attention calls", flush=True)
+    return row
+
+
+def _layer_norm_held(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest |got - want|, in bf16 ulps of |want| (bf16) or as a share
+    of the largest |want| (fp32); fails beyond the LAYER_NORM_* limits."""
+    err = (got.float() - want.float()).abs()
+    if got.dtype == torch.bfloat16:
+        at = want.float().abs().clamp_min(LAYER_NORM_ULP_FLOOR)
+        ulp = torch.ldexp(torch.ones_like(err), torch.frexp(at).exponent - 8)
+        worst = (err / ulp).max().item()
+        check(worst <= 1.0, f"layer_norm bf16: {worst} ulps off")
+        return worst
+    worst = err.max().item() / want.float().abs().max().item()
+    check(worst <= LAYER_NORM_F32_TOL, f"layer_norm fp32: {worst} of |y| off")
+    return worst
+
+
+def phase_layer_norm() -> dict:
+    """SwinIR's and HAT's LayerNorm at the two cells' tokens ([8, 184, 320,
+    180] and [8, 192, 320, 180]): the kernel against F.layer_norm and its
+    plain version in bf16 and fp32, timed beside its bound, the plain
+    version and F.layer_norm; rows past 2^31 bytes; one eager SwinIR-M and
+    HAT forward's launches. Returns the kernels line's row (the SwinIR
+    cell's bf16 shape; hat_* and f32_* the others)."""
+    import torch.nn.functional as F
+
+    from benchmark.reference import hat as hat_ref
+    from benchmark.reference import swinir as swin_ref
+    from fast_srgan_torch.inference import SRInferenceEngine
+    from fast_srgan_torch.kernels.layer_norm import layer_norm, layer_norm_reference
+
+    for line in _ptxas_lines("layer_norm"):
+        print(f"[8e kernel] ptxas {line}", flush=True)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(26)
+    c, eps = 180, 1e-5
+    w32 = 1 + 0.3 * torch.randn(c, device=dev, generator=gen)
+    b32 = 0.2 * torch.randn(c, device=dev, generator=gen)
+    row = {}
+    for name, shape in (("", (8, 184, 320, c)), ("hat_", (8, 192, 320, c))):
+        x32 = torch.randn(shape, device=dev, generator=gen) * 3 + 0.5
+        for dtype, tname in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+            x, weight, bias = x32.to(dtype), w32.to(dtype), b32.to(dtype)
+            got = layer_norm(x, weight, bias, eps)
+            lib_err = _layer_norm_held(got, F.layer_norm(x, (c,), weight, bias, eps))
+            plain_err = _layer_norm_held(got, layer_norm_reference(x, weight, bias, eps))
+            check(torch.equal(got, layer_norm(x, weight, bias, eps)),
+                  f"layer_norm {tname} {shape}: not the same run to run")
+            del got
+            ms, plain_ms = _timed_pair(lambda: layer_norm(x, weight, bias, eps),
+                                       lambda: layer_norm_reference(x, weight, bias, eps),
+                                       iters=100, plain_iters=10)
+            lib_ms = cuda_ms(lambda: F.layer_norm(x, (c,), weight, bias, eps), 100)
+            r = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                 "max_err_vs_library": lib_err, "max_err_vs_plain": plain_err,
+                 **bound(2 * x.numel() * x.element_size(), 0, BF16_FLOPS)}
+            unit = "ulp" if dtype == torch.bfloat16 else "of max |y|"
+            print(f"[8e kernel] layer_norm {tname} {list(shape)}: kernel {ms:.4f} ms"
+                  f" ({100 * r['bound_ms'] / ms:.1f}% of {r['bound_ms']:.4f}, bytes), plain"
+                  f" {plain_ms:.4f}, F.layer_norm {lib_ms:.4f}"
+                  f" ({100 * r['bound_ms'] / lib_ms:.1f}%); max err vs F.layer_norm"
+                  f" {lib_err:.3g} {unit}, vs plain {plain_err:.3g} {unit}", flush=True)
+            row.update({f"{name}{'' if dtype == torch.bfloat16 else 'f32_'}{k}": v
+                        for k, v in r.items()})
+            del x
+        del x32
+        torch.cuda.empty_cache()
+    # rows past 2^31 bytes: the first and the last rows against the plain version
+    rows = 2**31 // (c * 2) + 12_345
+    x = torch.randn((rows, c), device=dev, generator=gen).to(torch.bfloat16)
+    weight, bias = w32.to(torch.bfloat16), b32.to(torch.bfloat16)
+    got = layer_norm(x, weight, bias, eps)
+    for part in (slice(0, 4096), slice(rows - 70_001, rows)):
+        _layer_norm_held(got[part], layer_norm_reference(x[part], weight, bias, eps))
+    print(f"[8e kernel] layer_norm bf16 [{rows}, {c}] ({2 * rows * c} bytes): first and last"
+          f" rows within one ulp of the plain version", flush=True)
+    del x, got
+    torch.cuda.empty_cache()
+    frames = np.random.default_rng(26).integers(0, 256, (2, 36, 60, 3), dtype=np.uint8)
+    common = dict(embed_dim=180, depths=[6] * 6, num_heads=[6] * 6, mlp_ratio=2.0,
+                  num_feat=64, scale_factor=4)
+    for key, ref, arch, want in (
+            ("launches", swin_ref, dict(common, window_size=8), 74),
+            ("hat_launches", hat_ref, dict(common, window_size=16, compress_ratio=3,
+                                           squeeze_factor=30, overlap_ratio=0.5), 86)):
+        engine = SRInferenceEngine(ref.seeded_state_dict(arch, 26), dtype=torch.bfloat16,
+                                   device=dev)
+        engine.upscale_batch(frames)
+        before = layer_norm.launches
+        engine.upscale_batch(frames)
+        row[key] = layer_norm.launches - before
+        check(row[key] == want, f"layer_norm launches a {key} forward: {row[key]}, want {want}")
+        print(f"[8e kernel] one eager bf16 {'HAT' if key.startswith('hat') else 'SwinIR-M'}"
+              f" forward: {row[key]} layer_norm launches", flush=True)
     return row
 
 
@@ -2129,6 +2249,7 @@ def _counters():
     from fast_srgan_torch.kernels.fused_upsample import fused_upsample
     from fast_srgan_torch.kernels.instance_norm import instance_norm_add, instance_norm_prelu
     from fast_srgan_torch.kernels.int8_conv import int8_conv, int8_conv_phases
+    from fast_srgan_torch.kernels.layer_norm import layer_norm
     from fast_srgan_torch.kernels.pixel_shuffle import pixel_shuffle_phase_major
     from fast_srgan_torch.kernels.quantize import quantize_act
     from fast_srgan_torch.kernels.tail_epilogue import tail_epilogue
@@ -2153,7 +2274,8 @@ def _counters():
             "shuffle": (pixel_shuffle_phase_major, "launches"),
             "upsample": (fused_upsample, "launches"),
             "upsample_backward": (fused_upsample, "backward_launches"),
-            "tail": (tail_epilogue, "launches")}
+            "tail": (tail_epilogue, "launches"),
+            "layer_norm": (layer_norm, "launches")}
 
 
 def _zero_counts() -> None:
@@ -2401,7 +2523,8 @@ def phase_stream(params, frames, staged_fps: float, card: str) -> None:
 COUNTER_OPS = {"in_prelu": "instance_norm_prelu", "in_add": "instance_norm_add",
                "s8_stage1": "int8_conv", "s8_phases": "int8_conv_phases",
                "quantize": "quantize_act", "shuffle": "pixel_shuffle_phase_major",
-               "upsample": "fused_upsample", "tail": "tail_epilogue"}
+               "upsample": "fused_upsample", "tail": "tail_epilogue",
+               "layer_norm": "layer_norm"}
 #: phase 13's artifacts: export_model flags, the form, and the most uint8
 #: counts the loaded artifact may differ from the live engine (fp32 is the
 #: engine's own program, bitwise expected; bf16 and int8 the JAX script's gate)
@@ -3942,6 +4065,7 @@ def main() -> None:
     tail_row = phase_tail_epilogue()
     window_row = phase_window_attn()
     window16_row = phase_window_attn16()
+    layer_norm_row = phase_layer_norm()
 
     from fast_srgan_torch.checkpoints.npz_io import load_npz_params
 
@@ -4016,6 +4140,9 @@ def main() -> None:
     # one eager SwinIR-M forward; its times the shifted layer's (unshifted_*
     # the other's), library_ms the parent's chain less the qkv linear;
     # window_attn16's phase 8d's HAT forward, library_ms the stock chain.
+    # layer_norm's are phase 8e's eager SwinIR-M forward (hat_launches its
+    # HAT forward); its times the SwinIR cell's bf16 tokens (hat_* the HAT
+    # cell's, f32_* fp32), library_ms F.layer_norm's.
     two = exported["two_launch"]
     split = tiled["counts"]
     split_q = tiled["int8_counts"]
@@ -4098,6 +4225,9 @@ def main() -> None:
         {"name": "window_attn16", "route": "cuda", "source": WINDOW_ATTN_SOURCE,
          "replaces": WINDOW_ATTN_REPLACES, "op": "torch.ops.fast_srgan.window_attn",
          **window16_row},
+        {"name": "layer_norm", "route": "cuda", "source": LAYER_NORM_SOURCE,
+         "replaces": LAYER_NORM_REPLACES, "op": "torch.ops.fast_srgan.layer_norm",
+         **layer_norm_row},
     ]}))
     print(json.dumps({
         "ok": True,

@@ -22,6 +22,7 @@ from fast_srgan_torch.kernels.int8_conv import (
     int8_conv_phases_reference,
     int8_conv_reference,
 )
+from fast_srgan_torch.kernels.layer_norm import layer_norm, layer_norm_reference
 from fast_srgan_torch.kernels.pixel_shuffle import (
     pixel_shuffle_phase_major,
     pixel_shuffle_phase_major_reference,
@@ -47,6 +48,8 @@ __all__ = [
     "int8_conv_phases",
     "int8_conv_phases_reference",
     "int8_conv_reference",
+    "layer_norm",
+    "layer_norm_reference",
     "pixel_shuffle_phase_major",
     "pixel_shuffle_phase_major_reference",
     "quantize_act",

@@ -57,6 +57,8 @@ _QUANTIZE = [_P] * 3 + [ctypes.c_longlong, _P]
 _TAIL_EPILOGUE = [_P] * 4 + [_I] * 9 + [_P]
 # (qkv, masks, out, B, H, W, C, heads, shift, scale, stream)
 _WINDOW_ATTN = [_P] * 3 + [_I] * 6 + [_F, _P]
+# (x, weight, bias, out, rows (64-bit), C, eps, stream)
+_LAYER_NORM = [_P] * 4 + [ctypes.c_longlong, _I, _F, _P]
 
 #: Every ``extern "C"`` entry point of csrc/*.cu and its argument types, in
 #: order: a pointer (and the stream) is c_void_p, or ctypes would pass it as
@@ -92,6 +94,8 @@ ENTRY_POINTS = {
     "fsr_window_attn_bf16": _WINDOW_ATTN,
     "fsr_window_attn_f32": _WINDOW_ATTN,
     "fsr_window_attn16_bf16": _WINDOW_ATTN,
+    "fsr_layer_norm_bf16": _LAYER_NORM,
+    "fsr_layer_norm_f32": _LAYER_NORM,
 }
 
 _lock = threading.Lock()

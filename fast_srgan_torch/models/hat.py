@@ -177,12 +177,12 @@ class OCAB(nn.Module):
         self.window = window
         self.overlap = window + int(window * overlap_ratio)
         self.head_dim = dim // heads
-        self.norm1 = nn.LayerNorm(dim)
+        self.norm1 = swinir.LayerNorm(dim)
         self.qkv = nn.Linear(dim, 3 * dim)
         self.relative_position_bias_table = nn.Parameter(
             torch.zeros((window + self.overlap - 1) ** 2, heads))
         self.proj = nn.Linear(dim, dim)
-        self.norm2 = nn.LayerNorm(dim)
+        self.norm2 = swinir.LayerNorm(dim)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
 
     def forward(self, x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:

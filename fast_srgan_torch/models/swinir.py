@@ -39,7 +39,9 @@ fp32.
 
 The compute dtype is the parameters' (``.to(torch.bfloat16)``); LayerNorm
 statistics and the softmax run in fp32, as they do for the published model
-under autocast. The forward takes the engine's
+under autocast. Every LayerNorm is :class:`LayerNorm`, one launch of the
+``layer_norm`` kernel on the card (``kernels/layer_norm.py``) and its plain
+version on the CPU. The forward takes the engine's
 [-1, 1] input, normalizes it as SwinIR does (x01 - mean; ``img_range`` is
 1 in every published classical-SR model and is not an option here),
 reflect-pads the bottom and right to a multiple of the window
@@ -64,6 +66,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from fast_srgan_torch.kernels.layer_norm import layer_norm
 from fast_srgan_torch.kernels.window_attn import window_attn
 from fast_srgan_torch.models.generator import upsample_stage
 from fast_srgan_torch.ops import lr_tail as _lr_tail
@@ -132,6 +135,15 @@ def window_attention(qkv: torch.Tensor, masks: torch.Tensor, shift: int,
 window_attention.calls = 0
 
 
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` over the last dimension (its parameters and
+    state_dict keys) run by :func:`layer_norm`: the kernel on the card, its
+    plain version on the CPU."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layer_norm(x, self.weight, self.bias, self.eps)
+
+
 class WindowAttention(nn.Module):
     """qkv, the relative-position bias table and proj of one Swin layer
     (:func:`window_attention` runs between qkv and proj)."""
@@ -162,9 +174,9 @@ class SwinLayer(nn.Module):
     def __init__(self, dim: int, heads: int, window: int, shift: int, mlp_ratio: float):
         super().__init__()
         self.window, self.shift = window, shift
-        self.norm1 = nn.LayerNorm(dim)
+        self.norm1 = LayerNorm(dim)
         self.attn = WindowAttention(dim, window, heads)
-        self.norm2 = nn.LayerNorm(dim)
+        self.norm2 = LayerNorm(dim)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
 
     def forward(self, x: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
@@ -206,7 +218,7 @@ class PatchEmbed(nn.Module):
 
     def __init__(self, dim: int):
         super().__init__()
-        self.norm = nn.LayerNorm(dim)
+        self.norm = LayerNorm(dim)
 
 
 class SwinIR(nn.Module):
@@ -226,7 +238,7 @@ class SwinIR(nn.Module):
         self.patch_embed = PatchEmbed(embed_dim)
         self.layers = nn.ModuleList(self.group(embed_dim, d, h, window_size, mlp_ratio)
                                     for d, h in zip(depths, num_heads))
-        self.norm = nn.LayerNorm(embed_dim)
+        self.norm = LayerNorm(embed_dim)
         self.conv_after_body = nn.Conv2d(embed_dim, embed_dim, 3, 1, 1)
         self.conv_before_upsample = nn.Sequential(nn.Conv2d(embed_dim, num_feat, 3, 1, 1),
                                                   nn.LeakyReLU(inplace=True))
