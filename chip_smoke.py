@@ -73,6 +73,15 @@ own line; any failure exits non-zero and prints no result:
      once, the output written once), the plain version and
      ``F.layer_norm`` (library_ms); one eager SwinIR-M and one eager HAT
      forward's launches (74 and 86);
+ 8f. kernel: MambaIR's four-direction selective scan (``selective_scan``, its
+     ptxas lines first) against its plain version at the MambaIR cell's
+     SS2D ([8, 180, 320], D 360, R 12, N 16) in bf16 (one bf16 ulp of |y|
+     above 1e-3 of the largest |y|) and fp32 (1e-5 of the largest |y|),
+     bitwise run to run, the planted fault (no carry across chunks) beyond
+     those limits; each timed beside its bound (one exponential a state
+     update over the special-function units' rate) and the plain version
+     (no PyTorch call computes it: library_ms null); one eager MambaIR
+     forward's launches (36 scans, 110 ``layer_norm``);
   9. training: the reference configuration (64/8 4x generator, 64-filter
      discriminator, VGG19 with fixed-seed weights, batch 24 of 96x96 crops,
      bf16 autocast): 20 pretrain steps (the loss must fall) and 10 GAN steps
@@ -324,6 +333,19 @@ LAYER_NORM_REPLACES = None
 #: ~1e-7 of |y|)
 LAYER_NORM_ULP_FLOOR = 2.0**-10
 LAYER_NORM_F32_TOL = 1e-5
+SCAN_SOURCE = "fast_srgan_torch/csrc/selective_scan.cu"
+# none: the JAX package has no MambaIR
+SCAN_REPLACES = None
+#: selective_scan's limits against its plain version: bf16 one ulp of |y|
+#: above a floor of SCAN_BF16_FLOOR of the largest |y| (the kernel's
+#: exponentials are ex2.approx, 2^-22 relative, and its fp32 sums run in
+#: another order: the fp32 y moves by ~3e-7 of its scale, which a value near
+#: zero or on a rounding edge shows as one ulp or more); fp32 a share of the
+#: largest |y|
+SCAN_BF16_FLOOR = 1e-3
+SCAN_F32_TOL = 1e-5
+#: the H100 SXM's special-function units: 16 a clock an SM, 132 SMs, 1.98 GHz
+MUFU_PER_S = 132 * 16 * 1.98e9
 
 FP32_TOL = 2e-5
 BF16_TOL = 2e-2
@@ -1655,6 +1677,95 @@ def phase_layer_norm() -> dict:
         check(row[key] == want, f"layer_norm launches a {key} forward: {row[key]}, want {want}")
         print(f"[8e kernel] one eager bf16 {'HAT' if key.startswith('hat') else 'SwinIR-M'}"
               f" forward: {row[key]} layer_norm launches", flush=True)
+    return row
+
+
+def _scan_held(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest |got - want| as a share of the largest |want|; fails
+    beyond the SCAN_* limits."""
+    err = (got.float() - want.float()).abs()
+    scale = want.float().abs().max().item()
+    if got.dtype == torch.bfloat16:
+        ulp = torch.ldexp(torch.ones_like(err), torch.frexp(want.float().abs()).exponent - 8)
+        over = (err > torch.clamp_min(ulp, SCAN_BF16_FLOOR * scale)).sum().item()
+        check(over == 0, f"selective_scan bf16: {over} values past one ulp and the floor")
+    else:
+        check(err.max().item() <= SCAN_F32_TOL * scale,
+              f"selective_scan fp32: {err.max().item() / scale} of |y| off")
+    return err.max().item() / scale
+
+
+def phase_selective_scan() -> dict:
+    """MambaIR's selective scan at the MambaIR cell's SS2D ([8, 180, 320], D
+    360, R 12, N 16): the kernel against its plain version in bf16 and fp32,
+    run to run, the planted fault against it, timed beside its bound and the
+    plain version; one eager MambaIR forward's launches. Returns the kernels
+    line's row (bf16; f32_* fp32)."""
+    import importlib
+
+    from benchmark.reference import mambair as mambair_ref
+    from fast_srgan_torch.inference import SRInferenceEngine
+    from fast_srgan_torch.kernels.layer_norm import layer_norm
+
+    scan = importlib.import_module("fast_srgan_torch.kernels.selective_scan")
+    for line in _ptxas_lines("selective_scan"):
+        print(f"[8f kernel] ptxas {line}", flush=True)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(27)
+    b, h, w, d, r, n = 8, 180, 320, 360, 12, 16
+    rand = lambda *s: torch.randn(s, device=dev, generator=gen)  # noqa: E731
+    u32, x32 = rand(b, h, w, d), rand(b, h, w, 4, r + 2 * n)
+    dt_w, dt_b = rand(4, d, r) * (0.5 / r ** 0.5), rand(4, d) - 4.0
+    a = -torch.exp(torch.log(torch.arange(1, n + 1, device=dev, dtype=torch.float32))
+                   + 0.3 * rand(4, d, n))
+    ds = 1.0 + 0.1 * rand(4, d)
+    exps = 4 * b * h * w * d * n
+    row = {}
+    for dtype, key in ((torch.bfloat16, ""), (torch.float32, "f32_")):
+        args = (u32.to(dtype), x32.to(dtype), dt_w, dt_b, a, ds)
+        got = scan.selective_scan(*args)
+        want = scan.selective_scan_reference(*args)
+        err = _scan_held(got, want)
+        check(torch.equal(got, scan.selective_scan(*args)), f"selective_scan {dtype}: not the"
+              " same run to run")
+        scan.CARRY = False
+        try:
+            fault = scan.selective_scan(*args)
+        finally:
+            scan.CARRY = True
+        fault_err = (fault.float() - want.float()).abs().max().item() / want.float().abs().max().item()
+        check(fault_err > 100 * SCAN_F32_TOL, f"selective_scan {dtype}: the carry dropped reads"
+              f" {fault_err} of |y|, within the limits")
+        del got, want, fault
+        torch.cuda.empty_cache()
+        ms = cuda_ms(lambda: scan.selective_scan(*args), 10)
+        plain_ms = events_ms(lambda: scan.selective_scan_reference(*args), 1)
+        nbytes = args[0].element_size() * b * h * w * (4 * d + 4 * (r + 2 * n) + d)
+        r_ = {"ms": ms, "plain_ms": plain_ms, "library_ms": None, "max_err_share": err,
+              "planted_no_carry_share": fault_err, **bound(nbytes, exps, MUFU_PER_S)}
+        print(f"[8f kernel] selective_scan {dtype} [{b},{h},{w},{d}] R {r} N {n}: kernel"
+              f" {ms:.4f} ms ({100 * r_['bound_ms'] / ms:.1f}% of {r_['bound_ms']:.4f},"
+              f" {r_['bound_by']}), plain {plain_ms:.4f}; max |err| {err:.3g} of |y|; no carry"
+              f" {fault_err:.3g}", flush=True)
+        row.update({key + k: v for k, v in r_.items()})
+        del args
+    del u32, x32
+    torch.cuda.empty_cache()
+    arch = dict(embed_dim=180, depths=[6] * 6, d_state=16, mlp_ratio=2.0, dt_rank=12,
+                num_feat=64, scale_factor=4, compress_ratio=3, squeeze_factor=30)
+    frames = np.random.default_rng(27).integers(0, 256, (2, 36, 60, 3), dtype=np.uint8)
+    engine = SRInferenceEngine(mambair_ref.seeded_state_dict(arch, 27), dtype=torch.bfloat16,
+                               device=dev)
+    engine.upscale_batch(frames)
+    scans, norms = scan.selective_scan.launches, layer_norm.launches
+    engine.upscale_batch(frames)
+    row["launches"] = scan.selective_scan.launches - scans
+    row["layer_norm_launches"] = layer_norm.launches - norms
+    check(row["launches"] == 36 and row["layer_norm_launches"] == 110,
+          f"a bf16 MambaIR forward: {row['launches']} scans, {row['layer_norm_launches']}"
+          " layer_norm launches")
+    print(f"[8f kernel] one eager bf16 MambaIR forward: {row['launches']} selective_scan"
+          f" launches, {row['layer_norm_launches']} layer_norm launches", flush=True)
     return row
 
 
@@ -4066,6 +4177,7 @@ def main() -> None:
     window_row = phase_window_attn()
     window16_row = phase_window_attn16()
     layer_norm_row = phase_layer_norm()
+    scan_row = phase_selective_scan()
 
     from fast_srgan_torch.checkpoints.npz_io import load_npz_params
 
@@ -4142,7 +4254,9 @@ def main() -> None:
     # window_attn16's phase 8d's HAT forward, library_ms the stock chain.
     # layer_norm's are phase 8e's eager SwinIR-M forward (hat_launches its
     # HAT forward); its times the SwinIR cell's bf16 tokens (hat_* the HAT
-    # cell's, f32_* fp32), library_ms F.layer_norm's.
+    # cell's, f32_* fp32), library_ms F.layer_norm's. selective_scan's are
+    # phase 8f's eager MambaIR forward; its times the MambaIR cell's SS2D in
+    # bf16 (f32_* fp32).
     two = exported["two_launch"]
     split = tiled["counts"]
     split_q = tiled["int8_counts"]
@@ -4228,6 +4342,8 @@ def main() -> None:
         {"name": "layer_norm", "route": "cuda", "source": LAYER_NORM_SOURCE,
          "replaces": LAYER_NORM_REPLACES, "op": "torch.ops.fast_srgan.layer_norm",
          **layer_norm_row},
+        {"name": "selective_scan", "route": "cuda", "source": SCAN_SOURCE,
+         "replaces": SCAN_REPLACES, "op": "torch.ops.fast_srgan.selective_scan", **scan_row},
     ]}))
     print(json.dumps({
         "ok": True,

@@ -128,9 +128,10 @@ def load_generator_params(path: str) -> Dict[str, Any]:
     """Generator params (numpy, ``{'params': ...}``) from a native ``.npz``
     or a ``.pt`` generator state_dict (the reference's, ``_orig_mod.``
     prefixes stripped, or the port trainer's ``generator_epoch_N.pt``); from
-    a SwinIR or HAT ``.pth`` (bare, or under ``params_ema`` or ``params``),
-    its state_dict as ``models.swinir.swinir_state_dict`` or
-    ``models.hat.hat_state_dict`` gives it, which the engine takes as it
+    a SwinIR, HAT or MambaIR ``.pth`` (bare, or under ``params_ema`` or
+    ``params``), its state_dict as ``models.swinir.swinir_state_dict``,
+    ``models.hat.hat_state_dict`` or ``models.mambair.mambair_state_dict``
+    gives it, which the engine takes as it
     takes a generator tree. Raises FileNotFoundError for
     a missing file."""
     if not os.path.exists(path):
@@ -144,11 +145,13 @@ def load_generator_params(path: str) -> Dict[str, Any]:
         return load_npz_params(path)
     obj = torch.load(path, map_location="cpu", weights_only=True)
     from fast_srgan_torch.models.hat import hat_state_dict
+    from fast_srgan_torch.models.mambair import mambair_state_dict
     from fast_srgan_torch.models.swinir import family_of, swinir_state_dict
 
     family = family_of(obj)
     if family is not None:
-        return {"swinir": swinir_state_dict, "hat": hat_state_dict}[family](obj)
+        return {"swinir": swinir_state_dict, "hat": hat_state_dict,
+                "mambair": mambair_state_dict}[family](obj)
     return params_from_state_dict(obj)
 
 

@@ -52,8 +52,10 @@ import torch
 
 from fast_srgan_torch import quant
 from fast_srgan_torch.checkpoints.convert import state_dict_from_jax_params
+from fast_srgan_torch.kernels.layer_norm import MAX_VECTORS, vector_bytes
+from fast_srgan_torch.kernels.selective_scan import check_kernel_shapes as check_scan_shapes
 from fast_srgan_torch.kernels.window_attn import check_kernel_shapes
-from fast_srgan_torch.models import hat, swinir
+from fast_srgan_torch.models import hat, mambair, swinir
 from fast_srgan_torch.models.generator import Generator
 from fast_srgan_torch.ops.lr_tail import generator_apply_lr_tail, prepare_lr_tail
 from fast_srgan_torch.ops.norm import valid_mask, zero_outside
@@ -68,6 +70,7 @@ STREAM_IN_FLIGHT = 2
 TRANSFORMERS = {
     "swinir": (swinir.arch_from_state_dict, swinir.load_swinir),
     "hat": (hat.arch_from_state_dict, hat.load_hat),
+    "mambair": (mambair.arch_from_state_dict, mambair.load_mambair),
 }
 
 
@@ -101,10 +104,10 @@ def sr_forward_u8(
 def arch_from_params(params: Dict[str, Any]) -> Dict[str, Any]:
     """Read n_filters, n_layers and scale_factor off a generator param tree
     (the neck conv's output features, the ``stem_i`` count, and 2 to the
-    number of ``upsampling_i`` stages). A SwinIR or HAT state_dict (bare, or
-    under ``params_ema`` or ``params``) is told apart by its keys
+    number of ``upsampling_i`` stages). A SwinIR, HAT or MambaIR state_dict
+    (bare, or under ``params_ema`` or ``params``) is told apart by its keys
     (``swinir.family_of``) and gives its module's ``arch_from_state_dict``
-    dict, whose ``family`` is ``"swinir"`` or ``"hat"``."""
+    dict, whose ``family`` is ``"swinir"``, ``"hat"`` or ``"mambair"``."""
     family = swinir.family_of(params)
     if family is not None:
         return TRANSFORMERS[family][0](params)
@@ -127,7 +130,7 @@ class _Replica:
     """The engine's weights on one device."""
 
     device: torch.device
-    model: Generator | swinir.SwinIR | hat.HAT
+    model: Generator | swinir.SwinIR | hat.HAT | mambair.MambaIR
     tail: Optional[Dict[str, Any]] = None
     plan: Optional[quant.PreparedGenerator] = None
     act_scales: Optional[Dict[str, torch.Tensor]] = None
@@ -205,12 +208,13 @@ class SRInferenceEngine:
 
     Args:
       params: generator param tree with numpy leaves (``load_npz_params``),
-        or a SwinIR or HAT state_dict (``models/swinir.py``,
-        ``models/hat.py``; the architecture is read off its keys). These
-        run every entry point but ``bucket`` and ``quantize``, which raise
-        ValueError: zero padding would enter their attention windows, and
-        they have no calibrated int8 tier. On the card, a model whose
-        attention the ``window_attn`` kernel does not take in ``dtype``
+        or a SwinIR, HAT or MambaIR state_dict (``models/swinir.py``,
+        ``models/hat.py``, ``models/mambair.py``; the architecture is read
+        off its keys). These run every entry point but ``bucket`` and
+        ``quantize``, which raise ValueError: zero padding would enter their
+        attention windows or scans, and they have no calibrated int8 tier.
+        On the card, a model whose attention the ``window_attn`` kernel, or
+        whose scan the ``selective_scan`` kernel, does not take in ``dtype``
         (HAT's window 16 in fp32) raises ValueError here.
       dtype: compute dtype, ``torch.bfloat16`` or ``torch.float32``.
       scale_factor: the expected upscale; None takes it from ``params``.
@@ -299,7 +303,7 @@ class SRInferenceEngine:
             )
         self.SCALE = arch["scale_factor"]
         self.dtype = dtype
-        #: "swinir", "hat" or "fsrgan"
+        #: "swinir", "hat", "mambair" or "fsrgan"
         self.family = arch.get("family", "fsrgan")
         if self.family in TRANSFORMERS:
             _refuse_for_transformer(arch, bucket, quantize, dtype, self.devices)
@@ -754,19 +758,31 @@ class SRInferenceEngine:
 
 def _refuse_for_transformer(arch: Dict[str, Any], bucket: int, quantize, dtype: torch.dtype,
                             devices: Sequence[torch.device]) -> None:
-    """The engine's paths a SwinIR or HAT cannot run exactly, refused by
-    the family's name, and on the card an attention the ``window_attn``
-    kernel does not take in ``dtype`` (nothing falls back to its plain
-    version there)."""
+    """The engine's paths a SwinIR, HAT or MambaIR cannot run exactly,
+    refused by the family's name, and on the card an attention the
+    ``window_attn`` kernel, or a scan the ``selective_scan`` kernel, does
+    not take in ``dtype`` (nothing falls back to its plain version there)."""
     name = swinir.FAMILY_NAMES[arch["family"]]
+    scans = arch["family"] == "mambair"
     if bucket:
         raise ValueError(
             f"bucket= does not serve {name}: the zero padding of a bucketed batch would enter"
-            " its attention windows and LayerNorms, so the padded forward is not the"
-            " image's. Use bucket=0.")
+            f" its {'scans' if scans else 'attention windows'} and LayerNorms, so the padded"
+            " forward is not the image's. Use bucket=0.")
     if quantize:
         raise ValueError(f"quantize= does not serve {name}: it has no calibrated int8 tier")
-    if any(d.type == "cuda" for d in devices):
+    if scans and any(d.type == "cuda" for d in devices):
+        inner = int(arch["mlp_ratio"] * arch["embed_dim"])
+        row = inner * torch.finfo(dtype).bits // 8  # out_norm's row, in bytes
+        try:
+            check_scan_shapes((1, 1, 1, inner), arch["dt_rank"], arch["d_state"], dtype)
+            if row // vector_bytes(row) > MAX_VECTORS:
+                raise ValueError(f"layer_norm's kernel takes rows of at most {MAX_VECTORS}"
+                                 f" vectors: out_norm's {inner} channels in {dtype} are {row}"
+                                 " bytes")
+        except ValueError as e:
+            raise ValueError(f"{name} in {dtype} does not run on the card: {e}") from None
+    elif any(d.type == "cuda" for d in devices):
         ws, c = arch["window_size"], arch["embed_dim"]
         try:
             check_kernel_shapes((1, ws, ws, 3 * c), (1, arch["num_heads"][0], ws * ws, ws * ws), 0,

@@ -28,6 +28,7 @@ from fast_srgan_torch.kernels.pixel_shuffle import (
     pixel_shuffle_phase_major_reference,
 )
 from fast_srgan_torch.kernels.quantize import quantize_act, quantize_act_reference
+from fast_srgan_torch.kernels.selective_scan import selective_scan, selective_scan_reference
 from fast_srgan_torch.kernels.tail_epilogue import tail_epilogue, tail_epilogue_reference
 from fast_srgan_torch.kernels.window_attn import window_attn, window_attn_reference
 
@@ -54,6 +55,8 @@ __all__ = [
     "pixel_shuffle_phase_major_reference",
     "quantize_act",
     "quantize_act_reference",
+    "selective_scan",
+    "selective_scan_reference",
     "tail_epilogue",
     "tail_epilogue_reference",
     "window_attn",

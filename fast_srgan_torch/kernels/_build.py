@@ -59,6 +59,8 @@ _TAIL_EPILOGUE = [_P] * 4 + [_I] * 9 + [_P]
 _WINDOW_ATTN = [_P] * 3 + [_I] * 6 + [_F, _P]
 # (x, weight, bias, out, rows (64-bit), C, eps, stream)
 _LAYER_NORM = [_P] * 4 + [ctypes.c_longlong, _I, _F, _P]
+# (u, xdbl, dt_w, dt_b, A, ds, part, out, B, H, W, D, R, flags, stream)
+_SELECTIVE_SCAN = [_P] * 8 + [_I] * 6 + [_P]
 
 #: Every ``extern "C"`` entry point of csrc/*.cu and its argument types, in
 #: order: a pointer (and the stream) is c_void_p, or ctypes would pass it as
@@ -96,6 +98,8 @@ ENTRY_POINTS = {
     "fsr_window_attn16_bf16": _WINDOW_ATTN,
     "fsr_layer_norm_bf16": _LAYER_NORM,
     "fsr_layer_norm_f32": _LAYER_NORM,
+    "fsr_selective_scan_bf16": _SELECTIVE_SCAN,
+    "fsr_selective_scan_f32": _SELECTIVE_SCAN,
 }
 
 _lock = threading.Lock()

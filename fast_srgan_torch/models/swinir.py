@@ -80,8 +80,11 @@ NOT_SWINIR = "not a SwinIR state_dict (no 'conv_first.weight' and 'layers.0.conv
 #: the key that tells HAT's state_dict (``models/hat.py``) from SwinIR's:
 #: its first group's overlapping cross-attention
 HAT_KEY = "layers.0.residual_group.overlap_attn.qkv.weight"
+#: the key that tells MambaIR's state_dict (``models/mambair.py``): its
+#: first SS2D's state matrix
+MAMBAIR_KEY = "layers.0.residual_group.blocks.0.self_attention.A_logs"
 #: each transformer family's name in messages
-FAMILY_NAMES = {"swinir": "SwinIR", "hat": "HAT"}
+FAMILY_NAMES = {"swinir": "SwinIR", "hat": "HAT", "mambair": "MambaIR"}
 #: the published model's buffers, recomputed here for the input's own size
 BUFFERS = ("attn_mask", "relative_position_index")
 _STAGES = {2: 1, 4: 2, 8: 3}
@@ -357,11 +360,11 @@ class SwinIR(nn.Module):
 
 
 def transformer_state_dict(obj: Any) -> Tuple[Optional[str], Optional[Dict[str, Any]]]:
-    """(family, state_dict) of a SwinIR or HAT state_dict in ``obj``: the
-    dict itself, or the one under ``params_ema`` or ``params`` (the published
-    files), ``_orig_mod.`` and ``module.`` prefixes stripped; the family is
-    ``"hat"`` where it holds HAT_KEY, else ``"swinir"``. (None, None) where
-    it holds neither."""
+    """(family, state_dict) of a SwinIR, HAT or MambaIR state_dict in
+    ``obj``: the dict itself, or the one under ``params_ema`` or ``params``
+    (the published files), ``_orig_mod.`` and ``module.`` prefixes stripped;
+    the family is ``"mambair"`` where it holds MAMBAIR_KEY, ``"hat"`` where
+    it holds HAT_KEY, else ``"swinir"``. (None, None) where it holds none."""
     if not isinstance(obj, Mapping):
         return None, None
     for key in ("params_ema", "params"):
@@ -371,17 +374,20 @@ def transformer_state_dict(obj: Any) -> Tuple[Optional[str], Optional[Dict[str, 
     sd = {str(k).replace("_orig_mod.", "").removeprefix("module."): v for k, v in obj.items()}
     if "conv_first.weight" not in sd or "layers.0.conv.weight" not in sd:
         return None, None
+    if MAMBAIR_KEY in sd:
+        return "mambair", sd
     return ("hat" if HAT_KEY in sd else "swinir"), sd
 
 
 def family_of(obj: Any) -> Optional[str]:
-    """``"swinir"``, ``"hat"``, or None where ``obj`` holds neither."""
+    """``"swinir"``, ``"hat"``, ``"mambair"``, or None where ``obj`` holds
+    none of them."""
     return transformer_state_dict(obj)[0]
 
 
 def unwrap_state_dict(obj: Any) -> Optional[Dict[str, Any]]:
     """A SwinIR state_dict from ``obj`` (:func:`transformer_state_dict`);
-    None where it holds no SwinIR, a HAT's included."""
+    None where it holds no SwinIR, a HAT's or a MambaIR's included."""
     family, sd = transformer_state_dict(obj)
     return sd if family == "swinir" else None
 

@@ -250,10 +250,12 @@ class _Tiled:
         if params is not self._params:
             family = family_of(params)
             if family is not None:
+                why = ("scans run the whole row and column, which no halo bounds"
+                       if family == "mambair" else
+                       "shifted windows would need halos of whole windows")
                 raise ValueError(
                     "the width-tiled forward serves the Fast-SRGAN generator only:"
-                    f" {FAMILY_NAMES[family]}'s shifted windows would need halos of whole"
-                    " windows; run it through SRInferenceEngine")
+                    f" {FAMILY_NAMES[family]}'s {why}; run it through SRInferenceEngine")
             self._replicas = {}
             self._params = params
             for d in (d for row in self.rows for d in row):

@@ -124,7 +124,7 @@ def test_kernel_check_takes_the_published_widths(c, dtype):
 
 @pytest.mark.parametrize("c, dtype, vb", [(180, BF16, 8), (144, BF16, 16), (240, BF16, 16),
                                           (60, BF16, 8), (12, BF16, 8), (180, F32, 16),
-                                          (6, F32, 8), (240, F32, 16)])
+                                          (6, F32, 8), (240, F32, 16), (360, BF16, 16)])
 def test_rows_start_on_a_vector(c, dtype, vb):
     """The widest vector that divides the row: every row starts on one."""
     x, weight, bias = _inputs((3,), c, dtype, 5)
@@ -132,6 +132,19 @@ def test_rows_start_on_a_vector(c, dtype, vb):
     assert ln.vector_bytes(row_bytes) == vb and row_bytes % vb == 0
     assert vb == 16 or row_bytes % 16
     ln.check_kernel_inputs(x, weight, bias)
+
+
+@pytest.mark.parametrize("dtype", [BF16, F32], ids=["bf16", "fp32"])
+def test_mambair_out_norm_width_is_in_the_envelope_in_bf16_alone(dtype):
+    """MambaIR's out_norm normalizes its SS2D's D = 360 inner channels: 45
+    vectors of 16 bytes a row in bf16, which the kernel takes; 90 in fp32,
+    past its MAX_VECTORS, which it refuses (and the engine with it)."""
+    x, weight, bias = _inputs((2, 3), 360, dtype, 6)
+    if dtype == BF16:
+        ln.check_kernel_inputs(x, weight, bias)
+    else:
+        with pytest.raises(ValueError, match="exceeds"):
+            ln.check_kernel_inputs(x, weight, bias)
 
 
 REFUSED = [
@@ -266,6 +279,18 @@ def test_kernel_matches_f_layer_norm(case, dtype):
     held(got, F.layer_norm(x, (case[-1],), weight, bias, 1e-5))
     held(got, ln.layer_norm_reference(x, weight, bias, 1e-5))
     assert torch.equal(got, ln.layer_norm(x, weight, bias, 1e-5))  # run to run
+
+
+@pytest.mark.cuda
+def test_kernel_matches_f_layer_norm_at_mambair_out_norm():
+    """MambaIR's out_norm at the cell's size: bf16 [8, 180, 320, 360], the
+    port's first LayerNorm of 360 channels (45 vectors of 16 bytes a row)."""
+    _card()
+    x, weight, bias = _card_inputs((8, 180, 320, 360), BF16, 360)
+    got = ln.layer_norm(x, weight, bias, 1e-5)
+    held(got, F.layer_norm(x, (360,), weight, bias, 1e-5))
+    held(got, ln.layer_norm_reference(x, weight, bias, 1e-5))
+    assert torch.equal(got, ln.layer_norm(x, weight, bias, 1e-5))
 
 
 @pytest.mark.cuda
