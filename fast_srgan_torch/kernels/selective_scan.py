@@ -28,12 +28,18 @@ plain version, the chunks' walks; the carried state and the correction stay
 fp32).
 
 The kernel (``csrc/selective_scan.cu``) makes one launch for all four
-orders: it copies u and xdbl at each order's tokens by address (no gathered,
-flipped or transposed copy), walks each channel's sequence with its 16
-states in the registers of four lanes, one exponential a state update, and
-sums the four orders in fp32 in the order above before it rounds once. It takes bf16 and
-fp32, D a multiple of 8, N = 16 and R a multiple of 4 up to 16 (every
-published MambaIR: D = 360 or 120, R = 12 or 4), any H and W.
+orders, a block of four warps (one an order) a frame and 8 channels: it
+copies each order's xdbl rows and u at its tokens by address (no gathered,
+flipped or transposed copy), 32 steps at a time, the warp's lanes on
+consecutive pieces of the rows; computes the chunk's deltas on the tensor
+cores in bf16 (dt_w split in three bf16 parts) or by FMAs in fp32, then
+walks each channel's sequence with its 16 states in the registers of four
+lanes, one exponential a state update, and writes each order's y to its own
+fp32 plane of the scratch (one value a token, order and channel); the block
+then sums the four orders in fp32 in the order above and rounds once. It
+takes bf16 and fp32, D a multiple of 8, N = 16 and R one of
+:data:`KERNEL_RANKS` (every published MambaIR: D = 360 or 120, R = 12 or 4),
+any H and W.
 
 The ``torch.library`` op ``fast_srgan::selective_scan`` dispatches on the
 tensor: its CPU implementation is the plain version; its CUDA one launches
@@ -56,12 +62,11 @@ CHUNK = 32
 CARRY = True
 #: the state rounded to bf16 at each update (True only in a planted control)
 STATE_BF16 = False
-#: what the kernel takes: states, the largest dt rank and its multiple (an
-#: xdbl row of a multiple of 8 bytes, copied in 8- or 16-byte pieces), the
+#: what the kernel takes: states, the dt ranks it is built for (a multiple
+#: of 4 up to 16: an xdbl row is copied in pieces of four values), the
 #: channel multiple
 KERNEL_STATES = 16
-KERNEL_MAX_RANK = 16
-KERNEL_RANK_MULTIPLE = 4
+KERNEL_RANKS = (4, 8, 12, 16)
 KERNEL_CHANNEL_MULTIPLE = 8
 _DTYPES = (torch.bfloat16, torch.float32)
 
@@ -104,9 +109,9 @@ def check_kernel_shapes(u_shape: Sequence[int], rank: int, states: int,
         raise ValueError(f"selective_scan's kernel takes bf16 or fp32, not {dtype}")
     if states != KERNEL_STATES:
         raise ValueError(f"selective_scan's kernel takes N = {KERNEL_STATES} states, not {states}")
-    if not 1 <= rank <= KERNEL_MAX_RANK or rank % KERNEL_RANK_MULTIPLE:
-        raise ValueError(f"selective_scan's kernel takes a dt rank that is a multiple of"
-                         f" {KERNEL_RANK_MULTIPLE} up to {KERNEL_MAX_RANK}, not {rank}")
+    if rank not in KERNEL_RANKS:
+        raise ValueError(f"selective_scan's kernel takes a dt rank that is a multiple of 4 up to"
+                         f" 16, not {rank}")
     if d % KERNEL_CHANNEL_MULTIPLE:
         raise ValueError(f"selective_scan's kernel takes D a multiple of"
                          f" {KERNEL_CHANNEL_MULTIPLE}, not {d}")

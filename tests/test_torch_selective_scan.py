@@ -142,6 +142,8 @@ KERNEL_FAULTS = {
     "8 states": ((1, 2, 3, 360), 12, 8, BF16, "N = 16"),
     "rank 20": ((1, 2, 3, 360), 20, 16, BF16, "multiple of 4 up to 16"),
     "rank 6": ((1, 2, 3, 360), 6, 16, BF16, "multiple of 4 up to 16"),
+    "rank 2": ((1, 2, 3, 360), 2, 16, BF16, "multiple of 4 up to 16"),
+    "rank 14": ((1, 2, 3, 360), 14, 16, F32, "multiple of 4 up to 16"),
     "D 364": ((1, 2, 3, 364), 12, 16, BF16, "multiple of 8"),
 }
 
@@ -158,6 +160,15 @@ def test_kernel_envelope_refuses(case):
 def test_kernel_envelope_takes_the_published_widths(width, dtype):
     d, r = width
     ss.check_kernel_shapes((8, 180, 320, d), r, 16, dtype)
+
+
+@pytest.mark.parametrize("dtype", [BF16, F32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("rank", ss.KERNEL_RANKS)
+def test_kernel_envelope_takes_each_rank_it_is_built_for(rank, dtype):
+    """The checks let each rank of ``KERNEL_RANKS`` through, at a D that is no
+    multiple of 16; that the kernel has an instantiation of each is what the
+    card cases show (``CARD_CASES`` runs every rank in bf16 and fp32)."""
+    ss.check_kernel_shapes((1, 3, 5, 24), rank, 16, dtype)
 
 
 # -- on the card ---------------------------------------------------------------
@@ -185,8 +196,13 @@ def held(got, want, dtype):
         assert err.max().item() <= 1e-5 * scale
 
 
+# the published SS2D; maps shorter than a chunk; L not a multiple of the
+# 32-step chunk (65 = two chunks and one step, 97 = three and one, the middle
+# step 48 inside the second); D = 8 (one group), 24 and 40 (no multiple of
+# 16), 120 (MambaIR-light); every rank 4, 8, 12, 16; batches of 1, 2 and 3
 CARD_CASES = [(8, 180, 320, 360, 12, 16), (1, 7, 5, 8, 12, 16), (2, 3, 4, 40, 4, 16),
-              (1, 33, 65, 120, 4, 16), (3, 1, 1, 16, 16, 16)]
+              (1, 33, 65, 120, 4, 16), (3, 1, 1, 16, 16, 16), (1, 1, 65, 8, 16, 16),
+              (3, 97, 1, 24, 8, 16), (1, 13, 5, 8, 8, 16), (3, 20, 24, 120, 12, 16)]
 
 
 @pytest.mark.cuda
@@ -206,12 +222,54 @@ def test_kernel_matches_the_plain_version(case, dtype):
     assert torch.equal(got, ss.selective_scan(*args))  # run to run
 
 
+#: share of the bf16 kernel's values at the published SS2D that may differ
+#: from the plain version's fp32 y on the same inputs rounded once to bf16
+BF16_OFF_SHARE = 1.6e-4
+
+
+@pytest.mark.cuda
+def test_kernel_keeps_fp32_deltas_in_bf16():
+    """In bf16 the kernel projects dt on the tensor cores, dt_w split in three
+    bf16 parts; its y has to round as the fp32 plain version's does. On the
+    published SS2D (seeds 2800000404, -505, -606; NVIDIA H100) the share of
+    values off the plain version's rounded y read 1.11e-4 to 1.12e-4, the
+    deltas by fp32 FMAs 1.07e-4; two parts of dt_w 2.22e-4 to 2.25e-4, one
+    part 0.057 to 0.061, every delta 1e-5 too large 9.8e-4 to 1.01e-3, the
+    deltas rounded to bf16 0.103 to 0.106. The limit lies between three parts
+    and two."""
+    _card()
+    u, xdbl, *rest = _inputs(8, 180, 320, 360, 12, 16, seed=2800000404, device="cuda", dtype=BF16)
+    got = ss.selective_scan(u, xdbl, *rest)
+    want = ss.selective_scan_reference(u.float(), xdbl.float(), *rest).to(BF16)
+    assert (got != want).float().mean().item() <= BF16_OFF_SHARE
+
+
 @pytest.mark.cuda
 def test_kernel_drops_the_carry_as_the_plain_version(monkeypatch):
     _card()
     monkeypatch.setattr(ss, "CARRY", False)
     args = _inputs(1, 20, 24, 40, 4, 16, seed=3, device="cuda")
     held(ss.selective_scan(*args), ss.selective_scan_reference(*args), F32)
+
+
+@pytest.mark.cuda
+def test_kernel_rounds_the_state_when_planted(monkeypatch):
+    """The planted bf16 state (the benchmark's control) moves the kernel's
+    fp32 output as it moves the plain version's, within a factor of 4, and far
+    past the fp32 limit; the plain version rounds only its chunks' walks, so
+    the two faults are not compared value by value (on small maps the
+    kernel's moves by 0.5e-3 to 1e-3 of the largest |y|, 0.5 to 1.8 times the
+    plain version's)."""
+    _card()
+    args = _inputs(1, 20, 24, 40, 4, 16, seed=3, device="cuda")
+    base, ref = ss.selective_scan(*args), ss.selective_scan_reference(*args)
+    monkeypatch.setattr(ss, "STATE_BF16", True)
+    fault, ref_fault = ss.selective_scan(*args), ss.selective_scan_reference(*args)
+    assert torch.equal(fault, ss.selective_scan(*args))
+    scale = ref.abs().max().item()
+    moved = (fault - base).abs().max().item() / scale
+    plain_moved = (ref_fault - ref).abs().max().item() / scale
+    assert moved > 1e-4 and 0.25 < moved / plain_moved < 4
 
 
 @pytest.mark.cuda
